@@ -1,0 +1,99 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function computes exactly what its hand-written CUDA kernel computes,
+in plain tensor ops with fp32 math.  The CPU path of :mod:`ops` runs them,
+and ``chip_smoke.py`` holds every kernel against them on the card.  They are
+ports of ``repro.kernels.ref`` and keep its semantics, out-of-range
+handling included: an out-of-range gather index is clamped, as JAX does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+POS_EMPTY = -(2 ** 30)   # position of an empty cache entry (always masked)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, bias: torch.Tensor | None = None,
+           activation: str | None = None, out_dtype=None) -> torch.Tensor:
+    """Plain ``kraken_gemm``: fp32-accumulated ``a @ b`` + optional epilogue.
+
+    ``gelu`` is the tanh approximation (``repro.kernels.ref.matmul``), not
+    ``torch.nn.functional.gelu``'s default erf form.
+    """
+    out = a.to(torch.float32) @ b.to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    if activation == "relu":
+        out = torch.clamp_min(out, 0.0)
+    elif activation == "silu":
+        out = out * torch.reciprocal(1.0 + torch.exp(-out))
+    elif activation == "gelu":
+        out = 0.5 * out * (1.0 + torch.tanh(
+            0.7978845608028654 * (out + 0.044715 * out ** 3)))
+    elif activation is not None:
+        raise ValueError(activation)
+    return out.to(out_dtype or a.dtype)
+
+
+def paged_decode_attention(q, k_pages, v_pages, *, pos_pages, page_table,
+                           q_pos, k_scale=None, v_scale=None,
+                           window: int = 0) -> torch.Tensor:
+    """Plain ``paged_decode_attention``: gather the pool through the table,
+    then exact one-token attention.
+
+    q: [B, H, D]; k_pages/v_pages: [n_pages, KV, ps, D]; pos_pages:
+    [n_pages, ps]; page_table: [B, MP] (sentinel ``n_pages`` = dead page);
+    scales: [n_pages, KV, ps] or None; q_pos: [B] (or a scalar).  Dead
+    pages gather clamped garbage under an all-masked position row, so a
+    slot with no live page returns zeros.
+    """
+    n_pages, kvh, ps, d = k_pages.shape
+    b, mp = page_table.shape
+    tbl = page_table.long().clamp(0, n_pages - 1)
+    live = (page_table < n_pages).repeat_interleave(ps, dim=1)   # [B, MP*ps]
+    k = k_pages[tbl].permute(0, 2, 1, 3, 4).reshape(b, kvh, mp * ps, d)
+    v = v_pages[tbl].permute(0, 2, 1, 3, 4).reshape(b, kvh, mp * ps, d)
+    pos = torch.where(live, pos_pages[tbl].reshape(b, mp * ps),
+                      torch.full_like(live, POS_EMPTY, dtype=torch.int32))
+    ks = vs = None
+    if k_scale is not None:
+        ks = k_scale[tbl].permute(0, 2, 1, 3).reshape(b, kvh, mp * ps)
+        vs = v_scale[tbl].permute(0, 2, 1, 3).reshape(b, kvh, mp * ps)
+    qp = torch.as_tensor(q_pos, dtype=torch.int32, device=q.device)
+    qp = qp.reshape(-1).expand(b)
+    return decode_attention(q, k, v, kv_pos=pos, q_pos=qp, k_scale=ks,
+                            v_scale=vs, window=window)
+
+
+def decode_attention(q, k, v, *, kv_pos, q_pos, k_scale=None, v_scale=None,
+                     window: int = 0) -> torch.Tensor:
+    """One-token GQA attention over a (possibly int8) KV cache, fp32 math.
+
+    q: [B, H, D]; k/v: [B, KV, S, D]; scales: [B, KV, S] or None.  kv_pos:
+    [S] shared or [B, S] per slot; q_pos: a scalar or [B].  The masked
+    softmax uses -inf and turns NaN into 0, so a slot with no live entry
+    gives exact zeros.
+    """
+    b, h, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    g = h // kvh
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    if k_scale is not None:
+        kf = kf * k_scale[..., None]
+        vf = vf * v_scale[..., None]
+    qg = q.reshape(b, kvh, g, d).to(torch.float32)
+    logits = torch.einsum("bkgd,bksd->bkgs", qg, kf) / math.sqrt(d)
+    kvp = kv_pos if kv_pos.dim() == 2 else kv_pos[None, :]
+    qp = torch.as_tensor(q_pos, device=q.device).reshape(-1, 1)
+    mask = (kvp >= 0) & (kvp <= qp)
+    if window:
+        mask = mask & (kvp > qp - window)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
+    out = torch.einsum("bkgs,bksd->bkgd", p, vf)
+    return out.reshape(b, h, d).to(q.dtype)

@@ -1,0 +1,381 @@
+"""Model building blocks on the serving main path: RMSNorm, RoPE, the
+uniform-GEMM dense layer, GQA attention over paged KV pools, and the
+SwiGLU MLP.
+
+A port of ``repro.models.layers`` for the dense GQA decoder (layernorm,
+sinusoidal positions and the gelu MLP come with musicgen, ROADMAP Queue 1
+item 8).  Every matmul
+goes through :func:`dense`, which calls ``kernels.matmul`` -- by default
+:func:`repro_torch.kernels.ops.kraken_matmul`, the hand-written
+``kraken_gemm`` on CUDA tensors -- with the activation fused in its
+epilogue.  Decode attention reads the page pools through
+``kernels.paged_attention`` (the hand-written ``paged_decode_attention``).
+Callers may pass other ``Kernels`` (the plain versions) to compare.
+
+Unlike the JAX version, the paged paths update the pools **in place**
+(``index_put_``): JAX rebuilt every pool functionally and relied on buffer
+donation to alias it.  Out-of-range indices follow JAX's rules exactly with
+a fixed-shape scheme: every pool holds one extra *trash page* at index
+``n_pages`` that absorbs the writes JAX drops (``mode="drop"``), and every
+gather through a page table clamps to ``n_pages - 1``, as JAX clamps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+Params = dict
+
+POS_EMPTY = -(2 ** 30)   # position of an empty cache entry (always masked)
+
+
+class Kernels(NamedTuple):
+    """The two kernel entry points the model calls."""
+    matmul: Callable
+    paged_attention: Callable
+
+
+DEFAULT_KERNELS = Kernels(ops.kraken_matmul, ops.kraken_paged_attention)
+
+
+class Spec(NamedTuple):
+    """Parameter spec: shape + logical axes + init scale."""
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    scale: float = 1.0  # stddev multiplier on 1/sqrt(fan_in); 0 -> zeros, -1 -> ones
+
+
+def init_param(generator: torch.Generator, spec: Spec, dtype,
+               device) -> torch.Tensor:
+    """A parameter drawn like ``repro``'s ``init_param`` (normal with
+    stddev ``scale / sqrt(fan_in)``, in fp32, then cast), from ``generator``
+    (which must live on ``device``)."""
+    if spec.scale == 0.0:
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.scale == -1.0:
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    fan_in = spec.shape[0] if len(spec.shape) == 1 else spec.shape[-2]
+    std = spec.scale / math.sqrt(max(1, fan_in))
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * gamma.to(torch.float32)).to(x.dtype)
+
+
+def apply_norm(cfg, params: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, params[f"{prefix}_gamma"], cfg.norm_eps)
+
+
+def norm_specs(cfg, prefix: str) -> dict[str, Spec]:
+    return {f"{prefix}_gamma": Spec((cfg.d_model,), ("embed",), -1.0)}
+
+
+# ---------------------------------------------------------------------------
+# Positional encodings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Half-split RoPE.  x: [..., S, D]; positions: [S] shared across the
+    batch, or [B, S] per slot."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs   # [..., S, half]
+    if positions.dim() == 2:   # [B, S, half] -> broadcast over the heads dim
+        ang = ang[:, None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The uniform-GEMM dense layer
+# ---------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None,
+          activation: str | None = None,
+          kernels: Kernels = DEFAULT_KERNELS) -> torch.Tensor:
+    """x: [..., K] @ w: [K, N] through ``kraken_gemm``, bias and activation
+    fused in its epilogue."""
+    lead = x.shape[:-1]
+    out = kernels.matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
+                         bias=bias, activation=activation)
+    return out.reshape(*lead, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; causal self-attention and paged-cache serving)
+# ---------------------------------------------------------------------------
+
+def attention_specs(cfg, prefix: str = "attn") -> dict[str, Spec]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = {
+        f"{prefix}_wq": Spec((d, h * hd), ("embed", "qkv")),
+        f"{prefix}_wk": Spec((d, kv * hd), ("embed", "qkv")),
+        f"{prefix}_wv": Spec((d, kv * hd), ("embed", "qkv")),
+        f"{prefix}_wo": Spec((h * hd, d), ("qkv", "embed")),
+    }
+    if cfg.qkv_bias:
+        s[f"{prefix}_bq"] = Spec((h * hd,), ("qkv",), 0.0)
+        s[f"{prefix}_bk"] = Spec((kv * hd,), ("qkv",), 0.0)
+        s[f"{prefix}_bv"] = Spec((kv * hd,), ("qkv",), 0.0)
+    return s
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, hd).transpose(1, 2)   # [B, H, S, D]
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
+    """Causal attention by position: q [B,H,Sq,D], k/v [B,KV,Sk,D], fp32
+    scores; key ``j`` is visible to query ``i`` when ``0 <= kv_pos[j] <=
+    q_pos[i]`` (and inside ``window`` when one is set).
+
+    Masked scores are -1e30, not -inf, so a row with nothing to attend to
+    (an idle slot) stays finite, as in the JAX version.  The probabilities
+    are rounded to the compute dtype before the value product, as there.
+    """
+    b, h, sq, d = q.shape
+    kvh = k.shape[1]
+    group = h // kvh
+    qg = q.reshape(b, kvh, group, sq, d)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(d)
+    # positions may be shared ([Sq]/[Sk]) or per slot ([B, Sq]/[B, Sk])
+    qp = q_pos[None, :, None] if q_pos.dim() == 1 else q_pos[:, :, None]
+    kp = kv_pos[None, None, :] if kv_pos.dim() == 1 else kv_pos[:, None, :]
+    mask = (kp <= qp) & (kp >= 0)   # kp >= 0 excludes empty entries
+    if window:
+        mask = mask & (kp > qp - window)
+    logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd",
+                       probs.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """A dense, position-identity block of K/V rows (what
+    ``scatter_prefill`` writes into the pages): k/v [B, KV, S, D], pos
+    [B, S] or [S]."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block/paged decode cache for one attention layer (serving engine).
+
+    ``k, v``: [n_pages + 1, KV, page_size, D] -- a pool of fixed-size pages
+    shared by every serving slot, plus the trash page at index ``n_pages``
+    (module docstring).  ``pos``: [n_pages + 1, page_size] absolute token
+    position per entry (-2^30 = empty).  ``page_table``: [n_slots,
+    max_pages] int32 physical page per (slot, logical page); rows of
+    unallocated slots hold the sentinel ``n_pages``, so their writes land in
+    the trash page and their reads are dead.  Token position ``p`` of a slot
+    lives at logical index ``p % logical_len`` (ring semantics).  The
+    tensors are updated in place.  int8 pools (``k_scale``/``v_scale`` in
+    the JAX version) are not ported yet (ROADMAP Queue 1 item 5).
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    page_table: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def logical_len(self) -> int:
+        return self.page_table.shape[1] * self.k.shape[2]
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[0] - 1   # the last page is the trash page
+
+
+def _gather_pool_view(cache: PagedKVCache, bsz: int, kvh: int, hd: int):
+    """Per-slot contiguous view of the pool: (k, v [B, KV, L, D], pos
+    [B, L]).  Sentinel entries clamp to page ``n_pages - 1``, as JAX's
+    gather does; their positions are garbage the mask never admits for a
+    live query."""
+    logical = cache.logical_len
+    tbl = cache.page_table.long().clamp(0, cache.n_pages - 1)
+    kg = cache.k[tbl].permute(0, 2, 1, 3, 4).reshape(bsz, kvh, logical, hd)
+    vg = cache.v[tbl].permute(0, 2, 1, 3, 4).reshape(bsz, kvh, logical, hd)
+    posg = cache.pos[tbl].reshape(bsz, logical)
+    return kg, vg, posg
+
+
+def _paged_chunk(cfg, cache: PagedKVCache, q, k, v, *, positions, lengths,
+                 window: int):
+    """Prefill one chunk against a paged cache: each row attends over its
+    already-written pages plus the causal in-chunk block, then its valid
+    K/V are scattered into the pages (attend before scatter: with ring wrap
+    a chunk may evict positions its own earlier queries still need).
+
+    ``positions`` [B, S] are global (row ``b`` holds ``starts[b] +
+    arange(S)``); ``lengths[b]`` of the S tokens are real (0 for an idle
+    row, whose state is untouched).  Returns (out, cache), the cache
+    updated in place.
+    """
+    from repro_torch.serving.paged_kv import scatter_prefill
+    b, kvh, s, hd = k.shape
+    if positions.dim() != 2:
+        raise ValueError("paged chunk prefill needs per-slot [B, S] "
+                         "positions (global: starts[b] + arange(S))")
+    positions = positions.to(torch.int32)
+    starts = positions[:, 0]
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=k.device)
+    lengths = lengths.to(torch.int32)
+
+    kg, vg, posg = _gather_pool_view(cache, b, kvh, hd)
+    # in-chunk keys past a row's length are masked by the empty position:
+    # an idle row (length 0) has no valid query to hide behind
+    j = torch.arange(s, dtype=torch.int32, device=k.device)
+    in_pos = torch.where(j[None, :] < lengths[:, None], positions,
+                         torch.full_like(positions, POS_EMPTY))
+    k_all = torch.cat([kg, k.to(kg.dtype)], dim=2)
+    v_all = torch.cat([vg, v.to(vg.dtype)], dim=2)
+    pos_all = torch.cat([posg, in_pos], dim=1)
+    out = _gqa_sdpa_direct(q, k_all, v_all, window=window, q_pos=positions,
+                           kv_pos=pos_all)
+    dense_rows = KVCache(k=k, v=v, pos=in_pos)
+    scatter_prefill(cache, dense_rows,
+                    torch.arange(b, dtype=torch.int32, device=k.device),
+                    lengths, starts=starts)
+    return out, cache
+
+
+def _paged_decode(cfg, cache: PagedKVCache, q, k, v, *, positions,
+                  window: int, lengths=None,
+                  kernels: Kernels = DEFAULT_KERNELS):
+    """One-token decode against a paged cache: write the new K/V into each
+    slot's page (in place), then attend straight off the page pools with
+    ``kernels.paged_attention``.
+
+    ``positions`` must be per slot [B, 1].  Rows of unallocated slots carry
+    the sentinel in their table row, so their writes go to the trash page
+    and their attention reads nothing.  ``lengths`` ([B], the live mask)
+    additionally sends the writes of rows with ``lengths == 0`` to the
+    trash page -- a slot mid-prefill holds a live table row that a decode
+    step it does not take part in must not touch.
+    """
+    if positions.dim() != 2:
+        raise ValueError("paged decode needs per-slot [B, 1] positions")
+    if k.shape[2] != 1:
+        raise ValueError("paged cache decode is one token per slot; chunk "
+                         "prefill goes through _paged_chunk")
+    bsz = q.shape[0]
+    ps = cache.page_size
+    n_pages = cache.n_pages
+    pvec = positions[:, 0].to(torch.int32)                       # [B]
+    li = pvec % cache.logical_len                                 # ring slot
+    rows = torch.arange(bsz, device=q.device)
+    pp = cache.page_table[rows, (li // ps).long()].long()         # [B]
+    if lengths is not None:
+        pp = torch.where(lengths > 0, pp, torch.full_like(pp, n_pages))
+    off = (li % ps).long()
+    cache.k[pp, :, off] = k[:, :, 0].to(cache.k.dtype)
+    cache.v[pp, :, off] = v[:, :, 0].to(cache.v.dtype)
+    cache.pos[pp, off] = pvec
+    out = kernels.paged_attention(
+        q[:, :, 0].contiguous(), cache.k[:n_pages], cache.v[:n_pages],
+        pos_pages=cache.pos[:n_pages], page_table=cache.page_table,
+        q_pos=pvec, window=window)[:, :, None]
+    return out, cache
+
+
+def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
+              positions: torch.Tensor, window: int = 0,
+              cache: PagedKVCache | None = None,
+              lengths: torch.Tensor | None = None,
+              kernels: Kernels = DEFAULT_KERNELS):
+    """One attention layer through the uniform-GEMM projections.
+
+    Modes: causal self-attention over x (no cache); paged decode (cache
+    given, one token per slot, per-slot [B, 1] positions); paged chunk
+    prefill (cache given, S > 1, per-slot [B, S] positions, ``lengths``
+    real tokens per row).  Returns (y, cache).
+    """
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(x, params[f"{prefix}_wq"], bias=params.get(f"{prefix}_bq"),
+              kernels=kernels)
+    k = dense(x, params[f"{prefix}_wk"], bias=params.get(f"{prefix}_bk"),
+              kernels=kernels)
+    v = dense(x, params[f"{prefix}_wv"], bias=params.get(f"{prefix}_bv"),
+              kernels=kernels)
+    q = _split_heads(q, h, hd)
+    k = _split_heads(k, kv, hd)
+    v = _split_heads(v, kv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if isinstance(cache, PagedKVCache):
+        if k.shape[2] == 1:
+            out, cache = _paged_decode(cfg, cache, q, k, v,
+                                       positions=positions, window=window,
+                                       lengths=lengths, kernels=kernels)
+        else:
+            out, cache = _paged_chunk(cfg, cache, q, k, v,
+                                      positions=positions, lengths=lengths,
+                                      window=window)
+    elif cache is not None:
+        raise NotImplementedError(
+            "the dense KVCache decode path is not ported yet (ROADMAP "
+            "Queue 1 item 5)")
+    else:
+        out = _gqa_sdpa_direct(q, k, v, window=window, q_pos=positions,
+                               kv_pos=positions)
+    y = dense(_merge_heads(out), params[f"{prefix}_wo"], kernels=kernels)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg, prefix: str = "mlp") -> dict[str, Spec]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        f"{prefix}_wi_gate": Spec((d, f), ("embed", "mlp")),
+        f"{prefix}_wi_up": Spec((d, f), ("embed", "mlp")),
+        f"{prefix}_wo": Spec((f, d), ("mlp", "embed")),
+    }
+
+
+def mlp(cfg, params: Params, prefix: str, x: torch.Tensor, *,
+        kernels: Kernels = DEFAULT_KERNELS) -> torch.Tensor:
+    """SwiGLU: the gate's silu runs in its GEMM's epilogue."""
+    gate = dense(x, params[f"{prefix}_wi_gate"], activation="silu",
+                 kernels=kernels)
+    up = dense(x, params[f"{prefix}_wi_up"], kernels=kernels)
+    return dense(gate * up, params[f"{prefix}_wo"], kernels=kernels)

@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
+kernel has no CPU mode.  On a machine with one (and ``nvcc``):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX, so it runs where only PyTorch is installed.
+``chip_smoke.py`` makes the same comparisons at the yi-6b shapes.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+POS_EMPTY = -(2 ** 30)
+
+
+def ring_pool(rng, *, b, kvh, d, ps, mp, q_pos, dead, sentinel_entry, quant):
+    """Numpy page pools as token-by-token serving leaves them: shuffled
+    pages, ring positions 0..q_pos[i] written per slot (a slot whose q_pos
+    passes mp * ps wraps), sentinel rows for ``dead`` slots, one sentinel
+    entry ``(slot, logical page)`` inside a live row, POS_EMPTY everywhere
+    unwritten.  Returns (k, v, pos, table, k_scale, v_scale)."""
+    n_pages = b * mp + 3
+    logical = mp * ps
+    table = np.full((b, mp), n_pages, np.int32)
+    perm = rng.permutation(n_pages)
+    for i in range(b):
+        if i not in dead:
+            table[i] = perm[i * mp:(i + 1) * mp]
+    i, j = sentinel_entry
+    table[i, j] = n_pages
+    pos = np.full((n_pages, ps), POS_EMPTY, np.int32)
+    for i in range(b):
+        if i in dead:
+            continue
+        for p in range(q_pos[i] + 1):
+            li = p % logical
+            page = table[i, li // ps]
+            if page < n_pages:
+                pos[page, li % ps] = p
+    shape = (n_pages, kvh, ps, d)
+    if quant:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = (rng.random(shape[:3]) / 127).astype(np.float32)
+        vs = (rng.random(shape[:3]) / 127).astype(np.float32)
+        return k, v, pos, table, ks, vs
+    k = rng.normal(size=shape).astype(np.float32)
+    v = rng.normal(size=shape).astype(np.float32)
+    return k, v, pos, table, None, None
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# bf16: both round one fp32 sum to bf16, summed in another order (1 ulp);
+# fp32: sums of <= 200 products in another order
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_kernel_matches_plain(dtype):
+    from repro_torch.kernels import kraken_gemm as tkg
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    before = tkg.launches
+    for (m, k, n) in ((4, 256, 512), (37, 200, 123), (64, 136, 72)):
+        a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+        bias = torch.randn((n,), generator=g, device=dev).to(dtype)
+        for act in (None, "relu", "silu", "gelu"):
+            for bv in (None, bias):
+                got = tkg.kraken_gemm(a, b, bias=bv, activation=act)
+                want = ref.matmul(a, b, bias=bv, activation=act)
+                torch.testing.assert_close(got, want, rtol=TOL[dtype],
+                                           atol=TOL[dtype])
+    assert tkg.launches == before + 3 * 4 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+def test_paged_attention_kernel_matches_plain(kv):
+    from repro_torch.kernels import paged_attention as tpa
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    quant = kv == "int8"
+    qdt = torch.float32 if kv == "float32" else torch.bfloat16
+    k, v, pos, table, ks, vs = ring_pool(
+        rng, b=4, kvh=2, d=16, ps=4, mp=4, q_pos=[9, 21, 6, 3], dead={2},
+        sentinel_entry=(3, 0), quant=quant)
+
+    def put(a, dt=None):
+        t = torch.from_numpy(a).to(dev)
+        return t.to(dt) if dt is not None else t
+
+    kt = put(k) if quant else put(k, qdt)
+    vt = put(v) if quant else put(v, qdt)
+    q = put(rng.normal(size=(4, 4, 16)).astype(np.float32), qdt)
+    kw = dict(pos_pages=put(pos), page_table=put(table),
+              q_pos=torch.tensor([9, 21, 6, 3], dtype=torch.int32,
+                                 device=dev),
+              k_scale=put(ks) if quant else None,
+              v_scale=put(vs) if quant else None)
+    for window in (0, 5):
+        got = tpa.paged_decode_attention(q, kt, vt, window=window, **kw)
+        want = ref.paged_decode_attention(q, kt, vt, window=window, **kw)
+        torch.testing.assert_close(got, want, rtol=TOL[qdt], atol=TOL[qdt])
+        assert not got[2].any()          # the all-dead slot is exact zero
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_the_cpu():
+    """The f32 yi-6b smoke engine through the CUDA kernels emits the same
+    greedy tokens as through the plain versions on the CPU."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.kernels import kraken_gemm as tkg
+    from repro_torch.kernels import paged_attention as tpa
+    from repro_torch.models.model import Model
+    from repro_torch.serving import CacheConfig, EngineConfig, PagedEngine
+    dev = _cuda()
+    cfg = dataclasses.replace(smoke_config(get_arch("yi-6b")),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    config = EngineConfig(slots=2, chunk=4,
+                          cache=CacheConfig(page_size=4, max_len=32))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (3, 5, 9, 12)]
+    outs = []
+    for p in (params, _to(params, dev)):
+        eng = PagedEngine(model, p, config=config)
+        for pr in prompts:
+            eng.submit(pr, 5)
+        outs.append(eng.run_until_idle())
+    assert outs[0] == outs[1] and len(outs[0]) == 4
+    assert tkg.launches > 0 and tpa.launches > 0
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
