@@ -7,20 +7,35 @@
 Phases, one report line each (details go to ``<out>/chip_smoke.json``,
 default ``build/chip_smoke/``):
 
-1. ``build``    -- compile every CUDA kernel of the main path from
+1. ``build``    -- compile every CUDA kernel of the served paths from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once) and print
    the card's name and power limit.
-2. ``kernels``  -- hold each kernel against its plain PyTorch version on the
-   card at the yi-6b main-path shapes, in bfloat16 and float32, and time it
-   (CUDA events) beside the plain version, one library call and its bound.
-3. ``serve``    -- serve full-width, full-depth yi-6b (bf16, seeded random
+2. ``kernels``  -- hold ``kraken_gemm`` and ``paged_decode_attention``
+   against their plain PyTorch versions on the card at the yi-6b main-path
+   shapes, in bfloat16 and float32, and time them (CUDA events) beside the
+   plain version, one library call and the bound.
+3. ``moe_kernels`` -- the same for ``grouped_moe_gemm`` at the mixtral and
+   llama4 expert shapes, decode and mixed-step capacities, bfloat16, float32
+   and int8 (exact), with skewed, empty, past-capacity and all-empty sizes;
+   and for the two other kernels at the mixtral path's shapes.
+4. ``serve``    -- serve full-width, full-depth yi-6b (bf16, seeded random
    weights) through ``repro_torch``'s PagedEngine: 4 slots, page 16,
    max_len 512, chunk 64, 8 requests of 17-300 prompt tokens, 16 new tokens,
    twice through one engine; every kernel of the path must have launched.
-4. ``e2e``      -- one mixed step's and one decode step's logits through the
+5. ``e2e``      -- one mixed step's and one decode step's logits through the
    kernels and again through the plain versions, on the card.
-5. ``profile``  -- ``torch.profiler`` over one more pass of the serve
-   phase's warm engine: device time by kernel and the device's busy share.
+6. ``profile``  -- ``torch.profiler`` over one more pass of the serve
+   phase's warm engine: device time by kernel and the device's busy share
+   (and, with ``moe_serve``, over one more warm mixtral pass).
+7. ``moe_serve`` -- release yi-6b, then serve mixtral-8x22b at full width
+   and 8 of its 56 layers (20.4 B parameters, bf16) with the same engine
+   and traffic; every MoE layer's expert FFN must go through
+   ``grouped_moe_gemm``, three launches per layer per step.
+8. ``moe_e2e``  -- every MoE layer of one mixed and one decode step fed the
+   same input through the kernel block and the plain block (one of them
+   under ``torch.cuda.set_sync_debug_mode("error")``), then the whole
+   model's logits, kernels against plain versions, with the routing
+   choices that differ counted.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -43,6 +58,7 @@ ROOT = Path(__file__).resolve().parent
 # them, and HBM3 bandwidth
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 # yi-6b main-path widths: d_model 4096, 32 heads / 4 KV heads of 128,
@@ -59,6 +75,34 @@ GEMMS = [("wq|wo", 4096, 4096, None, 2 * LAYERS),
          ("up", 4096, 11008, None, LAYERS),
          ("down", 11008, 4096, None, LAYERS),
          ("unembed", 4096, 64000, None, 1)]
+# mixtral-8x22b served at full width and MOE_LAYERS of its 56 layers; the
+# grouped GEMM cases: (name, E, C, d, f, sizes, uses per MoE layer at decode)
+MOE_LAYERS = 8
+# the mixtral path's other kernels at its shapes: (name, K, N, calls per
+# decode step) for kraken_gemm, and 48/8 heads of 128 under the 4096 window
+# for paged_decode_attention
+MIXTRAL_GEMMS = [("wq|wo", 6144, 6144, 2 * MOE_LAYERS),
+                 ("wk|wv", 6144, 1024, 2 * MOE_LAYERS),
+                 ("unembed", 6144, 32768, 1)]
+MIXTRAL_HEADS, MIXTRAL_KV_HEADS, MIXTRAL_WINDOW = 48, 8, 4096
+MOE_CASES = [
+    # 4 decode tokens top-2 at capacity 1: 6 of 8 experts live
+    ("mixtral gate|up decode", 8, 1, 6144, 16384, [1, 0, 1, 1, 0, 1, 1, 1], 2),
+    ("mixtral down decode", 8, 1, 16384, 6144, [1, 0, 1, 1, 0, 1, 1, 1], 1),
+    # 256 mixed-step tokens top-2 at capacity 80: one expert empty, one
+    # past capacity
+    ("mixtral gate|up mixed", 8, 80, 6144, 16384,
+     [80, 75, 64, 0, 70, 50, 100, 73], 0),
+    ("mixtral down mixed", 8, 80, 16384, 6144,
+     [80, 75, 64, 0, 70, 50, 100, 73], 0),
+    ("mixtral all empty", 8, 1, 6144, 16384, [0] * 8, 0),
+    # llama4 maverick: 4 decode tokens top-1 over 128 experts at capacity 1
+    # (one size past it), 256 mixed-step tokens at capacity 2
+    ("llama4 gate|up decode", 128, 1, 5120, 8192, "decode", 0),
+    ("llama4 down decode", 128, 1, 8192, 5120, "decode", 0),
+    ("llama4 gate|up mixed", 128, 2, 5120, 8192, "mixed", 0),
+    ("llama4 down mixed", 128, 2, 8192, 5120, "mixed", 0),
+]
 GEMM_TOL = {"bfloat16": (3e-2, 2e-2), "float32": (1e-4, 1e-4)}   # atol, rtol
 ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}  # by q dtype
 E2E_TOL = 0.05   # max |kernel - plain| <= E2E_TOL * max |plain| on bf16 logits
@@ -126,7 +170,8 @@ def assert_close(name, got, want, atol, rtol) -> float:
 def phase_build(rec: dict, state: dict) -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    report = _build.build(["kraken_gemm", "paged_attention"], force=True)
+    report = _build.build(["kraken_gemm", "paged_attention",
+                           "grouped_moe_gemm"], force=True)
     secs = time.perf_counter() - t0
     for name, r in report.items():
         regs = [ln.strip() for ln in r["log"].splitlines()
@@ -226,8 +271,9 @@ def build_pool(torch, *, b, kvh, d, ps, mp, q_pos, dead, dtype, seed):
             torch.as_tensor(table, device="cuda"), scales, pos, table)
 
 
-def attn_case(torch, pa, ref, *, dtype, window, seed=0):
-    b, h, kvh, d, ps, mp = SLOTS, HEADS, KV_HEADS, HEAD_DIM, PAGE, \
+def attn_case(torch, pa, ref, *, dtype, window, seed=0, heads=HEADS,
+              kv_heads=KV_HEADS):
+    b, h, kvh, d, ps, mp = SLOTS, heads, kv_heads, HEAD_DIM, PAGE, \
         MAX_LEN // PAGE
     q_pos = [300, 700, 40, 17]     # slot 1 wraps the 512-token ring
     dead = {2}                     # an all-dead (sentinel) slot
@@ -327,39 +373,159 @@ def phase_kernels(rec: dict, state: dict) -> None:
     rec["attention"] = arows
 
 
+def _moe_sizes(spec, e: int, seed: int) -> list[int]:
+    """A case's per-expert sizes: a literal list, or llama4's routing of 4
+    decode tokens ("decode", one expert past capacity 1) or 256 mixed-step
+    tokens ("mixed") top-1 over ``e`` experts."""
+    import numpy as np
+    if not isinstance(spec, str):
+        return list(spec)
+    rng = np.random.default_rng(seed)
+    if spec == "decode":
+        sizes = np.zeros(e, np.int64)
+        live = rng.choice(e, 4, replace=False)
+        sizes[live] = 1
+        sizes[live[0]] = 2
+        return sizes.tolist()
+    return np.bincount(rng.integers(0, e, 256), minlength=e).tolist()
+
+
+def moe_case(torch, mg, ref, *, e, c, d, f, sizes, dtype, seed=0):
+    """One grouped GEMM: parity (int8 exact, dead rows exactly zero) and
+    the kernel's, the plain version's and one ``torch.bmm``'s time.  Every
+    live call reads more than the 50 MB L2 of expert weights, so repeated
+    calls find it cold, as a serving step does."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    integer = dtype == torch.int8
+    w = torch.empty((e, d, f), dtype=dtype, device="cuda")
+    for i in range(e):           # one expert at a time: no fp32 bank copy
+        if integer:
+            w[i] = torch.randint(-128, 128, (d, f), generator=g,
+                                 device="cuda", dtype=torch.int8)
+        else:
+            w[i] = torch.randn((d, f), generator=g, device="cuda") \
+                / math.sqrt(d)
+    if integer:
+        xs = torch.randint(-128, 128, (e, c, d), generator=g, device="cuda",
+                           dtype=torch.int8)
+    else:
+        xs = torch.randn((e, c, d), generator=g, device="cuda").to(dtype)
+    sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    live = (torch.arange(c, device="cuda")[None, :]
+            < sz.clamp(max=c)[:, None])[..., None]
+    # garbage in the dead capacity rows: the kernel must mask, not rely on
+    # zeros there
+    xs = torch.where(live, xs, torch.full_like(xs, 99))
+    got = mg.grouped_moe_gemm(xs, w, sz)
+    want = ref.grouped_moe_gemm(xs, w, sz)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    label = f"grouped_moe_gemm E={e} C={c} d={d} f={f} {name}"
+    if got.masked_fill(live, 0).any():
+        raise AssertionError(f"{label}: rows past sizes are not zero")
+    if integer:
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"{label}: int8 result is not exact")
+        err = 0.0
+    else:
+        err = assert_close(label, got, want, *GEMM_TOL[name])
+    row = {"e": e, "c": c, "d": d, "f": f, "dtype": name,
+           "sizes": [int(x) for x in sizes], "max_abs_err": err,
+           "ms": time_ms(lambda: mg.grouped_moe_gemm(xs, w, sz), 10),
+           "plain_ms": time_ms(lambda: ref.grouped_moe_gemm(xs, w, sz), 3),
+           "library_ms": None}
+    if not integer:
+        xm = torch.where(live, xs, torch.zeros_like(xs))
+        row["library_ms"] = time_ms(lambda: torch.bmm(xm, w), 10)
+    # the bound counts what these sizes need: the active experts' weights,
+    # the live rows, the size table and the whole output, which is written
+    rows = [min(max(int(x), 0), c) for x in sizes]
+    active = sum(1 for r in rows if r)
+    isz = w.element_size()
+    nbytes = (active * d * f + sum(rows) * d) * isz + e * 4 \
+        + e * c * f * got.element_size()
+    peak = {torch.bfloat16: PEAK_BF16, torch.float32: PEAK_FP32,
+            torch.int8: PEAK_INT8}[dtype]
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * sum(rows) * d * f,
+                                                peak)
+    row["active_experts"] = active
+    row["weights_tb_s"] = active * d * f * isz / (row["ms"] * 1e-3) / 1e12
+    return row
+
+
+def phase_moe_kernels(rec: dict, state: dict) -> None:
+    import torch
+    from repro_torch.kernels import kraken_moe_gemm as mg
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for name, e, c, d, f, spec, uses in MOE_CASES:
+        sizes = _moe_sizes(spec, e, seed=0)
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
+            r = moe_case(torch, mg, ref, e=e, c=c, d=d, f=f, sizes=sizes,
+                         dtype=dtype, seed=len(rows))
+            r["name"], r["uses_per_layer"] = name, uses
+            rows.append(r)
+            torch.cuda.empty_cache()
+            lib = ("-" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            log(f"  moe {name:22s} {r['dtype']:8s} active={r['active_experts']:<3d} "
+                f"err={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
+                f"plain={r['plain_ms']:.4f} lib={lib} "
+                f"bound={r['bound_ms']:.4f} ({r['weights_tb_s']:.2f} TB/s)")
+    log(f"moe_kernels: grouped_moe_gemm matches plain in {len(rows)} cases "
+        "(int8 exact; skewed, empty, past-capacity and all-empty sizes), max "
+        f"err bf16 {max(r['max_abs_err'] for r in rows if r['dtype'] == 'bfloat16'):.2e} "
+        f"f32 {max(r['max_abs_err'] for r in rows if r['dtype'] == 'float32'):.2e}")
+    rec["moe_gemm"] = rows
+
+    # the mixtral path's kraken_gemm and paged_decode_attention shapes
+    from repro_torch.kernels import kraken_gemm as kg
+    from repro_torch.kernels import paged_attention as pa
+    path = []
+    for m in (SLOTS, SLOTS * CHUNK):
+        for name, k, n, _ in MIXTRAL_GEMMS:
+            r = gemm_case(torch, kg, ref, m, k, n, None, torch.bfloat16)
+            r["name"] = name
+            path.append(r)
+            log(f"  mixtral gemm {name:8s} M={m:<4d} K={k:<5d} N={n:<5d} "
+                f"err={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
+                f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
+                f"bound={r['bound_ms']:.4f}")
+    att = attn_case(torch, pa, ref, dtype=torch.bfloat16,
+                    window=MIXTRAL_WINDOW, heads=MIXTRAL_HEADS,
+                    kv_heads=MIXTRAL_KV_HEADS)
+    log(f"  mixtral paged_attention 48/8 heads window={MIXTRAL_WINDOW} "
+        f"err={att['max_abs_err']:.2e} ms={att['ms']:.4f} "
+        f"plain={att['plain_ms']:.4f} bound={att['bound_ms']:.5f}")
+    dec = sum(r["ms"] * c for r, (_, _, _, c) in zip(path, MIXTRAL_GEMMS))
+    log(f"moe_kernels: the mixtral path's kraken_gemm and "
+        f"paged_decode_attention shapes match plain; kraken_gemm "
+        f"{dec:.2f} ms per mixtral decode step ({MOE_LAYERS} layers)")
+    rec["moe_path"] = {"gemm": path, "attention": att,
+                       "kraken_gemm_ms_per_decode_step": dec}
+
+
 def _yi6b(kernels=None):
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
     return Model(get_arch("yi-6b"), kernels=kernels)   # bf16, full width
 
 
-def phase_serve(rec: dict, state: dict) -> None:
+def serve_passes(eng, label: str) -> list[dict]:
+    """The serve workload twice through ``eng``: each pass's wall time,
+    tok/s, TTFT, steps and new program signatures.  Every request must be
+    served in full."""
     import numpy as np
     import torch
-    from repro_torch.kernels import kraken_gemm as kg
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.serving import CacheConfig, EngineConfig, PagedEngine
-    model = _yi6b()
-    cfg = model.cfg
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
-    state["params"] = params
-    eng = PagedEngine(model, params, config=EngineConfig(
-        slots=SLOTS, chunk=CHUNK,
-        cache=CacheConfig(page_size=PAGE, max_len=MAX_LEN)))
+    vocab = eng.model.cfg.vocab_size
     rng = np.random.default_rng(0)
-    lens, max_new = SERVE_LENS, SERVE_NEW
     passes = []
-    kg.launches = 0
-    pa.launches = 0
     for rep in range(2):
         before = (eng._prefill.retraces, eng._decode.retraces,
                   eng._reset.retraces)
-        reqs = [eng.submit(rng.integers(0, cfg.vocab_size, (n,)), max_new)
-                for n in lens]
+        reqs = [eng.submit(rng.integers(0, vocab, (n,)), SERVE_NEW)
+                for n in SERVE_LENS]
         calls0 = (eng._prefill.calls, eng._decode.calls)
         t0 = time.perf_counter()
         eng.run_until_idle()
@@ -370,26 +536,60 @@ def phase_serve(rec: dict, state: dict) -> None:
                     + eng._reset.retraces - before[2])
         toks = sum(len(r.out) for r in reqs)
         bad = [r.rid for r in reqs
-               if r.state != "done" or len(r.out) != max_new
-               or not all(0 <= t < cfg.vocab_size for t in r.out)]
+               if r.state != "done" or len(r.out) != SERVE_NEW
+               or not all(0 <= t < vocab for t in r.out)]
         if bad:
-            raise AssertionError(f"serve pass {rep + 1}: requests {bad} not "
-                                 "served in full")
+            raise AssertionError(f"{label} serve pass {rep + 1}: requests "
+                                 f"{bad} not served in full")
+        ttft = [r.ttft for r in reqs]
         passes.append({
             "wall_s": wall, "tokens": toks, "tok_s": toks / wall,
-            "prefill_tokens": int(sum(lens)),
+            "prefill_tokens": int(sum(SERVE_LENS)),
             "mixed_steps": eng._prefill.calls - calls0[0],
             "decode_steps": eng._decode.calls - calls0[1],
+            "ttft_mean_s": sum(ttft) / len(ttft), "ttft_max_s": max(ttft),
             "new_signatures": new_sigs})
-        log(f"  serve pass {rep + 1}: {len(reqs)} requests, {toks} tokens "
-            f"in {wall:.2f} s = {toks / wall:.1f} tok/s "
+        log(f"  {label} pass {rep + 1}: {len(reqs)} requests, {toks} tokens "
+            f"in {wall:.2f} s = {toks / wall:.1f} tok/s, ttft mean "
+            f"{passes[-1]['ttft_mean_s'] * 1e3:.0f} ms max "
+            f"{passes[-1]['ttft_max_s'] * 1e3:.0f} ms "
             f"({passes[-1]['mixed_steps']} mixed + "
             f"{passes[-1]['decode_steps']} decode steps, "
             f"{new_sigs} new signatures)")
+    if passes[1]["new_signatures"]:
+        raise AssertionError(f"{label}: the warm pass added program "
+                             "signatures")
+    for alloc in eng.allocators.values():
+        alloc.check()
+        if alloc.free_pages != alloc.n_pages:
+            raise AssertionError(f"{label}: pages leaked")
+    return passes
+
+
+def _engine(model, params):
+    from repro_torch.serving import CacheConfig, EngineConfig, PagedEngine
+    return PagedEngine(model, params, config=EngineConfig(
+        slots=SLOTS, chunk=CHUNK,
+        cache=CacheConfig(page_size=PAGE, max_len=MAX_LEN)))
+
+
+def phase_serve(rec: dict, state: dict) -> None:
+    import torch
+    from repro_torch.kernels import kraken_gemm as kg
+    from repro_torch.kernels import paged_attention as pa
+    model = _yi6b()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    state["params"] = params
+    eng = _engine(model, params)
+    kg.launches = 0
+    pa.launches = 0
+    passes = serve_passes(eng, "serve")
     launches = {"kraken_gemm": kg.launches,
                 "paged_decode_attention": pa.launches}
-    if passes[1]["new_signatures"]:
-        raise AssertionError("the warm pass added program signatures")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
@@ -402,10 +602,6 @@ def phase_serve(rec: dict, state: dict) -> None:
         raise AssertionError(f"launch counts {launches} do not match "
                              f"{eng._prefill.calls} mixed + "
                              f"{eng._decode.calls} decode steps")
-    for alloc in eng.allocators.values():
-        alloc.check()
-        if alloc.free_pages != alloc.n_pages:
-            raise AssertionError("pages leaked")
     rec["serve"] = {"params": n_params, "init_s": init_s, "passes": passes,
                     "report": eng.report(),
                     "launches_per_decode_step": {
@@ -418,7 +614,7 @@ def phase_serve(rec: dict, state: dict) -> None:
     state["engine"] = eng
     log(f"  {eng.report()}")
     log(f"serve: yi-6b {n_params / 1e9:.2f} B params bf16, all "
-        f"{2 * len(lens)} requests served, warm pass "
+        f"{2 * len(SERVE_LENS)} requests served, warm pass "
         f"{passes[1]['tok_s']:.1f} tok/s, zero new signatures, launches "
         f"{launches}")
 
@@ -434,88 +630,95 @@ def _leaves(tree):
         yield tree
 
 
+def _plain_kernels():
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import Kernels
+    return Kernels(ref.matmul, ref.paged_decode_attention,
+                   ref.grouped_expert_ffn)
+
+
+def two_steps(model, params, seed: int = 1):
+    """One mixed step (rows of 64, 40, 1 and 0 tokens; slot 3 unallocated)
+    and then one decode step of the three live rows through ``model`` on
+    fresh pools, with tokens drawn from ``seed``.  Returns the logits of
+    the live rows of each step."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.state import build_state_tree
+    vocab = model.cfg.vocab_size
+    tree = build_state_tree(model, slots=SLOTS, page_size=PAGE,
+                            max_len=MAX_LEN, device="cuda")
+    for s in (0, 1, 2):                 # slot 3 stays unallocated
+        tree.admit(s)
+    pools = tree.push_tables(tree.init_device())
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, vocab, (SLOTS, CHUNK)),
+                             device="cuda")
+    lengths = torch.as_tensor(np.asarray([CHUNK, 40, 1, 0], np.int32),
+                              device="cuda")
+    positions = torch.arange(CHUNK, dtype=torch.int32,
+                             device="cuda").repeat(SLOTS, 1)
+    live = lengths > 0
+    last, _, pools = model.chunk_step(params, pools, tokens, positions,
+                                      lengths, return_greedy=True)
+    dec_tok = torch.as_tensor(rng.integers(0, vocab, (SLOTS, 1)),
+                              device="cuda")
+    logits, pools = model.decode_step(params, pools, dec_tok, lengths,
+                                      lengths=live.to(torch.int32))
+    return last[live], logits[live]
+
+
+def compare_logits(name: str, got, want, vocab: int) -> dict:
+    """max |kernel - plain| against ``E2E_TOL`` times max |plain|; raises
+    on non-finite or misshapen logits, reports (does not raise) on the
+    tolerance."""
+    import torch
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"e2e {name}: non-finite logits")
+    if got.shape != (3, vocab) or want.shape != got.shape:   # 3 live rows
+        raise AssertionError(f"e2e {name}: logits shape {got.shape}")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"  e2e {name}: max |kernel - plain| {err:.4f} of max |plain| "
+        f"{scale:.2f} ({err / scale:.4f}), argmax agree {agree:.2f}")
+    return {"max_abs_err": err, "max_abs_plain": scale, "rel": err / scale,
+            "argmax_agree": agree, "ok": err <= E2E_TOL * scale}
+
+
 def phase_e2e(rec: dict, state: dict) -> None:
     """One mixed step's and one decode step's logits through the kernels
     and through the plain versions (passed in as the model's kernels)."""
-    import numpy as np
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.models.layers import Kernels
-    from repro_torch.serving.state import build_state_tree
     torch.backends.cuda.matmul.allow_tf32 = False
     kernel_model = _yi6b()
-    plain_model = _yi6b(Kernels(ref.matmul, ref.paged_decode_attention))
     params = state.get("params")
     if params is None:
         params = kernel_model.init(
             torch.Generator(device="cuda").manual_seed(0))
-    cfg = kernel_model.cfg
-    pools = []
-    for model in (kernel_model, plain_model):
-        tree = build_state_tree(model, slots=SLOTS, page_size=PAGE,
-                                max_len=MAX_LEN, device="cuda")
-        for s in (0, 1, 2):             # slot 3 stays unallocated
-            tree.admit(s)
-        pools.append(tree.push_tables(tree.init_device()))
-    rng = np.random.default_rng(1)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SLOTS, CHUNK)),
-                             device="cuda")
-    lengths = np.asarray([CHUNK, 40, 1, 0], np.int32)
-    positions = torch.arange(CHUNK, dtype=torch.int32,
-                             device="cuda").repeat(SLOTS, 1)
-    lens_t = torch.as_tensor(lengths, device="cuda")
-    out = []
-    for model, pl in zip((kernel_model, plain_model), pools):
-        last, _, pl = model.chunk_step(params, pl, tokens, positions, lens_t,
-                                       return_greedy=True)
-        out.append(last)
-    live = lengths > 0
+    got = two_steps(kernel_model, params)
+    want = two_steps(_yi6b(_plain_kernels()), params)
     res = {}
-
-    def compare(name, got, want, rows):
-        got, want = got[rows].float(), want[rows].float()
-        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-            raise AssertionError(f"e2e {name}: non-finite logits")
-        if got.shape != (int(rows.sum()), cfg.vocab_size):
-            raise AssertionError(f"e2e {name}: logits shape {got.shape}")
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-        res[name] = {"max_abs_err": err, "max_abs_plain": scale,
-                     "rel": err / scale, "argmax_agree": agree}
-        log(f"  e2e {name}: max |kernel - plain| {err:.4f} of max |plain| "
-            f"{scale:.2f} ({err / scale:.4f}), argmax agree {agree:.2f}")
-        if err > E2E_TOL * scale:
-            raise AssertionError(f"e2e {name}: {err} > {E2E_TOL} * {scale}")
-
-    rows = torch.as_tensor(live, device="cuda")
-    compare("mixed step", out[0], out[1], rows)
-    dec_tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SLOTS, 1)),
-                              device="cuda")
-    pos = torch.as_tensor(lengths, device="cuda")
-    out = []
-    for model, pl in zip((kernel_model, plain_model), pools):
-        logits, pl = model.decode_step(params, pl, dec_tok, pos,
-                                       lengths=rows.to(torch.int32))
-        out.append(logits)
-    compare("decode step", out[0], out[1], rows)
+    for i, name in enumerate(("mixed step", "decode step")):
+        res[name] = compare_logits(name, got[i], want[i],
+                                   kernel_model.cfg.vocab_size)
+        if not res[name]["ok"]:
+            raise AssertionError(f"e2e {name}: {res[name]['max_abs_err']} > "
+                                 f"{E2E_TOL} * {res[name]['max_abs_plain']}")
     rec["e2e"] = res
     log(f"e2e: kernels agree with the plain versions within {E2E_TOL} of "
         "the largest logit (bf16, full yi-6b)")
 
 
-def phase_profile(rec: dict, state: dict) -> None:
-    """Where a warm serving pass spends its time: ``torch.profiler`` over
-    one more pass of the serve phase's workload through its warm engine,
-    device time by kernel and the device's busy share of the wall time.
-    Runs after the launch counts are read, so it adds none to them."""
+def trace_pass(eng, seed: int) -> dict:
+    """``torch.profiler`` over one more pass of the serve workload through
+    the warm engine ``eng``: device time by kernel group and the device's
+    busy share of the wall time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    if "engine" not in state:
-        raise RuntimeError("the profile phase needs the serve phase")
-    eng = state["engine"]
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     calls0 = (eng._prefill.calls, eng._decode.calls)
     # device activity only: host-op rows would count their kernels twice
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -541,25 +744,27 @@ def phase_profile(rec: dict, state: dict) -> None:
     total_us = sum(r[0] for r in rows)
 
     def group(key):
+        if "grouped_moe_gemm_kernel" in key:
+            return "grouped_moe_gemm"
         if "gemm_kernel" in key:
             return "kraken_gemm"
         if "paged_decode_kernel" in key:
             return "paged_decode_attention"
         low = key.lower()
         if "gemm" in low or "cutlass" in low or "sm90" in low:
-            return "library GEMM (chunk attention einsums)"
+            return "library GEMM (chunk attention, router, combine)"
         if "index" in low or "gather" in low or "scatter" in low:
-            return "indexing (pool gather/scatter, embed)"
+            return "indexing (pool gather/scatter, embed, dispatch)"
         if "copy" in low:
             return "copies and dtype casts"
-        if "reduce" in low or "softmax" in low:
-            return "reductions (norms, softmax, argmax)"
+        if "reduce" in low or "softmax" in low or "sort" in low:
+            return "reductions (norms, softmax, argmax, routing sort)"
         return "other elementwise (rope, residual, silu*up, masks)"
 
     groups: dict = {}
     for us, _, key in rows:
         groups[group(key)] = groups.get(group(key), 0.0) + us
-    rec["profile"] = {
+    out = {
         "wall_s": wall, "device_s": total_us / 1e6,
         "device_busy": total_us / 1e6 / wall,
         "mixed_steps": steps[0], "decode_steps": steps[1],
@@ -567,23 +772,243 @@ def phase_profile(rec: dict, state: dict) -> None:
             groups.items(), key=lambda kv: -kv[1])},
         "top": [{"us": us, "count": c, "name": key[:120]}
                 for us, c, key in rows[:15]]}
-    log(f"  profile: wall {wall:.2f} s, device busy {total_us / 1e6:.2f} s "
-        f"({100 * total_us / 1e6 / wall:.1f}%), {steps[0]} mixed + "
-        f"{steps[1]} decode steps")
-    for k, v in rec["profile"]["groups_ms"].items():
-        log(f"    {k:42s} {v:9.1f} ms")
-    for r in rec["profile"]["top"][:8]:
+    log(f"  profile {eng.model.cfg.name}: wall {wall:.2f} s, device busy "
+        f"{total_us / 1e6:.2f} s ({100 * total_us / 1e6 / wall:.1f}%), "
+        f"{steps[0]} mixed + {steps[1]} decode steps")
+    for k, v in out["groups_ms"].items():
+        log(f"    {k:50s} {v:9.1f} ms")
+    for r in out["top"][:8]:
         log(f"    {r['us'] / 1e3:8.1f} ms x{r['count']:<6d} {r['name'][:70]}")
     if total_us <= 0:
         # the profiler could not trace the card here: say so, measure nothing
-        rec["profile"]["device_busy"] = None
+        out["device_busy"] = None
         log("  profile: the profiler recorded no device time (not measured)")
+    return out
 
 
-def kernels_line(rec: dict) -> dict:
-    """One entry per kernel; times are one decode step's worth at yi-6b
-    (bf16, M = 4 slots): the GEMM row sums every decode-step GEMM (32
-    layers x q,k,v,o,gate,up,down + unembed), the attention row 32 calls."""
+def phase_profile(rec: dict, state: dict) -> None:
+    """Where a warm yi-6b serving pass spends its time (the mixtral pass is
+    traced by ``moe_serve``).  Runs after the launch counts are read, so
+    it adds none to them."""
+    if "engine" not in state:
+        raise RuntimeError("the profile phase needs the serve phase")
+    rec["profile"] = trace_pass(state["engine"], seed=2)
+
+
+def _mixtral(kernels=None, layers: int = MOE_LAYERS, dtype: str = "bfloat16"):
+    """mixtral-8x22b at full width and ``layers`` of its 56 layers."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch("mixtral-8x22b"), num_layers=layers,
+                              dtype=dtype)
+    return Model(cfg, kernels=kernels)
+
+
+def _release(state: dict, *keys) -> None:
+    import gc
+    import torch
+    for k in keys:
+        state.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_serve(rec: dict, state: dict) -> None:
+    import torch
+    from repro_torch.kernels import kraken_gemm as kg
+    from repro_torch.kernels import kraken_moe_gemm as mg
+    from repro_torch.kernels import paged_attention as pa
+    _release(state, "engine", "params")
+    log(f"  released yi-6b: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated")
+    torch.cuda.reset_peak_memory_stats()
+    model = _mixtral()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    state["moe_params"] = params
+    eng = _engine(model, params)
+    if eng.stats()["moe_gemm"] != "kernel":
+        raise AssertionError("the mixtral engine does not run the kernel")
+    kg.launches = pa.launches = mg.launches = 0
+    passes = serve_passes(eng, "moe_serve")
+    launches = {"kraken_gemm": kg.launches,
+                "paged_decode_attention": pa.launches,
+                "grouped_moe_gemm": mg.launches}
+    mixed, dec = eng._prefill.calls, eng._decode.calls
+    want = {"kraken_gemm": (4 * MOE_LAYERS + 1) * (mixed + dec),
+            "paged_decode_attention": MOE_LAYERS * dec,
+            "grouped_moe_gemm": 3 * MOE_LAYERS * (mixed + dec)}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} do not match "
+                             f"{mixed} mixed + {dec} decode steps: {want}")
+    peak = torch.cuda.max_memory_allocated()
+    rec["moe_serve"] = {"params": n_params, "init_s": init_s,
+                        "layers": MOE_LAYERS, "passes": passes,
+                        "report": eng.report(), "launches": launches,
+                        "max_memory_allocated_gb": peak / 1e9}
+    state["moe_engine"] = eng
+    log(f"  {eng.report()}")
+    log(f"moe_serve: mixtral-8x22b {MOE_LAYERS} layers "
+        f"{n_params / 1e9:.2f} B params bf16, peak "
+        f"{peak / 1e9:.1f} GB allocated, warm pass "
+        f"{passes[1]['tok_s']:.1f} tok/s, ttft mean "
+        f"{passes[1]['ttft_mean_s'] * 1e3:.0f} ms, zero new signatures, "
+        f"launches {launches} (grouped_moe_gemm = 3 x {MOE_LAYERS} per step)")
+    if "profile" in rec["phases"]:
+        rec["moe_profile"] = trace_pass(eng, seed=2)
+
+
+def _capture_moe_inputs(fn):
+    """Run ``fn()`` while recording every MoE layer's (params, input)."""
+    from repro_torch.models import moe as M
+    seen = []
+    orig = M.moe_block
+
+    def recording(cfg, params, prefix, x, **kw):
+        seen.append((params, x))
+        return orig(cfg, params, prefix, x, **kw)
+
+    M.moe_block = recording
+    try:
+        out = fn()
+    finally:
+        M.moe_block = orig
+    return out, seen
+
+
+def _routes(cfg, seen):
+    """The top-k expert set of every row of every recorded MoE input, as
+    the port routes it (stable sort: the lower expert first on a tie)."""
+    import torch
+    out = []
+    for params, x in seen:
+        xt = x.reshape(-1, x.shape[-1]).float()
+        probs = torch.softmax(xt @ params["moe_router"].float(), dim=-1)
+        ids = torch.sort(probs, dim=-1, descending=True,
+                         stable=True)[1][:, :cfg.experts_per_token]
+        out.append(ids.sort(dim=-1)[0])
+    return out
+
+
+def _flips(cfg, seen_k, seen_p) -> int:
+    """(token, layer) routing choices that differ between two runs of
+    ``two_steps``, over the live tokens only (64, 40 and 1 mixed-step
+    tokens, then 3 decode tokens)."""
+    import torch
+    n_moe = len(seen_k) // 2
+    flips = 0
+    for i, (a, b) in enumerate(zip(_routes(cfg, seen_k),
+                                   _routes(cfg, seen_p))):
+        diff = (a != b).any(-1)
+        if i < n_moe:                         # mixed step [SLOTS * CHUNK]
+            diff = diff.reshape(SLOTS, CHUNK)
+            cols = torch.arange(CHUNK, device=diff.device)
+            lens = torch.tensor([CHUNK, 40, 1, 0], device=diff.device)
+            diff = diff & (cols[None, :] < lens[:, None])
+        else:                                 # decode step [SLOTS]
+            diff = diff[:3]
+        flips += int(diff.sum().item())
+    return flips
+
+
+def _layer_gate(cfg, seen, plain) -> float:
+    """Every recorded MoE layer's input through the kernel block and through
+    the plain block, so both route alike and only the expert FFN differs;
+    the first kernel block runs under ``set_sync_debug_mode("error")``, so
+    a host sync anywhere in it raises.  Returns the largest error."""
+    import torch
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import DEFAULT_KERNELS
+    atol, rtol = GEMM_TOL["bfloat16"]
+    err = 0.0
+    for i, (p, x) in enumerate(seen):
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            yk = M.moe_block(cfg, p, "moe", x, kernels=DEFAULT_KERNELS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        yp = M.moe_block(cfg, p, "moe", x, kernels=plain)
+        step = "mixed" if i < len(seen) // 2 else "decode"
+        err = max(err, assert_close(f"moe layer {i % (len(seen) // 2)} "
+                                    f"({step} step)", yk.y, yp.y, atol, rtol))
+        if not torch.equal(yk.aux_loss, yp.aux_loss):
+            raise AssertionError(f"moe layer {i}: the aux loss differs")
+    return err
+
+
+def phase_moe_e2e(rec: dict, state: dict) -> None:
+    """The MoE gates: per layer with shared routing, then the whole
+    model."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain = _plain_kernels()
+    model = _mixtral()
+    cfg = model.cfg
+    params = state.get("moe_params")
+    if params is None:
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    got, seen_k = _capture_moe_inputs(lambda: two_steps(model, params))
+
+    layer_err = _layer_gate(cfg, seen_k, plain)
+    log(f"  moe_e2e: {len(seen_k)} MoE layers (mixed + decode) agree with "
+        f"the plain block at shared routing, max err {layer_err:.2e}; one "
+        "ran under set_sync_debug_mode('error')")
+    res = {"layer_gate": {"layers": len(seen_k), "max_abs_err": layer_err,
+                          "sync_debug_error_mode": True}}
+
+    # 2. the whole model, kernels against plain versions
+    want, seen_p = _capture_moe_inputs(
+        lambda: two_steps(_mixtral(plain), params))
+    flips = _flips(cfg, seen_k, seen_p)
+    res["bf16"] = {"routing_flips": flips, "layers": MOE_LAYERS}
+    for i, name in enumerate(("mixed step", "decode step")):
+        res["bf16"][name] = compare_logits(f"mixtral bf16 {name}", got[i],
+                                           want[i], cfg.vocab_size)
+    log(f"  moe_e2e: {flips} of {MOE_LAYERS * (CHUNK + 40 + 1 + 3)} "
+        "(token, layer) routing choices differ between the kernel run and "
+        "the plain run")
+    ok = all(res["bf16"][n]["ok"] for n in ("mixed step", "decode step"))
+    if not ok:
+        if not flips:
+            raise AssertionError("moe_e2e: bf16 logits out of tolerance "
+                                 "with identical routing")
+        # routing flips of near-tied tokens are what separates the runs:
+        # hold the whole model in float32 at 2 layers, where the kernel
+        # and the plain sums agree to ~1e-6 and nothing near-ties
+        _release(state, "moe_engine", "moe_params")
+        del params, got, want, seen_k, seen_p
+        _release(state)
+        m32 = _mixtral(layers=2, dtype="float32")
+        p32 = m32.init(torch.Generator(device="cuda").manual_seed(0))
+        got, seen_k = _capture_moe_inputs(lambda: two_steps(m32, p32))
+        want, seen_p = _capture_moe_inputs(lambda: two_steps(
+            _mixtral(plain, layers=2, dtype="float32"), p32))
+        flips32 = _flips(m32.cfg, seen_k, seen_p)
+        res["float32_2_layers"] = {"routing_flips": flips32}
+        for i, name in enumerate(("mixed step", "decode step")):
+            r = compare_logits(f"mixtral f32 2 layers {name}", got[i],
+                               want[i], cfg.vocab_size)
+            res["float32_2_layers"][name] = r
+            if not r["ok"]:
+                raise AssertionError(f"moe_e2e float32 {name}: "
+                                     f"{r['max_abs_err']} > {E2E_TOL} * "
+                                     f"{r['max_abs_plain']}")
+        log(f"  moe_e2e: float32 at 2 layers: {flips32} routing choices "
+            "differ")
+    rec["moe_e2e"] = res
+    log(f"moe_e2e: grouped_moe_gemm agrees with the plain expert FFN in "
+        f"every MoE layer; whole mixtral {'bf16' if ok else 'float32 (2 layers)'} "
+        f"logits within {E2E_TOL} of the largest logit")
+
+
+def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
+    """The kernels line's entries of the yi-6b path's two kernels."""
     dec = {r["name"]: r for r in rec["gemm"]
            if r.get("ms") is not None and r["m"] == SLOTS
            and r["dtype"] == "bfloat16"}
@@ -594,13 +1019,12 @@ def kernels_line(rec: dict) -> dict:
 
     att = next(r for r in rec["attention"]
                if r["dtype"] == "bfloat16" and r["window"] == 0)
-    # launches are counted only by the serve phase: null when it did not run
-    launches = rec.get("launches", {})
-    return {"kernels": [
+    return [
         {"name": "kraken_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/kraken_gemm.cu",
          "replaces": "src/repro/kernels/kraken_gemm.py:74",
          "launches": launches.get("kraken_gemm"),
+         "launches_by_path": by_path("kraken_gemm"),
          "max_abs_err": max(r["max_abs_err"] for r in rec["gemm"]),
          "ms": step("ms"), "plain_ms": step("plain_ms"),
          "bound_ms": step("bound_ms"), "bound_by": "bytes",
@@ -611,17 +1035,63 @@ def kernels_line(rec: dict) -> dict:
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:234",
          "launches": launches.get("paged_decode_attention"),
+         "launches_by_path": by_path("paged_decode_attention"),
          "max_abs_err": max(r["max_abs_err"] for r in rec["attention"]),
          "ms": att["ms"] * LAYERS, "plain_ms": att["plain_ms"] * LAYERS,
          "bound_ms": att["bound_ms"] * LAYERS, "bound_by": att["bound_by"],
          "library_ms": None,
          "shape": "one yi-6b decode step, bf16: 32 layers x (4 slots, "
                   "32/4 heads, D 128, page 16, q_pos 300/700/dead/17)"},
-    ]}
+    ]
+
+
+def kernels_line(rec: dict) -> dict:
+    """One entry per kernel; times are one decode step's worth: at yi-6b
+    (bf16, M = 4 slots) the GEMM row sums every decode-step GEMM (32 layers
+    x q,k,v,o,gate,up,down + unembed), the attention row 32 calls; at
+    mixtral (bf16, 8 layers, C = 1) the grouped row 8 x (gate, up, down).
+    ``launches`` counts the yi-6b serve path's launches (the grouped GEMM's
+    the mixtral path's); ``launches_by_path`` both."""
+    # launches are counted only by the serve phases: null when they did not
+    # run
+    launches = rec.get("launches", {})
+    moe_launches = rec.get("moe_serve", {}).get("launches", {})
+
+    def by_path(name):
+        return {"yi-6b": launches.get(name),
+                "mixtral-8x22b": moe_launches.get(name)}
+
+    entries = []
+    if "gemm" in rec:
+        entries += yi_entries(rec, launches, by_path)
+    if "moe_gemm" in rec:
+        moe = [r for r in rec["moe_gemm"]
+               if r["uses_per_layer"] and r["dtype"] == "bfloat16"]
+
+        def moe_step(key):
+            return MOE_LAYERS * sum(r[key] * r["uses_per_layer"] for r in moe)
+
+        entries.append(
+            {"name": "grouped_moe_gemm", "route": "cuda",
+             "source": "src/repro_torch/csrc/grouped_moe_gemm.cu",
+             "replaces": "src/repro/kernels/kraken_moe_gemm.py:183",
+             "launches": moe_launches.get("grouped_moe_gemm"),
+             "launches_by_path": by_path("grouped_moe_gemm"),
+             "max_abs_err": max(r["max_abs_err"] for r in rec["moe_gemm"]),
+             "ms": moe_step("ms"), "plain_ms": moe_step("plain_ms"),
+             "bound_ms": moe_step("bound_ms"), "bound_by": "bytes",
+             "library_ms": moe_step("library_ms"),
+             "shape": f"one mixtral-8x22b decode step at {MOE_LAYERS} layers, "
+                      "bf16, C=1, 6 of 8 experts live: "
+                      f"{MOE_LAYERS} x (gate, up: 6144x16384; down: "
+                      "16384x6144)"})
+    return {"kernels": entries}
 
 
 PHASES = {"build": phase_build, "kernels": phase_kernels,
-          "serve": phase_serve, "e2e": phase_e2e, "profile": phase_profile}
+          "moe_kernels": phase_moe_kernels, "serve": phase_serve,
+          "e2e": phase_e2e, "profile": phase_profile,
+          "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e}
 
 
 def main(argv=None) -> int:
@@ -657,7 +1127,7 @@ def main(argv=None) -> int:
     if "card" not in rec:
         rec["card"] = card_line()
     print(rec["card"])
-    if "gemm" in rec:
+    if "gemm" in rec or "moe_gemm" in rec:
         print(json.dumps(kernels_line(rec)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

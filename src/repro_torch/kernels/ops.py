@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import kraken_gemm as _gemm
+from repro_torch.kernels import kraken_moe_gemm as _moe
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
@@ -49,3 +50,11 @@ def kraken_paged_attention(q, k_pages, v_pages, *, pos_pages, page_table,
     return ref.paged_decode_attention(
         q, k_pages, v_pages, pos_pages=pos_pages, page_table=page_table,
         q_pos=q_pos, k_scale=k_scale, v_scale=v_scale, window=window)
+
+
+def grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo) -> torch.Tensor:
+    """The MoE expert FFN over the ``[E, C, d]`` capacity buffer (``sizes``
+    live rows per expert), as three grouped GEMMs."""
+    if _on_cuda(buf):
+        return _moe.grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo)
+    return ref.grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo)

@@ -38,6 +38,45 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bias: torch.Tensor | None = None
     return out.to(out_dtype or a.dtype)
 
 
+def grouped_moe_gemm(xs: torch.Tensor, w: torch.Tensor,
+                     sizes: torch.Tensor) -> torch.Tensor:
+    """Plain ``grouped_moe_gemm``: every expert's ``xs[e, :sizes[e]] @
+    w[e]``, one product per expert.
+
+    xs: [E, C, d]; w: [E, d, f]; sizes: [E] live rows per expert, clamped
+    to C (``repro.kernels.kraken_moe_gemm.grouped_moe_gemm``).  Rows
+    ``>= sizes[e]`` are masked to zero before the product, so those output
+    rows are exactly zero.  Floats accumulate in fp32 and write
+    ``xs.dtype``; int8 accumulates exactly and writes int32 (the sums go
+    through float64, which holds every int32 exactly: the card has no
+    integer matmul).  Nothing here reads ``sizes`` on the host.
+    """
+    e, c, _ = xs.shape
+    integer = not xs.is_floating_point()
+    acc = torch.float64 if integer else torch.float32
+    rows = torch.arange(c, device=xs.device)
+    live = rows[None, :] < sizes.clamp(max=c)[:, None]             # [E, C]
+    outs = [torch.where(live[i, :, None], xs[i], 0).to(acc) @ w[i].to(acc)
+            for i in range(e)]
+    return torch.stack(outs).to(torch.int32 if integer else xs.dtype)
+
+
+def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` in fp32, rounded once to ``gate.dtype``: the
+    elementwise step between the expert FFN's grouped GEMMs."""
+    g = gate.to(torch.float32)
+    return (g * torch.sigmoid(g) * up.to(torch.float32)).to(gate.dtype)
+
+
+def grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo) -> torch.Tensor:
+    """Plain expert FFN over the ``[E, C, d]`` capacity buffer:
+    ``silu(x @ wi_gate) * (x @ wi_up) @ wo`` per expert, rows past
+    ``sizes`` zero (``repro.kernels.kraken_moe_gemm.grouped_expert_ffn``)."""
+    gate = grouped_moe_gemm(buf, wi_gate, sizes)
+    up = grouped_moe_gemm(buf, wi_up, sizes)
+    return grouped_moe_gemm(silu_mul(gate, up), wo, sizes)
+
+
 def paged_decode_attention(q, k_pages, v_pages, *, pos_pages, page_table,
                            q_pos, k_scale=None, v_scale=None,
                            window: int = 0) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """The engine flag surface: ``add_engine_args`` / ``engine_config_from_args``.
 
-A port of ``repro.launch.engine_args``.  Every flag of the JAX launcher
-parses, so command lines carry over; the features this port does not run
+A port of ``repro.launch.engine_args``.  The flags of the JAX launcher
+parse, so command lines carry over; the features this port does not run
 yet are refused by :meth:`~repro_torch.serving.EngineConfig.validate` with
-the ROADMAP item that brings them.  ``--paged-kernel`` and ``--moe-gemm``
-selected Pallas modes and have no counterpart: the port has one path per
-kernel.
+the ROADMAP item that brings them.  Two flags are not declared:
+``--paged-kernel`` and ``--moe-gemm`` chose among Pallas modes, and the port
+has one path per kernel, chosen by the device -- the hand-written kernel on
+CUDA tensors, its plain version on CPU tensors.  ``PagedEngine.stats()``
+reports which expert FFN ran as ``moe_gemm`` (``"kernel"`` or
+``"plain"``).
 """
 
 from __future__ import annotations

@@ -36,12 +36,14 @@ POS_EMPTY = -(2 ** 30)   # position of an empty cache entry (always masked)
 
 
 class Kernels(NamedTuple):
-    """The two kernel entry points the model calls."""
+    """The kernel entry points the model calls."""
     matmul: Callable
     paged_attention: Callable
+    moe_ffn: Callable
 
 
-DEFAULT_KERNELS = Kernels(ops.kraken_matmul, ops.kraken_paged_attention)
+DEFAULT_KERNELS = Kernels(ops.kraken_matmul, ops.kraken_paged_attention,
+                          ops.grouped_expert_ffn)
 
 
 class Spec(NamedTuple):
@@ -55,16 +57,22 @@ def init_param(generator: torch.Generator, spec: Spec, dtype,
                device) -> torch.Tensor:
     """A parameter drawn like ``repro``'s ``init_param`` (normal with
     stddev ``scale / sqrt(fan_in)``, in fp32, then cast), from ``generator``
-    (which must live on ``device``)."""
+    (which must live on ``device``).  Stacked weights are drawn one
+    trailing matrix at a time, so the fp32 draw never holds more than one
+    ``[fan_in, fan_out]`` matrix (an expert bank of mixtral is 26 GB in
+    fp32)."""
     if spec.scale == 0.0:
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.scale == -1.0:
         return torch.ones(spec.shape, dtype=dtype, device=device)
     fan_in = spec.shape[0] if len(spec.shape) == 1 else spec.shape[-2]
     std = spec.scale / math.sqrt(max(1, fan_in))
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * std).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    mats = out.view(-1, *spec.shape[-2:]) if out.dim() > 2 else out[None]
+    for m in mats:
+        m.copy_(torch.randn(m.shape, generator=generator, dtype=torch.float32,
+                            device=device) * std)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -95,7 +95,8 @@ class Model:
     @torch.no_grad()
     def forward(self, params: Params, batch: dict, *, caches=None):
         """Returns (logits [B, S, V], caches, aux); caches are updated in
-        place.  ``aux`` is the MoE auxiliary loss, always 0 here."""
+        place.  ``aux`` is the MoE auxiliary loss summed over the layers
+        (0 without MoE layers)."""
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
@@ -104,10 +105,11 @@ class Model:
         x = self._embed(params, tokens)
         ctx = Ctx(positions=positions, lengths=batch.get("lengths"),
                   kernels=self.kernels)
-        x, caches = self.stack.apply(params["stack"], x, ctx, caches=caches)
+        x, caches, aux = self.stack.apply(params["stack"], x, ctx,
+                                          caches=caches)
         x = L.apply_norm(self.cfg, params, "final_norm", x)
         logits = self._unembed(params, x)
-        return logits, caches, torch.zeros((), dtype=torch.float32)
+        return logits, caches, aux
 
     # ------------------------------------------------------------------ serve
     def decode_step(self, params: Params, caches, tokens: torch.Tensor,

@@ -1,7 +1,8 @@
 """Layer-stack assembly: the repeating slot pattern of an architecture,
 evaluated as a plain loop over layers.
 
-A port of ``repro.models.transformer`` for ``Slot("attn", "mlp")`` stacks.
+A port of ``repro.models.transformer`` for ``Slot("attn", "mlp")`` and
+``Slot("attn", "moe")`` stacks.
 The JAX version scans stacked parameters with ``lax.scan``; the port needs
 no scan and runs the flat, unrolled layout of its serving path: one step per
 layer, each with its own cache.  Parameters keep the JAX key structure --
@@ -18,6 +19,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import Spec
 
 Params = dict
@@ -51,10 +53,10 @@ def build_pattern(cfg) -> tuple[list[Slot], bool]:
 
 
 def slot_is_ported(cfg, slot: Slot) -> bool:
-    """Whether this slot runs in the port yet: a RoPE attention + SwiGLU
-    block with RMSNorm and no modality frontend (ROADMAP Queue 1 items 5-8
-    bring the others)."""
-    return (slot.kind == "attn" and slot.ffn == "mlp"
+    """Whether this slot runs in the port yet: a RoPE attention block with
+    RMSNorm, a SwiGLU MLP or MoE, and no modality frontend (ROADMAP Queue 1
+    items 5-8 bring the others)."""
+    return (slot.kind == "attn" and slot.ffn in ("mlp", "moe")
             and cfg.norm == "rmsnorm" and cfg.mlp == "swiglu"
             and cfg.positional == "rope" and not cfg.frontend)
 
@@ -63,8 +65,8 @@ def _check_ported(cfg, slot: Slot) -> None:
     if not slot_is_ported(cfg, slot):
         raise NotImplementedError(
             f"{cfg.name}'s slot {slot} is not ported yet: only RoPE "
-            "attention + SwiGLU blocks with RMSNorm run (ROADMAP Queue 1 "
-            "items 5-8)")
+            "attention + SwiGLU or MoE blocks with RMSNorm run (ROADMAP "
+            "Queue 1 items 5-8)")
 
 
 def slot_specs(cfg, slot: Slot) -> dict[str, Spec]:
@@ -73,7 +75,10 @@ def slot_specs(cfg, slot: Slot) -> dict[str, Spec]:
     s.update(L.norm_specs(cfg, "attn_norm"))
     s.update(L.attention_specs(cfg, "attn"))
     s.update(L.norm_specs(cfg, "mlp_norm"))
-    s.update(L.mlp_specs(cfg, "mlp"))
+    if slot.ffn == "moe":
+        s.update(MOE.moe_specs(cfg, "moe"))
+    else:
+        s.update(L.mlp_specs(cfg, "mlp"))
     return s
 
 
@@ -85,15 +90,19 @@ class Ctx(NamedTuple):
 
 def apply_slot(cfg, slot: Slot, params: Params, x: torch.Tensor, cache,
                ctx: Ctx):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux_loss); aux_loss is None for a slot
+    without MoE."""
     h = L.apply_norm(cfg, params, "attn_norm", x)
     y, new_cache = L.attention(cfg, params, "attn", h, positions=ctx.positions,
                                window=slot.window, cache=cache,
                                lengths=ctx.lengths, kernels=ctx.kernels)
     x = x + y
     h = L.apply_norm(cfg, params, "mlp_norm", x)
+    if slot.ffn == "moe":
+        out = MOE.moe_block(cfg, params, "moe", h, kernels=ctx.kernels)
+        return x + out.y, new_cache, out.aux_loss
     x = x + L.mlp(cfg, params, "mlp", h, kernels=ctx.kernels)
-    return x, new_cache
+    return x, new_cache, None
 
 
 class LayerStack:
@@ -123,19 +132,25 @@ class LayerStack:
     def apply(self, params: Params, x: torch.Tensor, ctx: Ctx, caches=None):
         """Every layer in order.  ``caches`` is the flat serving layout
         ``{"slots": [[cache per period] per pattern slot], "tail": [...]}``
-        (updated in place), or None.  Returns (x, caches)."""
+        (updated in place), or None.  Returns (x, caches, aux_loss), the
+        MoE auxiliary losses summed over the layers."""
         use_cache = caches is not None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_periods):
             for s, slot in enumerate(self.pattern):
                 sp = {k: w[i] for k, w in params["slots"][s].items()}
                 c = caches["slots"][s][i] if use_cache else None
-                x, c_new = apply_slot(self.cfg, slot, sp, x, c, ctx)
+                x, c_new, a = apply_slot(self.cfg, slot, sp, x, c, ctx)
+                if a is not None:
+                    aux = aux + a
                 if use_cache:
                     caches["slots"][s][i] = c_new
         for i in range(self.n_tail):
             c = caches["tail"][i] if use_cache else None
-            x, c_new = apply_slot(self.cfg, self.pattern[i], params["tail"][i],
-                                  x, c, ctx)
+            x, c_new, a = apply_slot(self.cfg, self.pattern[i],
+                                     params["tail"][i], x, c, ctx)
+            if a is not None:
+                aux = aux + a
             if use_cache:
                 caches["tail"][i] = c_new
-        return x, caches
+        return x, caches, aux

@@ -1,8 +1,8 @@
 """Serving engine: continuous batching with chunked prefill over paged KV
 pools.
 
-A port of ``repro.serving.engine`` for the dense attention families.  One
-engine instance owns
+A port of ``repro.serving.engine`` for the attention families with a dense
+or MoE feed-forward.  One engine instance owns
 
 * a **state tree** (:mod:`repro_torch.serving.state`): one page pool per
   attention layer, sharing a page allocator per ring length;
@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.model import Model
 from repro_torch.serving.paged_kv import COPY_NONE
 from repro_torch.serving.scheduler import (FAILED, PREFILLING, RUNNING,
@@ -437,6 +438,17 @@ class PagedEngine:
     def allocators(self):
         return self.state.allocators
 
+    @property
+    def moe_gemm(self) -> str | None:
+        """Which expert FFN the MoE layers run: ``"kernel"`` (the
+        hand-written ``grouped_moe_gemm``, on CUDA) or ``"plain"``; None
+        without MoE layers."""
+        if not self.cfg.num_experts:
+            return None
+        kernel = (self.device.type == "cuda"
+                  and self.model.kernels.moe_ffn is ops.grouped_expert_ffn)
+        return "kernel" if kernel else "plain"
+
     def stats(self) -> dict:
         return {
             "prefill_calls": self._prefill.calls,
@@ -445,6 +457,7 @@ class PagedEngine:
             "decode_steps": self.decode_steps,
             "decode_calls": self._decode.calls,
             "decode_retraces": self._decode.retraces,
+            "moe_gemm": self.moe_gemm,
             "reset_calls": self._reset.calls,
             "reset_retraces": self._reset.retraces,
             "chunk": self.chunk,

@@ -6,7 +6,8 @@ kernel has no CPU mode.  On a machine with one (and ``nvcc``):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-``chip_smoke.py`` makes the same comparisons at the yi-6b shapes.
+``chip_smoke.py`` makes the same comparisons at the yi-6b and mixtral
+shapes.
 """
 
 import dataclasses
@@ -121,16 +122,59 @@ def test_paged_attention_kernel_matches_plain(kv):
 
 
 @pytest.mark.cuda
-def test_engine_on_the_card_matches_the_cpu():
-    """The f32 yi-6b smoke engine through the CUDA kernels emits the same
-    greedy tokens as through the plain versions on the CPU."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_grouped_moe_gemm_kernel_matches_plain(dtype):
+    """Skewed sizes with an empty expert and one past C, an all-empty
+    call, ragged and aligned widths, garbage in the dead capacity rows;
+    int8 exactly."""
+    from repro_torch.kernels import kraken_moe_gemm as tmg
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    before = tmg.launches
+    cases = ((4, 8, 24, 40, [8, 0, 3, 9]), (3, 70, 64, 128, [70, 0, 65]),
+             (2, 5, 13, 9, [0, 0]))
+    for e, c, d, f, sizes in cases:
+        if dtype == torch.int8:
+            xs = torch.from_numpy(rng.integers(-128, 128, (e, c, d)).astype(
+                np.int8))
+            w = torch.from_numpy(rng.integers(-128, 128, (e, d, f)).astype(
+                np.int8))
+        else:
+            xs = torch.from_numpy(rng.normal(size=(e, c, d))).to(dtype)
+            w = (torch.from_numpy(rng.normal(size=(e, d, f))) / d ** 0.5).to(
+                dtype)
+        for i, s in enumerate(sizes):
+            xs[i, min(s, c):] = 99
+        xs, w = xs.to(dev), w.to(dev)
+        sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        got = tmg.grouped_moe_gemm(xs, w, sz)
+        want = ref.grouped_moe_gemm(xs, w, sz)
+        if dtype == torch.int8:
+            assert got.dtype == torch.int32
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+        for i, s in enumerate(sizes):
+            assert not got[i, min(s, c):].any()
+    assert tmg.launches == before + len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x22b"])
+def test_engine_on_the_card_matches_the_cpu(arch):
+    """The f32 smoke engine through the CUDA kernels emits the same greedy
+    tokens as through the plain versions on the CPU."""
     from repro_torch.configs import get_arch, smoke_config
     from repro_torch.kernels import kraken_gemm as tkg
+    from repro_torch.kernels import kraken_moe_gemm as tmg
     from repro_torch.kernels import paged_attention as tpa
     from repro_torch.models.model import Model
     from repro_torch.serving import CacheConfig, EngineConfig, PagedEngine
     dev = _cuda()
-    cfg = dataclasses.replace(smoke_config(get_arch("yi-6b")),
+    moe_before = tmg.launches
+    cfg = dataclasses.replace(smoke_config(get_arch(arch)),
                               dtype="float32")
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
@@ -146,6 +190,7 @@ def test_engine_on_the_card_matches_the_cpu():
         outs.append(eng.run_until_idle())
     assert outs[0] == outs[1] and len(outs[0]) == 4
     assert tkg.launches > 0 and tpa.launches > 0
+    assert (tmg.launches > moe_before) == bool(cfg.num_experts)
 
 
 def _to(tree, dev):
