@@ -36,6 +36,25 @@ default ``build/chip_smoke/``):
    under ``torch.cuda.set_sync_debug_mode("error")``), then the whole
    model's logits, kernels against plain versions, with the routing
    choices that differ counted.
+9. ``dense_kernels`` -- ``decode_attention`` against its plain version at
+   the yi-6b decode shape (32/4 heads of 128, 4 slots, a 512-slot dense
+   cache), bfloat16, float32 and int8: per-slot positions with a wrapped
+   ring, shared positions, a window, a ragged S and an all-empty row (exact
+   zeros); then int8 at ``dense_serve``'s shape (one slot, each prompt's
+   middle decode position).  Timed beside the plain version, one
+   ``F.scaled_dot_product_attention`` on the bf16 cache and the bound.
+10. ``dense_serve`` -- full-width, full-depth yi-6b with int8 KV (bf16,
+   the serve phase's weights): the serve workload's 8 requests one by one
+   through ``init_caches``, ``prefill`` and ``decode_step`` (32
+   ``decode_attention`` launches per decode step), then through an int8
+   ``PagedEngine`` (int8 pools, ``paged_decode_attention``); tok/s of both.
+11. ``dense_e2e`` -- one int8 dense decode step's logits at full width,
+   kernels against plain versions; then, in float32 at 2 layers, the int8
+   engine (whole-prompt prefill) token-identical to the int8 dense
+   sequential path.
+
+Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
+serve, e2e, profile, dense_serve, dense_e2e, moe_serve, moe_e2e``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -105,6 +124,10 @@ MOE_CASES = [
 ]
 GEMM_TOL = {"bfloat16": (3e-2, 2e-2), "float32": (1e-4, 1e-4)}   # atol, rtol
 ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}  # by q dtype
+# decode_attention by q dtype: both sides compute in fp32 and round once, so
+# they differ by at most one bf16 ulp (< 2^-7 of the value); the limit still
+# fails a kernel that drops one live entry of a 512-entry row
+DECODE_TOL = {"bfloat16": (1e-4, 1e-2), "float32": (1e-5, 1e-5)}
 E2E_TOL = 0.05   # max |kernel - plain| <= E2E_TOL * max |plain| on bf16 logits
 
 
@@ -136,10 +159,11 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rotating(make, nbytes: int, budget: int = 160 << 20):
-    """Enough copies of an operand that cycling through them exceeds the
-    50 MB L2, as a decode step's distinct layer weights do."""
-    n = max(1, min(32, -(-budget // max(1, nbytes))))
+def rotating(make, nbytes: int, budget: int = 160 << 20, most: int = 32):
+    """Enough copies of an operand (at most ``most``) that cycling through
+    them exceeds the 50 MB L2, as a decode step's distinct layer weights
+    do."""
+    n = max(1, min(most, -(-budget // max(1, nbytes))))
     return [make() for _ in range(n)]
 
 
@@ -171,7 +195,8 @@ def phase_build(rec: dict, state: dict) -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     report = _build.build(["kraken_gemm", "paged_attention",
-                           "grouped_moe_gemm"], force=True)
+                           "grouped_moe_gemm", "decode_attention"],
+                          force=True)
     secs = time.perf_counter() - t0
     for name, r in report.items():
         regs = [ln.strip() for ln in r["log"].splitlines()
@@ -548,7 +573,7 @@ def serve_passes(eng, label: str) -> list[dict]:
             "mixed_steps": eng._prefill.calls - calls0[0],
             "decode_steps": eng._decode.calls - calls0[1],
             "ttft_mean_s": sum(ttft) / len(ttft), "ttft_max_s": max(ttft),
-            "new_signatures": new_sigs})
+            "new_signatures": new_sigs, "out": [list(r.out) for r in reqs]})
         log(f"  {label} pass {rep + 1}: {len(reqs)} requests, {toks} tokens "
             f"in {wall:.2f} s = {toks / wall:.1f} tok/s, ttft mean "
             f"{passes[-1]['ttft_mean_s'] * 1e3:.0f} ms max "
@@ -634,7 +659,7 @@ def _plain_kernels():
     from repro_torch.kernels import ref
     from repro_torch.models.layers import Kernels
     return Kernels(ref.matmul, ref.paged_decode_attention,
-                   ref.grouped_expert_ffn)
+                   ref.grouped_expert_ffn, ref.decode_attention)
 
 
 def two_steps(model, params, seed: int = 1):
@@ -668,15 +693,15 @@ def two_steps(model, params, seed: int = 1):
     return last[live], logits[live]
 
 
-def compare_logits(name: str, got, want, vocab: int) -> dict:
+def compare_logits(name: str, got, want, vocab: int, rows: int = 3) -> dict:
     """max |kernel - plain| against ``E2E_TOL`` times max |plain|; raises
-    on non-finite or misshapen logits, reports (does not raise) on the
-    tolerance."""
+    on non-finite or misshapen logits (``rows`` live rows), reports (does
+    not raise) on the tolerance."""
     import torch
     got, want = got.float(), want.float()
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         raise AssertionError(f"e2e {name}: non-finite logits")
-    if got.shape != (3, vocab) or want.shape != got.shape:   # 3 live rows
+    if got.shape != (rows, vocab) or want.shape != got.shape:
         raise AssertionError(f"e2e {name}: logits shape {got.shape}")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
@@ -1007,6 +1032,382 @@ def phase_moe_e2e(rec: dict, state: dict) -> None:
         f"logits within {E2E_TOL} of the largest logit")
 
 
+# ---------------------------------------------------------------------------
+# the dense-cache path: decode_attention and int8 KV
+# ---------------------------------------------------------------------------
+
+# per-slot positions of the dense cases: slot 1 has wrapped the ring, slot
+# 2 holds nothing (an all-empty row: its q_pos sees no live entry)
+DENSE_Q_POS = [300, 700, 50, 17]
+DENSE_EMPTY_ROW = 2
+# (S, window, shared positions, timed): the serve cache length with and
+# without a window, a ragged S (no multiple of the kernel's 32-entry tile),
+# and one shared position row
+DENSE_CASES = [(MAX_LEN, 0, False, True), (MAX_LEN, 64, False, True),
+               (MAX_LEN - 13, 0, False, False), (MAX_LEN, 0, True, False)]
+# the decode step of dense_e2e: per-slot positions after a 64-token prefill
+DENSE_E2E_POS = [64, 65, 100, 600]
+# dense_serve's decode_attention calls: one slot, a MAX_LEN cache, each
+# prompt's decode at positions n .. n + SERVE_NEW - 2; its middle stands for
+# the prompt's 15 steps
+DENSE_SERVE_Q_POS = [n + (SERVE_NEW - 2) // 2 for n in SERVE_LENS]
+
+
+def dense_positions(s: int, shared: bool, q_pos: list, empty_row):
+    """kv_pos as decode leaves a ring of ``s`` slots: slot ``p % s`` holds
+    the last ``s`` positions up to q_pos; row ``empty_row`` holds nothing.
+    Returns (kv_pos [B, S] or [S] numpy, q_pos list)."""
+    import numpy as np
+    if shared:
+        pos = np.full((s,), -(2 ** 30), np.int32)
+        p = np.arange(s, dtype=np.int32)
+        pos[p % s] = p
+        return pos, [s - 1] * len(q_pos)
+    pos = np.full((len(q_pos), s), -(2 ** 30), np.int32)
+    for i, qp in enumerate(q_pos):
+        if i == empty_row:
+            continue
+        p = np.arange(max(0, qp + 1 - s), qp + 1, dtype=np.int32)
+        pos[i, p % s] = p
+    return pos, list(q_pos)
+
+
+def dense_attn_case(torch, dec, ref, *, dtype, s, window, shared, timed,
+                    q_pos=DENSE_Q_POS, empty_row=DENSE_EMPTY_ROW, seed=0):
+    """One ``decode_attention`` call at the yi-6b decode shape, one slot
+    per ``q_pos``: parity with the plain version (the ``empty_row`` must be
+    exact zeros) and, when ``timed``, the kernel's, the plain version's and
+    one SDPA's time.  The timed K/V rotate over copies that exceed the 50 MB
+    L2, as the 32 layers' distinct caches of a decode step do."""
+    import numpy as np
+    import torch.nn.functional as F
+    b, h, kvh, d = len(q_pos), HEADS, KV_HEADS, HEAD_DIM
+    quant = dtype == torch.int8
+    qdt = torch.bfloat16 if quant else dtype
+    pos_np, q_pos = dense_positions(s, shared, q_pos, empty_row)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, kvh, s, d)
+
+    def make_kv():
+        if quant:
+            kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.int8)
+                  for _ in range(2)]
+            return kv + [torch.rand(shape[:3], generator=g, device="cuda")
+                         / 127 for _ in range(2)]
+        return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                for _ in range(2)] + [None, None]
+
+    isz_kv = 1 if quant else torch.tensor([], dtype=dtype).element_size()
+    caches = (rotating(make_kv, 2 * b * kvh * s * d * isz_kv, most=512)
+              if timed else [make_kv()])
+    q = torch.randn((b, h, d), generator=g, device="cuda").to(qdt)
+    kw = dict(kv_pos=torch.as_tensor(pos_np, device="cuda"),
+              q_pos=torch.tensor(q_pos, dtype=torch.int32, device="cuda"),
+              window=window)
+    k, v, ks, vs = caches[0]
+    got = dec.decode_attention(q, k, v, k_scale=ks, v_scale=vs, **kw)
+    want = ref.decode_attention(q, k, v, k_scale=ks, v_scale=vs, **kw)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    atol, rtol = DECODE_TOL[str(qdt).split(".")[-1]]
+    label = (f"decode_attention {name} B={b} S={s} window={window}"
+             f"{' shared' if shared else ''}")
+    err = assert_close(label, got, want, atol, rtol)
+    if (not shared and empty_row is not None
+            and got[empty_row].abs().max().item() != 0.0):
+        raise AssertionError(f"{label}: the all-empty row is not zero")
+    row = {"dtype": name, "b": b, "s": s, "window": window, "shared": shared,
+           "q_pos": q_pos,
+           "max_abs_err": err, "ms": None, "plain_ms": None,
+           "library_ms": None, "bound_ms": None, "bound_by": None}
+    if not timed:
+        return row
+
+    def cycle(items, fn):
+        it = [0]
+
+        def run():
+            it[0] = (it[0] + 1) % len(items)
+            return fn(*items[it[0]])
+        return run
+
+    row["ms"] = time_ms(cycle(caches, lambda kk, vv, sk, sv:
+                              dec.decode_attention(q, kk, vv, k_scale=sk,
+                                                   v_scale=sv, **kw)), 50)
+    row["plain_ms"] = time_ms(cycle(caches, lambda kk, vv, sk, sv:
+                                    ref.decode_attention(q, kk, vv, k_scale=sk,
+                                                         v_scale=sv, **kw)), 10)
+    # the live entries of this run's positions
+    kvp = pos_np if pos_np.ndim == 2 else np.broadcast_to(pos_np, (b, s))
+    qp = np.asarray(q_pos)[:, None]
+    live = (kvp >= 0) & (kvp <= qp)
+    if window:
+        live &= kvp > qp - window
+    n_live = int(live.sum())
+    # library: one SDPA on a bf16 (f32 for the f32 rows) cache with the
+    # boolean mask; for int8 it reads a bf16 cache and skips the dequant
+    lib_dt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    lib = [(kk.to(lib_dt), vv.to(lib_dt)) for kk, vv, _, _ in caches]
+    mask = torch.as_tensor(live, device="cuda")[:, None, None, :]
+    q4 = q.to(lib_dt)[:, :, None, :]
+    row["library_ms"] = time_ms(cycle(lib, lambda kk, vv:
+                                      F.scaled_dot_product_attention(
+                                          q4, kk, vv, attn_mask=mask,
+                                          enable_gqa=True)), 50)
+    del lib
+    nbytes = (2 * b * h * d * q.element_size() + kvp.size * 4 + b * 4
+              + n_live * (2 * kvh * d * isz_kv + (8 * kvh if quant else 0)))
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * h * d * n_live,
+                                                peak)
+    row["live_entries"] = n_live
+    return row
+
+
+def phase_dense_kernels(rec: dict, state: dict) -> None:
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        for s, window, shared, timed in DENSE_CASES:
+            r = dense_attn_case(torch, dec, ref, dtype=dtype, s=s,
+                                window=window, shared=shared, timed=timed,
+                                seed=len(rows))
+            rows.append(r)
+            times = ("" if not timed else
+                     f" ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+                     f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.5f}")
+            log(f"  decode_attention {r['dtype']:8s} B={SLOTS} S={s:<3d} "
+                f"window={window:<3d} {'shared  ' if shared else 'per-slot'} "
+                f"err={r['max_abs_err']:.2e}{times}")
+            torch.cuda.empty_cache()
+    # dense_serve's shape: int8, one slot, each prompt's middle decode step
+    serve = []
+    for qp in DENSE_SERVE_Q_POS:
+        r = dense_attn_case(torch, dec, ref, dtype=torch.int8, s=MAX_LEN,
+                            window=0, shared=False, timed=True, q_pos=[qp],
+                            empty_row=None, seed=len(rows) + len(serve))
+        serve.append(r)
+        log(f"  decode_attention int8     B=1 S={MAX_LEN} q_pos={qp:<3d} "
+            f"err={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
+            f"plain={r['plain_ms']:.4f} sdpa={r['library_ms']:.4f} "
+            f"bound={r['bound_ms']:.5f}")
+        torch.cuda.empty_cache()
+    rec["dense_attention"] = rows
+    rec["dense_attention_serve"] = serve
+    mean = {key: sum(r[key] for r in serve) / len(serve)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"dense_kernels: decode_attention matches plain in "
+        f"{len(rows) + len(serve)} cases (bf16, f32, int8; wrapped ring, "
+        "window, ragged S, shared positions, all-empty row exact zero); at "
+        f"dense_serve's shape {mean['ms']:.4f} ms per call (plain "
+        f"{mean['plain_ms']:.4f}, sdpa {mean['library_ms']:.4f}, bound "
+        f"{mean['bound_ms']:.5f})")
+
+
+def _yi6b_int8(kernels=None, layers: int | None = None,
+               dtype: str = "bfloat16"):
+    """yi-6b at full width with an int8 KV cache, at full depth or
+    ``layers`` deep."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch("yi-6b"), kv_cache_dtype="int8",
+                              dtype=dtype)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return Model(cfg, kernels=kernels)
+
+
+def serve_prompts(vocab: int):
+    """The serve workload's 8 prompts, as ``serve_passes`` draws its first
+    pass."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, (n,)) for n in SERVE_LENS]
+
+
+def dense_sequential(model, params, prompts, max_new: int) -> list:
+    """Each prompt alone through the dense-cache path: ``init_caches`` (one
+    slot, ``MAX_LEN`` entries), ``prefill``, then greedy ``decode_step`` at
+    its own position.  Returns the generated tokens per prompt."""
+    import torch
+    outs = []
+    for prompt in prompts:
+        caches = model.init_caches(1, MAX_LEN)
+        n = len(prompt)
+        logits, caches = model.prefill(params, {
+            "tokens": torch.as_tensor(prompt[None], device="cuda"),
+            "positions": torch.arange(n, dtype=torch.int32, device="cuda")},
+            caches)
+        seq = [int(torch.argmax(logits[0, -1]))]
+        while len(seq) < max_new:
+            pos = torch.full((1,), n + len(seq) - 1, dtype=torch.int32,
+                             device="cuda")
+            logits, caches = model.decode_step(
+                params, caches, torch.tensor([[seq[-1]]], device="cuda"), pos)
+            seq.append(int(torch.argmax(logits[0])))
+        outs.append(seq)
+    return outs
+
+
+def _counters():
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import kraken_gemm as kg
+    from repro_torch.kernels import kraken_moe_gemm as mg
+    from repro_torch.kernels import paged_attention as pa
+    return {"kraken_gemm": kg, "paged_decode_attention": pa,
+            "grouped_moe_gemm": mg, "decode_attention": dec}
+
+
+def _zero_counts() -> None:
+    for mod in _counters().values():
+        mod.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: mod.launches for name, mod in _counters().items()}
+
+
+def phase_dense_serve(rec: dict, state: dict) -> None:
+    import torch
+    model = _yi6b_int8()
+    params = state.get("params")
+    if params is None:
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        state["params"] = params
+    prompts = serve_prompts(model.cfg.vocab_size)
+    dense_sequential(model, params, prompts[:1], 2)     # first-use warm-up
+
+    # 1. the dense-cache path, one request at a time
+    _zero_counts()
+    t0 = time.perf_counter()
+    outs = dense_sequential(model, params, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    toks = sum(len(o) for o in outs)
+    dec_steps = len(prompts) * (SERVE_NEW - 1)
+    want = {"kraken_gemm": (LAYERS * 7 + 1) * (len(prompts) + dec_steps),
+            "paged_decode_attention": 0, "grouped_moe_gemm": 0,
+            "decode_attention": LAYERS * dec_steps}
+    if launches != want:
+        raise AssertionError(f"dense path launch counts {launches} do not "
+                             f"match {len(prompts)} prefills + {dec_steps} "
+                             f"decode steps: {want}")
+    bad = [i for i, o in enumerate(outs)
+           if len(o) != SERVE_NEW
+           or not all(0 <= t < model.cfg.vocab_size for t in o)]
+    if bad:
+        raise AssertionError(f"dense_serve: requests {bad} not served in "
+                             "full")
+    log(f"  dense int8 sequential: {len(prompts)} requests, {toks} tokens in "
+        f"{wall:.2f} s = {toks / wall:.1f} tok/s, {dec_steps} decode steps, "
+        f"launches {launches}")
+
+    # 2. the same requests through an int8 PagedEngine
+    eng = _engine(model, params)
+    pool = eng.pools["slots"][0][0]
+    if pool.k.dtype != torch.int8 or not pool.quantized:
+        raise AssertionError("the int8 engine's pools are not int8")
+    _zero_counts()
+    passes = serve_passes(eng, "dense_serve int8 engine")
+    eng_launches = _read_counts()
+    dec_calls = eng._decode.calls
+    if (eng_launches["paged_decode_attention"] != LAYERS * dec_calls
+            or eng_launches["decode_attention"] != 0
+            or eng_launches["kraken_gemm"] <= 0):
+        raise AssertionError(f"int8 engine launch counts {eng_launches} "
+                             f"({dec_calls} decode steps)")
+    same = sum(a == b for a, b in zip(passes[0]["out"], outs))
+    rec["dense_serve"] = {
+        "sequential": {"wall_s": wall, "tokens": toks, "tok_s": toks / wall,
+                       "decode_steps": dec_steps, "out": outs},
+        "engine": passes, "report": eng.report(),
+        "launches": launches, "engine_launches": eng_launches,
+        "engine_requests_identical_to_sequential": same}
+    log(f"  {eng.report()}")
+    log(f"dense_serve: yi-6b int8 KV, dense sequential "
+        f"{toks / wall:.1f} tok/s ({LAYERS} decode_attention launches per "
+        f"decode step), int8 engine warm {passes[1]['tok_s']:.1f} tok/s; "
+        f"{same} of {len(prompts)} requests token-identical between the two "
+        f"(bf16, chunk {CHUNK})")
+
+
+def dense_decode_logits(model, params, seed: int = 3):
+    """Prefill 64 tokens in every slot of a dense cache, then one decode
+    step at the per-slot positions ``DENSE_E2E_POS``; returns its logits."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    vocab = model.cfg.vocab_size
+    caches = model.init_caches(SLOTS, MAX_LEN)
+    model.prefill(params, {
+        "tokens": torch.as_tensor(rng.integers(0, vocab, (SLOTS, 64)),
+                                  device="cuda"),
+        "positions": torch.arange(64, dtype=torch.int32, device="cuda")},
+        caches)
+    logits, _ = model.decode_step(
+        params, caches,
+        torch.as_tensor(rng.integers(0, vocab, (SLOTS, 1)), device="cuda"),
+        torch.tensor(DENSE_E2E_POS, dtype=torch.int32, device="cuda"))
+    return logits
+
+
+def phase_dense_e2e(rec: dict, state: dict) -> None:
+    import torch
+    from repro_torch.serving import CacheConfig, EngineConfig, PagedEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_model = _yi6b_int8()
+    params = state.get("params")
+    if params is None:
+        params = kernel_model.init(
+            torch.Generator(device="cuda").manual_seed(0))
+    # 1. full width: one int8 dense decode step, kernels against plain
+    got = dense_decode_logits(kernel_model, params)
+    want = dense_decode_logits(_yi6b_int8(_plain_kernels()), params)
+    res = {"decode step": compare_logits(
+        "yi-6b int8 dense decode step", got, want,
+        kernel_model.cfg.vocab_size, rows=SLOTS)}
+    if not res["decode step"]["ok"]:
+        r = res["decode step"]
+        raise AssertionError(f"dense_e2e: {r['max_abs_err']} > {E2E_TOL} * "
+                             f"{r['max_abs_plain']}")
+    del got, want
+
+    # 2. float32, 2 layers: the int8 engine (whole-prompt prefill) against
+    # the int8 dense sequential path, token for token
+    m32 = _yi6b_int8(layers=2, dtype="float32")
+    p32 = m32.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = serve_prompts(m32.cfg.vocab_size)
+    _zero_counts()
+    seq = dense_sequential(m32, p32, prompts, SERVE_NEW)
+    eng = PagedEngine(m32, p32, config=EngineConfig(
+        slots=SLOTS, chunk=None,
+        cache=CacheConfig(page_size=PAGE, max_len=MAX_LEN)))
+    reqs = [eng.submit(p, SERVE_NEW) for p in prompts]
+    eng.run_until_idle()
+    counts = _read_counts()
+    if not (counts["decode_attention"] and counts["paged_decode_attention"]):
+        raise AssertionError(f"dense_e2e: a kernel did not run: {counts}")
+    diff = [i for i, (r, o) in enumerate(zip(reqs, seq)) if list(r.out) != o]
+    if diff:
+        raise AssertionError(f"dense_e2e: int8 engine requests {diff} differ "
+                             "from the int8 dense sequential path")
+    res["float32_2_layers"] = {"requests": len(prompts),
+                               "tokens": sum(len(o) for o in seq),
+                               "token_identical": True, "launches": counts}
+    rec["dense_e2e"] = res
+    log(f"  dense_e2e: float32 2 layers: the int8 engine (chunk None) is "
+        f"token-identical to the int8 dense sequential path on all "
+        f"{len(prompts)} requests ({sum(len(o) for o in seq)} tokens)")
+    log(f"dense_e2e: int8 dense decode logits within {E2E_TOL} of the "
+        "largest logit (bf16, full yi-6b); engine == sequential in float32")
+
+
 def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
     """The kernels line's entries of the yi-6b path's two kernels."""
     dec = {r["name"]: r for r in rec["gemm"]
@@ -1056,10 +1457,14 @@ def kernels_line(rec: dict) -> dict:
     # run
     launches = rec.get("launches", {})
     moe_launches = rec.get("moe_serve", {}).get("launches", {})
+    dense = rec.get("dense_serve", {})
 
     def by_path(name):
         return {"yi-6b": launches.get(name),
-                "mixtral-8x22b": moe_launches.get(name)}
+                "mixtral-8x22b": moe_launches.get(name),
+                "yi-6b int8 dense": dense.get("launches", {}).get(name),
+                "yi-6b int8 engine": dense.get("engine_launches",
+                                               {}).get(name)}
 
     entries = []
     if "gemm" in rec:
@@ -1085,12 +1490,37 @@ def kernels_line(rec: dict) -> dict:
                       "bf16, C=1, 6 of 8 experts live: "
                       f"{MOE_LAYERS} x (gate, up: 6144x16384; down: "
                       "16384x6144)"})
+    if "dense_attention" in rec:
+        rows = rec["dense_attention"] + rec["dense_attention_serve"]
+        serve = rec["dense_attention_serve"]
+
+        def dense_step(key):   # mean over the prompts, 32 calls per step
+            return LAYERS * sum(r[key] for r in serve) / len(serve)
+
+        entries.append(
+            {"name": "decode_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/decode_attention.cu",
+             "replaces": "src/repro/kernels/decode_attention.py:120",
+             "launches": dense.get("launches", {}).get("decode_attention"),
+             "launches_by_path": by_path("decode_attention"),
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": dense_step("ms"), "plain_ms": dense_step("plain_ms"),
+             "bound_ms": dense_step("bound_ms"),
+             "bound_by": serve[0]["bound_by"],
+             "library_ms": dense_step("library_ms"),
+             "shape": "one yi-6b int8 dense decode step as dense_serve runs "
+                      "it: 32 layers x (1 slot, 32/4 heads, D 128, S 512), "
+                      "mean over the 8 prompts' middle decode positions "
+                      f"{DENSE_SERVE_Q_POS}; library = SDPA on a bf16 "
+                      "cache (no dequant)"})
     return {"kernels": entries}
 
 
 PHASES = {"build": phase_build, "kernels": phase_kernels,
-          "moe_kernels": phase_moe_kernels, "serve": phase_serve,
+          "moe_kernels": phase_moe_kernels,
+          "dense_kernels": phase_dense_kernels, "serve": phase_serve,
           "e2e": phase_e2e, "profile": phase_profile,
+          "dense_serve": phase_dense_serve, "dense_e2e": phase_dense_e2e,
           "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e}
 
 
@@ -1127,7 +1557,7 @@ def main(argv=None) -> int:
     if "card" not in rec:
         rec["card"] = card_line()
     print(rec["card"])
-    if "gemm" in rec or "moe_gemm" in rec:
+    if "gemm" in rec or "moe_gemm" in rec or "dense_attention" in rec:
         print(json.dumps(kernels_line(rec)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import kraken_gemm as _gemm
 from repro_torch.kernels import kraken_moe_gemm as _moe
 from repro_torch.kernels import paged_attention as _pa
@@ -50,6 +51,18 @@ def kraken_paged_attention(q, k_pages, v_pages, *, pos_pages, page_table,
     return ref.paged_decode_attention(
         q, k_pages, v_pages, pos_pages=pos_pages, page_table=page_table,
         q_pos=q_pos, k_scale=k_scale, v_scale=v_scale, window=window)
+
+
+def kraken_decode_attention(q, k, v, *, kv_pos, q_pos, k_scale=None,
+                            v_scale=None, window: int = 0) -> torch.Tensor:
+    """One-token GQA attention over a dense (possibly int8) KV cache."""
+    if _on_cuda(q):
+        return _dec.decode_attention(q, k, v, kv_pos=kv_pos, q_pos=q_pos,
+                                     k_scale=k_scale, v_scale=v_scale,
+                                     window=window)
+    return ref.decode_attention(q, k, v, kv_pos=kv_pos, q_pos=q_pos,
+                                k_scale=k_scale, v_scale=v_scale,
+                                window=window)
 
 
 def grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo) -> torch.Tensor:

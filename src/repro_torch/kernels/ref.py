@@ -136,3 +136,15 @@ def decode_attention(q, k, v, *, kv_pos, q_pos, k_scale=None, v_scale=None,
     p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
     out = torch.einsum("bkgs,bksd->bkgd", p, vf)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, head, slot) symmetric int8: x [B, KV, S, D] -> (int8
+    [B, KV, S, D], scale f32 [B, KV, S]).  Bit for bit
+    ``repro.kernels.decode_attention.quantize_kv``: ``scale = max(amax /
+    127, 1e-12)``, a division by the scale (not a product with its
+    reciprocal), round half to even, then a clip to +-127."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale

@@ -1,6 +1,6 @@
 """Model building blocks on the serving main path: RMSNorm, RoPE, the
-uniform-GEMM dense layer, GQA attention over paged KV pools, and the
-SwiGLU MLP.
+uniform-GEMM dense layer, GQA attention over paged KV pools and dense KV
+caches, and the SwiGLU MLP.
 
 A port of ``repro.models.layers`` for the dense GQA decoder (layernorm,
 sinusoidal positions and the gelu MLP come with musicgen, ROADMAP Queue 1
@@ -9,15 +9,18 @@ goes through :func:`dense`, which calls ``kernels.matmul`` -- by default
 :func:`repro_torch.kernels.ops.kraken_matmul`, the hand-written
 ``kraken_gemm`` on CUDA tensors -- with the activation fused in its
 epilogue.  Decode attention reads the page pools through
-``kernels.paged_attention`` (the hand-written ``paged_decode_attention``).
-Callers may pass other ``Kernels`` (the plain versions) to compare.
+``kernels.paged_attention`` (the hand-written ``paged_decode_attention``);
+the int8 dense-cache decode goes through ``kernels.decode_attention`` (the
+hand-written ``decode_attention``).  Callers may pass other ``Kernels``
+(the plain versions) to compare.
 
-Unlike the JAX version, the paged paths update the pools **in place**
-(``index_put_``): JAX rebuilt every pool functionally and relied on buffer
-donation to alias it.  Out-of-range indices follow JAX's rules exactly with
-a fixed-shape scheme: every pool holds one extra *trash page* at index
-``n_pages`` that absorbs the writes JAX drops (``mode="drop"``), and every
-gather through a page table clamps to ``n_pages - 1``, as JAX clamps.
+Unlike the JAX version, both the dense and the paged caches are updated
+**in place** (``index_put_``, ``copy_``): JAX rebuilt every cache
+functionally and relied on buffer donation to alias it.  Out-of-range
+indices follow JAX's rules exactly with a fixed-shape scheme: every pool
+holds one extra *trash page* at index ``n_pages`` that absorbs the writes
+JAX drops (``mode="drop"``), and every gather through a page table clamps
+to ``n_pages - 1``, as JAX clamps.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import quantize_kv
 
 Params = dict
 
@@ -40,10 +44,11 @@ class Kernels(NamedTuple):
     matmul: Callable
     paged_attention: Callable
     moe_ffn: Callable
+    decode_attention: Callable
 
 
 DEFAULT_KERNELS = Kernels(ops.kraken_matmul, ops.kraken_paged_attention,
-                          ops.grouped_expert_ffn)
+                          ops.grouped_expert_ffn, ops.kraken_decode_attention)
 
 
 class Spec(NamedTuple):
@@ -188,12 +193,47 @@ def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
 
 @dataclasses.dataclass
 class KVCache:
-    """A dense, position-identity block of K/V rows (what
-    ``scatter_prefill`` writes into the pages): k/v [B, KV, S, D], pos
-    [B, S] or [S]."""
+    """Dense decode cache for one attention layer (and the
+    position-identity block ``scatter_prefill`` writes into the pages).
+
+    ``k, v``: [B, KV, S_cache, D].  ``pos``: [B, S_cache] token position
+    held in each slot (-2^30 for empty: always masked); every batch row
+    advances at its own position.  For sliding-window layers ``S_cache ==
+    window`` and the slots are a ring buffer (position ``p`` at ``p %
+    S_cache``); for full attention ``S_cache`` is the max context.  With
+    ``cfg.kv_cache_dtype == "int8"``, ``k``/``v`` hold int8 values with
+    per-(batch, head, slot) symmetric scales ``k_scale``/``v_scale``
+    ([B, KV, S_cache] f32), dequantized inside ``decode_attention``.  The
+    tensors are updated in place.
+    """
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @staticmethod
+    def init(cfg, batch: int, s_cache: int, dtype, device) -> "KVCache":
+        """An empty cache: zeros, every position empty."""
+        kvh, hd = cfg.num_kv_heads, cfg.head_dim
+        int8 = getattr(cfg, "kv_cache_dtype", "") == "int8"
+        shape = (batch, kvh, s_cache, hd)
+        kv_dtype = torch.int8 if int8 else dtype
+        scales = {}
+        if int8:
+            scales = {name: torch.zeros(shape[:3], dtype=torch.float32,
+                                        device=device)
+                      for name in ("k_scale", "v_scale")}
+        return KVCache(
+            k=torch.zeros(shape, dtype=kv_dtype, device=device),
+            v=torch.zeros(shape, dtype=kv_dtype, device=device),
+            pos=torch.full((batch, s_cache), POS_EMPTY, dtype=torch.int32,
+                           device=device),
+            **scales)
 
 
 @dataclasses.dataclass
@@ -207,14 +247,22 @@ class PagedKVCache:
     max_pages] int32 physical page per (slot, logical page); rows of
     unallocated slots hold the sentinel ``n_pages``, so their writes land in
     the trash page and their reads are dead.  Token position ``p`` of a slot
-    lives at logical index ``p % logical_len`` (ring semantics).  The
-    tensors are updated in place.  int8 pools (``k_scale``/``v_scale`` in
-    the JAX version) are not ported yet (ROADMAP Queue 1 item 5).
+    lives at logical index ``p % logical_len`` (ring semantics).  An int8
+    pool (``cfg.kv_cache_dtype == "int8"``) holds int8 ``k``/``v`` with
+    per-(page, head, offset) scales ``k_scale``/``v_scale`` ([n_pages + 1,
+    KV, page_size] f32, the trash page included).  The tensors are updated
+    in place.
     """
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
     page_table: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def page_size(self) -> int:
@@ -230,15 +278,20 @@ class PagedKVCache:
 
 
 def _gather_pool_view(cache: PagedKVCache, bsz: int, kvh: int, hd: int):
-    """Per-slot contiguous view of the pool: (k, v [B, KV, L, D], pos
-    [B, L]).  Sentinel entries clamp to page ``n_pages - 1``, as JAX's
-    gather does; their positions are garbage the mask never admits for a
-    live query."""
+    """Per-slot contiguous view of the pool: (k, v [B, KV, L, D] -- f32
+    dequantized for an int8 pool -- and pos [B, L]).  Sentinel entries
+    clamp to page ``n_pages - 1``, as JAX's gather does; their positions
+    are garbage the mask never admits for a live query."""
     logical = cache.logical_len
     tbl = cache.page_table.long().clamp(0, cache.n_pages - 1)
     kg = cache.k[tbl].permute(0, 2, 1, 3, 4).reshape(bsz, kvh, logical, hd)
     vg = cache.v[tbl].permute(0, 2, 1, 3, 4).reshape(bsz, kvh, logical, hd)
     posg = cache.pos[tbl].reshape(bsz, logical)
+    if cache.quantized:
+        ksg = cache.k_scale[tbl].permute(0, 2, 1, 3).reshape(bsz, kvh, logical)
+        vsg = cache.v_scale[tbl].permute(0, 2, 1, 3).reshape(bsz, kvh, logical)
+        kg = kg.to(torch.float32) * ksg[..., None]
+        vg = vg.to(torch.float32) * vsg[..., None]
     return kg, vg, posg
 
 
@@ -276,7 +329,11 @@ def _paged_chunk(cfg, cache: PagedKVCache, q, k, v, *, positions, lengths,
     pos_all = torch.cat([posg, in_pos], dim=1)
     out = _gqa_sdpa_direct(q, k_all, v_all, window=window, q_pos=positions,
                            kv_pos=pos_all)
-    dense_rows = KVCache(k=k, v=v, pos=in_pos)
+    ks = vs = None
+    if cache.quantized:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    dense_rows = KVCache(k=k, v=v, pos=in_pos, k_scale=ks, v_scale=vs)
     scatter_prefill(cache, dense_rows,
                     torch.arange(b, dtype=torch.int32, device=k.device),
                     lengths, starts=starts)
@@ -312,27 +369,99 @@ def _paged_decode(cfg, cache: PagedKVCache, q, k, v, *, positions,
     if lengths is not None:
         pp = torch.where(lengths > 0, pp, torch.full_like(pp, n_pages))
     off = (li % ps).long()
+    ksc = vsc = None
+    if cache.quantized:
+        k, ks_new = quantize_kv(k)
+        v, vs_new = quantize_kv(v)
+        cache.k_scale[pp, :, off] = ks_new[:, :, 0]
+        cache.v_scale[pp, :, off] = vs_new[:, :, 0]
+        ksc, vsc = cache.k_scale[:n_pages], cache.v_scale[:n_pages]
     cache.k[pp, :, off] = k[:, :, 0].to(cache.k.dtype)
     cache.v[pp, :, off] = v[:, :, 0].to(cache.v.dtype)
     cache.pos[pp, off] = pvec
     out = kernels.paged_attention(
         q[:, :, 0].contiguous(), cache.k[:n_pages], cache.v[:n_pages],
         pos_pages=cache.pos[:n_pages], page_table=cache.page_table,
-        q_pos=pvec, window=window)[:, :, None]
+        q_pos=pvec, k_scale=ksc, v_scale=vsc, window=window)[:, :, None]
     return out, cache
+
+
+def _dense_prefill(cache: KVCache, k, v, *, positions) -> None:
+    """Write a prefill's K/V into a dense cache, in place: the last
+    ``keep = min(S, S_cache)`` rows go to slots ``0..keep-1``, then the
+    whole cache rolls by ``positions[-keep] % S_cache``, so slot == pos %
+    S_cache, as the per-slot decode writes it (JAX ``layers.py`` dense
+    prefill).  int8 caches store the quantized rows and their scales.  The
+    roll is a gather by a device index, so nothing syncs with the host."""
+    s_cache = cache.k.shape[2]
+    keep = min(k.shape[2], s_cache)
+    k_last, v_last = k[:, :, -keep:], v[:, :, -keep:]
+    p_last = positions[-keep:].to(torch.int32)
+    slot = torch.arange(s_cache, device=k.device)
+    src = (slot - p_last[0].long()) % s_cache     # torch.roll by p_last[0]
+    if cache.quantized:
+        k_last, ks_new = quantize_kv(k_last)
+        v_last, vs_new = quantize_kv(v_last)
+        for leaf, new in ((cache.k_scale, ks_new), (cache.v_scale, vs_new)):
+            leaf[:, :, :keep] = new
+            leaf.copy_(leaf.index_select(2, src))
+    for leaf, new in ((cache.k, k_last), (cache.v, v_last)):
+        leaf[:, :, :keep] = new.to(leaf.dtype)
+        leaf.copy_(leaf.index_select(2, src))
+    cache.pos[:, :keep] = p_last
+    cache.pos.copy_(cache.pos.index_select(1, src))
+
+
+def _dense_decode(cache: KVCache, q, k, v, *, positions, window: int,
+                  kernels: Kernels = DEFAULT_KERNELS):
+    """One-token decode against a dense cache: every row writes its token
+    at its own ring slot ``pos % S_cache`` (in place), then attends at its
+    own position.  int8 caches quantize the token first and attend through
+    ``kernels.decode_attention`` over the quantized cache, the new token
+    included; float caches attend with the plain ``_gqa_sdpa_direct``, as
+    JAX does."""
+    if k.shape[2] != 1:
+        raise ValueError(
+            "per-slot positions with multi-token input: per-slot prefill "
+            "goes through the serving engine's chunked prefill, not the "
+            "dense cache path")
+    s_cache = cache.k.shape[2]
+    pvec = positions[:, 0].to(torch.int32)                        # [B]
+    slots = (pvec % s_cache).long()
+    rows = torch.arange(q.shape[0], device=q.device)
+    # two advanced indices around a slice: the broadcast [B] dim comes
+    # first, so the target is [B, KV, D] ([B, KV] for the scales), as in
+    # JAX's ``.at[rows, :, slots]``
+    if cache.quantized:
+        k, ks_new = quantize_kv(k)
+        v, vs_new = quantize_kv(v)
+        cache.k_scale[rows, :, slots] = ks_new[:, :, 0]
+        cache.v_scale[rows, :, slots] = vs_new[:, :, 0]
+    cache.k[rows, :, slots] = k[:, :, 0].to(cache.k.dtype)
+    cache.v[rows, :, slots] = v[:, :, 0].to(cache.v.dtype)
+    cache.pos[rows, slots] = pvec
+    if cache.quantized:
+        return kernels.decode_attention(
+            q[:, :, 0].contiguous(), cache.k, cache.v, kv_pos=cache.pos,
+            q_pos=pvec, k_scale=cache.k_scale, v_scale=cache.v_scale,
+            window=window)[:, :, None]
+    return _gqa_sdpa_direct(q, cache.k, cache.v, window=window,
+                            q_pos=positions, kv_pos=cache.pos)
 
 
 def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
               positions: torch.Tensor, window: int = 0,
-              cache: PagedKVCache | None = None,
+              cache: KVCache | PagedKVCache | None = None,
               lengths: torch.Tensor | None = None,
               kernels: Kernels = DEFAULT_KERNELS):
     """One attention layer through the uniform-GEMM projections.
 
-    Modes: causal self-attention over x (no cache); paged decode (cache
-    given, one token per slot, per-slot [B, 1] positions); paged chunk
-    prefill (cache given, S > 1, per-slot [B, S] positions, ``lengths``
-    real tokens per row).  Returns (y, cache).
+    Modes: causal self-attention over x (no cache); dense prefill (a
+    ``KVCache``, shared [S] positions: attend over the raw K/V, store the
+    last rows); dense decode (a ``KVCache``, per-slot [B, 1] positions);
+    paged decode (a ``PagedKVCache``, one token per slot, per-slot [B, 1]
+    positions); paged chunk prefill (a ``PagedKVCache``, S > 1, per-slot
+    [B, S] positions, ``lengths`` real tokens per row).  Returns (y, cache).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(x, params[f"{prefix}_wq"], bias=params.get(f"{prefix}_bq"),
@@ -356,10 +485,13 @@ def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
             out, cache = _paged_chunk(cfg, cache, q, k, v,
                                       positions=positions, lengths=lengths,
                                       window=window)
+    elif cache is not None and positions.dim() == 1:
+        _dense_prefill(cache, k, v, positions=positions)
+        out = _gqa_sdpa_direct(q, k, v, window=window, q_pos=positions,
+                               kv_pos=positions)
     elif cache is not None:
-        raise NotImplementedError(
-            "the dense KVCache decode path is not ported yet (ROADMAP "
-            "Queue 1 item 5)")
+        out = _dense_decode(cache, q, k, v, positions=positions,
+                            window=window, kernels=kernels)
     else:
         out = _gqa_sdpa_direct(q, k, v, window=window, q_pos=positions,
                                kv_pos=positions)

@@ -15,6 +15,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Spec
@@ -112,11 +113,28 @@ class Model:
         return logits, caches, aux
 
     # ------------------------------------------------------------------ serve
+    def init_caches(self, batch: int, cache_len: int, *, device=None):
+        """Empty dense caches for :meth:`prefill` and :meth:`decode_step`
+        (the sequential path) on ``device`` (default ``cuda``), one per
+        layer; see ``LayerStack.cache_tree``."""
+        return self.stack.cache_tree(
+            batch, cache_len, getattr(torch, self.cfg.dtype),
+            device=_device.resolve(device))
+
+    def prefill(self, params: Params, batch: dict, caches):
+        """Run a prompt (``batch["tokens"]`` [B, S], shared ``positions``
+        [S]) and store its K/V in the dense ``caches`` (in place).  Returns
+        (logits of the last position [B, 1, V], caches)."""
+        logits, caches, _ = self.forward(params, batch, caches=caches)
+        return logits[:, -1:], caches
+
     def decode_step(self, params: Params, caches, tokens: torch.Tensor,
                     pos: torch.Tensor, lengths: torch.Tensor | None = None):
         """tokens [B, 1]; pos [B] int32 per-slot absolute positions;
-        ``lengths`` ([B] 0/1) is the live mask: rows at 0 write nothing.
-        Returns (logits [B, V], caches)."""
+        ``caches`` are the engine's page pools or dense caches from
+        :meth:`init_caches`.  ``lengths`` ([B] 0/1) is the live mask of the
+        paged path: rows at 0 write nothing (the dense path, like JAX's,
+        ignores it).  Returns (logits [B, V], caches)."""
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         if pos.dim() != 1:
             raise ValueError("decode_step needs per-slot positions pos: [B] "

@@ -82,6 +82,19 @@ def slot_specs(cfg, slot: Slot) -> dict[str, Spec]:
     return s
 
 
+# ---------------------------------------------------------------------------
+# Per-slot dense caches (the sequential decode path)
+# ---------------------------------------------------------------------------
+
+def slot_cache(cfg, slot: Slot, batch: int, cache_len: int, dtype, *,
+               device) -> L.KVCache:
+    """One layer's dense cache.  A sliding-window layer keeps a ring of
+    ``min(window, cache_len)`` slots."""
+    _check_ported(cfg, slot)
+    s_cache = min(slot.window, cache_len) if slot.window else cache_len
+    return L.KVCache.init(cfg, batch, s_cache, dtype, device)
+
+
 class Ctx(NamedTuple):
     positions: torch.Tensor            # [S] shared or [B, S] per slot
     lengths: torch.Tensor | None = None   # [B] real tokens per row
@@ -129,11 +142,21 @@ class LayerStack:
             out["tail"].append(slot_specs(cfg, self.pattern[i]))
         return out
 
+    def cache_tree(self, batch: int, cache_len: int, dtype, *, device):
+        """Dense caches for every layer, in the serving layout:
+        ``{"slots": [[cache per period] per pattern slot], "tail": [...]}``."""
+        def one(slot):
+            return slot_cache(self.cfg, slot, batch, cache_len, dtype,
+                              device=device)
+        return {"slots": [[one(s) for _ in range(self.n_periods)]
+                          for s in self.pattern],
+                "tail": [one(self.pattern[i]) for i in range(self.n_tail)]}
+
     def apply(self, params: Params, x: torch.Tensor, ctx: Ctx, caches=None):
-        """Every layer in order.  ``caches`` is the flat serving layout
-        ``{"slots": [[cache per period] per pattern slot], "tail": [...]}``
-        (updated in place), or None.  Returns (x, caches, aux_loss), the
-        MoE auxiliary losses summed over the layers."""
+        """Every layer in order.  ``caches`` is a :meth:`cache_tree` or the
+        engine's pools, in the same layout and updated in place, or None.
+        Returns (x, caches, aux_loss), the MoE auxiliary losses summed over
+        the layers."""
         use_cache = caches is not None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_periods):

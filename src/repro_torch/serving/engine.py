@@ -2,7 +2,8 @@
 pools.
 
 A port of ``repro.serving.engine`` for the attention families with a dense
-or MoE feed-forward.  One engine instance owns
+or MoE feed-forward, over float or int8 (``cfg.kv_cache_dtype == "int8"``)
+KV pools.  One engine instance owns
 
 * a **state tree** (:mod:`repro_torch.serving.state`): one page pool per
   attention layer, sharing a page allocator per ring length;

@@ -1,6 +1,6 @@
 """Block/paged KV-cache plumbing for the serving engine.
 
-A port of ``repro.serving.paged_kv`` for float pools.  The device-side
+A port of ``repro.serving.paged_kv`` for float and int8 pools.  The device-side
 cache type (:class:`~repro_torch.models.layers.PagedKVCache`) lives in
 ``models/layers.py``; this module owns what surrounds it:
 
@@ -34,11 +34,16 @@ def ceil_pages(length: int, page_size: int) -> int:
 def make_pool(cfg, *, n_pages: int, page_size: int, max_pages: int,
               n_slots: int, dtype, device) -> PagedKVCache:
     """A fresh page pool (``n_pages`` + the trash page) and an all-sentinel
-    table for one attention layer."""
-    if getattr(cfg, "kv_cache_dtype", "") == "int8":
-        raise NotImplementedError(
-            "int8 KV pools are not ported yet (ROADMAP Queue 1 item 5)")
+    table for one attention layer.  ``cfg.kv_cache_dtype == "int8"`` builds
+    an int8 pool (``dtype`` is then ignored) with f32 per-(page, head,
+    offset) scales, the trash page included."""
     kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    scales = {}
+    if getattr(cfg, "kv_cache_dtype", "") == "int8":
+        dtype = torch.int8
+        scales = {name: torch.zeros((n_pages + 1, kvh, page_size),
+                                    dtype=torch.float32, device=device)
+                  for name in ("k_scale", "v_scale")}
     return PagedKVCache(
         k=torch.zeros((n_pages + 1, kvh, page_size, hd), dtype=dtype,
                       device=device),
@@ -48,6 +53,7 @@ def make_pool(cfg, *, n_pages: int, page_size: int, max_pages: int,
                        device=device),
         page_table=torch.full((n_slots, max_pages), n_pages,
                               dtype=torch.int32, device=device),
+        **scales,
     )
 
 
@@ -259,13 +265,20 @@ def scatter_prefill(pool: PagedKVCache, dense: KVCache, slot_ids: torch.Tensor,
     pool.v[ppf, :, offf] = dense.v.transpose(1, 2).reshape(
         bp * s, kvh, hd).to(pool.v.dtype)
     pool.pos[ppf, offf] = gpos.reshape(-1)
+    if pool.quantized:
+        # the int8 block carries [Bp, KV, S] scales: scatter them alongside
+        pool.k_scale[ppf, :, offf] = dense.k_scale.transpose(1, 2).reshape(
+            bp * s, kvh)
+        pool.v_scale[ppf, :, offf] = dense.v_scale.transpose(1, 2).reshape(
+            bp * s, kvh)
     return pool
 
 
 def reset_pages(pool: PagedKVCache, page_ids: torch.Tensor) -> PagedKVCache:
     """Mark ``page_ids``'s entries empty, in place (freed-slot hygiene: a
     refilled slot must never attend to its predecessor's tokens).
-    Sentinel ids go to the trash page."""
+    Sentinel ids go to the trash page.  K/V and scales stay: an empty
+    position is never read."""
     pool.pos[_trash_out_of_range(page_ids, pool.n_pages)] = POS_EMPTY
     return pool
 
@@ -278,7 +291,7 @@ COPY_NONE = np.int32(2 ** 30)
 def copy_page(pool: PagedKVCache, src: torch.Tensor, dst: torch.Tensor,
               resume: torch.Tensor) -> PagedKVCache:
     """Copy-on-write content copy, in place: duplicate physical page
-    ``src`` into ``dst`` (k/v and positions), masking positions ``>=
+    ``src`` into ``dst`` (k/v, scales and positions), masking positions ``>=
     resume`` to empty.  ``src``/``dst``/``resume`` are shape-[1] int32;
     ``COPY_NONE`` ids make the copy land in the trash page."""
     n_pages = pool.n_pages
@@ -291,5 +304,8 @@ def copy_page(pool: PagedKVCache, src: torch.Tensor, dst: torch.Tensor,
                        torch.full_like(prow, POS_EMPTY))
     pool.k[d] = pool.k[s]
     pool.v[d] = pool.v[s]
+    if pool.quantized:
+        pool.k_scale[d] = pool.k_scale[s]
+        pool.v_scale[d] = pool.v_scale[s]
     pool.pos[d] = prow
     return pool

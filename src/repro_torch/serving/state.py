@@ -57,6 +57,8 @@ class PagedKVState:
 
     # ---- device ------------------------------------------------------------
     def init_device(self) -> PagedKVCache:
+        """The layer's pool: in ``cfg.dtype``, or int8 with f32 scales when
+        ``cfg.kv_cache_dtype == "int8"``."""
         return make_pool(self.cfg, n_pages=self.alloc_.n_pages,
                          page_size=self.page_size,
                          max_pages=self.alloc_.pages_per_slot,

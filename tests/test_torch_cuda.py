@@ -66,6 +66,9 @@ def _cuda():
 # bf16: both round one fp32 sum to bf16, summed in another order (1 ulp);
 # fp32: sums of <= 200 products in another order
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# decode_attention (atol, rtol) by q dtype: kernel and plain version both
+# compute in fp32 and round once, so they differ by at most one bf16 ulp
+DECODE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 1e-2)}
 
 
 @pytest.mark.cuda
@@ -119,6 +122,55 @@ def test_paged_attention_kernel_matches_plain(kv):
         want = ref.paged_decode_attention(q, kt, vt, window=window, **kw)
         torch.testing.assert_close(got, want, rtol=TOL[qdt], atol=TOL[qdt])
         assert not got[2].any()          # the all-dead slot is exact zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+def test_decode_attention_kernel_matches_plain(kv):
+    """A ragged S (no multiple of the kernel's tile), per-slot and shared
+    positions, a wrapped ring, a window, and an all-empty row (exact
+    zeros)."""
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    quant = kv == "int8"
+    qdt = torch.float32 if kv == "float32" else torch.bfloat16
+    b, h, kvh, s, d = 4, 8, 2, 45, 64
+    q_pos = [30, 100, 7, 44]             # slot 1 wraps; slot 2 is empty
+    pos = np.full((b, s), POS_EMPTY, np.int32)
+    for i in (0, 1, 3):
+        for p in range(q_pos[i] + 1):
+            pos[i, p % s] = p
+    shape = (b, kvh, s, d)
+    if quant:
+        k = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        v = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        ks = torch.from_numpy((rng.random(shape[:3]) / 127).astype(np.float32))
+        vs = torch.from_numpy((rng.random(shape[:3]) / 127).astype(np.float32))
+        ks, vs = ks.to(dev), vs.to(dev)
+    else:
+        k = torch.from_numpy(rng.normal(size=shape)).to(qdt)
+        v = torch.from_numpy(rng.normal(size=shape)).to(qdt)
+        ks = vs = None
+    k, v = k.to(dev), v.to(dev)
+    q = torch.from_numpy(rng.normal(size=(b, h, d))).to(qdt).to(dev)
+    before = tdec.launches
+    for kv_pos, qp in ((pos, q_pos), (pos[3], [44] * b)):
+        kw = dict(kv_pos=torch.from_numpy(kv_pos).to(dev),
+                  q_pos=torch.tensor(qp, dtype=torch.int32, device=dev),
+                  k_scale=ks, v_scale=vs)
+        for window in (0, 9):
+            got = tdec.decode_attention(q, k, v, window=window, **kw)
+            want = ref.decode_attention(q, k, v, window=window, **kw)
+            torch.cuda.synchronize()
+            atol, rtol = DECODE_TOL[qdt]
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    empty = tdec.decode_attention(q, k, v, kv_pos=torch.from_numpy(pos).to(
+        dev), q_pos=torch.tensor(q_pos, dtype=torch.int32, device=dev),
+        k_scale=ks, v_scale=vs)
+    assert not empty[2].any()            # the all-empty row is exact zero
+    assert tdec.launches == before + 5
 
 
 @pytest.mark.cuda

@@ -8,6 +8,13 @@ are freed and refilled mid-run.  Also: every page comes back and the
 allocator's ``check()`` passes, the engine runs exactly three programs and a
 warm engine sees no new argument signature, unported features are refused
 by name, and the serve CLI runs end to end on the CPU.
+
+int8 KV pools: the port's engine is token-identical to the JAX int8
+sequential oracle and to the port's own (``tests/test_serving_engine.py``'s
+``test_engine_int8_pools_match_sequential``, whole-prompt prefill: a later
+chunk would attend over quantized pool entries, which the dense prefill
+never does), and for chunk 4 to the JAX int8 engine decoding through its
+Pallas kernel in interpret mode.
 """
 
 import ast
@@ -29,6 +36,8 @@ from repro_torch.serving import (FAILED, REJECTED, CacheConfig,  # noqa: E402
                                  EngineConfig, FaultConfig, PagedEngine,
                                  SchedulerConfig, SpecConfig)
 
+from test_serving_engine import sequential_greedy as jax_sequential  # noqa: E402
+from test_torch_dense_cache import sequential_greedy, setup_pair  # noqa: E402
 from test_torch_model import setup_yi as setup_model_pair  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -99,6 +108,56 @@ def test_chunked_prefill_equals_whole_prefill():
         assert eng.stats()["max_decode_stall"] == 0
     assert len(outs[None]) == 5
     assert all(out == outs[None] for out in outs.values())
+
+
+def _int8_pool(eng):
+    pool = eng.pools["slots"][0][0]
+    assert pool.quantized and pool.k.dtype == torch.int8
+    assert pool.k_scale.dtype == torch.float32
+    return pool
+
+
+def test_int8_engine_matches_sequential():
+    jmodel, jparams, model, params = setup_pair("yi-6b", "int8")
+    workload = prompts([3, 5, 9, 12], seed=13)
+    want = [jax_sequential(jmodel, jparams, p, 4) for p in workload]
+    assert [sequential_greedy(model, params, p, 4) for p in workload] == want
+    eng = PagedEngine(model, params, config=EngineConfig(
+        slots=2, cache=CacheConfig(page_size=4, max_len=32)))
+    for i, p in enumerate(workload):
+        eng.submit(p, 4, rid=i)
+    done = eng.run_until_idle()
+    assert [done[i] for i in range(4)] == want
+    _int8_pool(eng)
+    for alloc in eng.allocators.values():
+        assert alloc.free_pages == alloc.n_pages
+        alloc.check()
+
+
+def test_int8_engine_chunked_matches_jax():
+    jmodel, jparams, model, params = setup_pair("yi-6b", "int8")
+    jeng = JPagedEngine(jmodel, jparams, config=JEngineConfig(
+        slots=2, chunk=4, decode_kernel="interpret",
+        cache=JCacheConfig(page_size=4, max_len=32)))
+    teng = PagedEngine(model, params, config=EngineConfig(
+        slots=2, chunk=4, cache=CacheConfig(page_size=4, max_len=32)))
+    want, got = serve_both(jeng, teng, prompts([3, 5, 9, 12], seed=13),
+                           max_new=4)
+    assert len(got) == 4 and got == want
+    # the same quantized pool contents at every written entry
+    jpool, tpool = jeng.pools["slots"][0][0], _int8_pool(teng)
+    n = tpool.n_pages
+    np.testing.assert_array_equal(tpool.pos[:n].numpy(),
+                                  np.asarray(jpool.pos))
+    live = tpool.pos[:n].numpy() >= 0
+    for name in ("k", "v", "k_scale", "v_scale"):
+        got_leaf = getattr(tpool, name)[:n].numpy().swapaxes(1, 2)
+        want_leaf = np.asarray(getattr(jpool, name)).swapaxes(1, 2)
+        if name in ("k", "v"):
+            np.testing.assert_array_equal(got_leaf[live], want_leaf[live])
+        else:
+            np.testing.assert_allclose(got_leaf[live], want_leaf[live],
+                                       rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("config, item", [

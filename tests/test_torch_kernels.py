@@ -254,6 +254,12 @@ def test_pool_carries_a_trash_page():
     assert pool.k.shape[0] == 6 and pool.n_pages == 5
     assert (pool.page_table == 5).all() and (pool.pos == POS_EMPTY).all()
     int8 = SimpleNamespace(num_kv_heads=2, head_dim=8, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TP.make_pool(int8, n_pages=5, page_size=4, max_pages=2, n_slots=3,
-                     dtype=torch.float32, device="cpu")
+    pool = TP.make_pool(int8, n_pages=5, page_size=4, max_pages=2, n_slots=3,
+                        dtype=torch.float32, device="cpu")
+    assert pool.quantized and pool.n_pages == 5
+    assert pool.k.dtype == pool.v.dtype == torch.int8
+    assert pool.k_scale.dtype == pool.v_scale.dtype == torch.float32
+    assert tuple(pool.k.shape) == tuple(pool.v.shape) == (6, 2, 4, 8)
+    assert tuple(pool.k_scale.shape) == tuple(pool.v_scale.shape) == (6, 2, 4)
+    assert tuple(pool.pos.shape) == (6, 4)   # the trash page in every leaf
+    assert (pool.page_table == 5).all() and (pool.pos == POS_EMPTY).all()
