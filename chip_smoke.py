@@ -26,7 +26,8 @@ default ``build/chip_smoke/``):
    kernels and again through the plain versions, on the card.
 6. ``profile``  -- ``torch.profiler`` over one more pass of the serve
    phase's warm engine: device time by kernel and the device's busy share
-   (and, with ``moe_serve``, over one more warm mixtral pass).
+   (and, with ``moe_serve``, over one more warm mixtral pass; with
+   ``swa_forward``, over one more gemma3-12b forward).
 7. ``moe_serve`` -- release yi-6b, then serve mixtral-8x22b at full width
    and 8 of its 56 layers (20.4 B parameters, bf16) with the same engine
    and traffic; every MoE layer's expert FFN must go through
@@ -52,9 +53,26 @@ default ``build/chip_smoke/``):
    kernels against plain versions; then, in float32 at 2 layers, the int8
    engine (whole-prompt prefill) token-identical to the int8 dense
    sequential path.
+12. ``swa_kernels`` -- ``swa_attention`` against its plain version at
+   gemma3-12b's local-layer shape (16/8 heads of 240, S 4096, window 1024)
+   and mixtral's (48/8 heads of 128, S 2048 under its 4096 window), in
+   bfloat16 and float32, plus edge windows (1, 16, 100) and a ragged S with
+   a head dim that is no multiple of 16.  Timed beside the plain version,
+   one ``F.scaled_dot_product_attention`` with a boolean band mask and the
+   bound.
+13. ``swa_forward`` -- release every earlier model, then gemma3-12b's
+   cache-less forward at full width and all 48 layers (11.6 B parameters,
+   bf16, seeded random weights) on 4096 random tokens: ``Model.forward``
+   and ``Model.loss`` timed warm, exactly 40 ``swa_attention`` and 337
+   ``kraken_gemm`` launches per forward; its logits against the same
+   forward with only ``swa_attention`` swapped for its plain version, and
+   its last row against ``Model.prefill`` into a dense cache (which runs the
+   local layers through the chunked attention instead); then one period
+   (6 layers) in float32, kernel against plain.
 
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
-serve, e2e, profile, dense_serve, dense_e2e, moe_serve, moe_e2e``.
+swa_kernels, serve, e2e, profile, dense_serve, dense_e2e, moe_serve,
+moe_e2e, swa_forward``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -129,6 +147,42 @@ ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}  # by q dtype
 # fails a kernel that drops one live entry of a 512-entry row
 DECODE_TOL = {"bfloat16": (1e-4, 1e-2), "float32": (1e-5, 1e-5)}
 E2E_TOL = 0.05   # max |kernel - plain| <= E2E_TOL * max |plain| on bf16 logits
+# swa_attention by dtype (atol, rtol).  bf16: the kernel rounds its
+# probabilities to bf16 before the PV product, as the Pallas kernel does
+# (the plain version keeps them fp32, as JAX's oracle does), and both sides
+# round the output (within rtol).  The probabilities' rounding error in a
+# query row that attends to n keys falls as 1/sqrt(n), so past
+# SWA_ROW_KEYS keys the bf16 atol of row i shrinks by sqrt(SWA_ROW_KEYS /
+# min(i + 1, W)): 6.3e-4 on a full 1024-key window.  The largest need
+# measured over 7 seeds of every case is 0.74 of the limit; a key dropped
+# mid-window needs 336x it.  f32: sums in another order, ~1.5e-6.
+SWA_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-5, 1e-5)}
+SWA_ROW_KEYS = 25
+# gemma3-12b (``GEMMA3_12B``): 48 layers = 8 periods of 5 local (window
+# 1024) + 1 global; 16/8 heads of 240; the forward's sequence length
+SWA_SEQ = 4096
+GEMMA_LAYERS, GEMMA_LOCAL, GEMMA_PERIOD = 48, 40, 6
+# the gemma3 forward's kraken_gemm shapes at M = SWA_SEQ: (name, K, N,
+# activation, calls per forward); 48 x (q, k, v, o, gate, up, down) + the
+# tied unembed = 337
+GEMMA_GEMMS = [("wq|wo", 3840, 3840, None, 2 * GEMMA_LAYERS),
+               ("wk|wv", 3840, 1920, None, 2 * GEMMA_LAYERS),
+               ("gate", 3840, 15360, "silu", GEMMA_LAYERS),
+               ("up", 3840, 15360, None, GEMMA_LAYERS),
+               ("down", 15360, 3840, None, GEMMA_LAYERS),
+               ("unembed", 3840, 262144, None, 1)]
+# the float32 one-period forward, kernel against plain: both run the same
+# float32 kraken_gemm, so only the attention's sum order differs (~1e-6)
+F32_E2E_TOL = 1e-4
+# swa_attention cases: (name, B, H, KV, S, D, window, timed)
+SWA_CASES = [
+    ("gemma3 local", 1, 16, 8, SWA_SEQ, 240, 1024, True),
+    ("mixtral", 1, 48, 8, 2048, 128, 4096, True),
+    ("edge window 1", 2, 4, 2, 256, 64, 1, False),
+    ("edge window 16", 2, 4, 2, 256, 64, 16, False),
+    ("edge window 100", 2, 4, 2, 256, 64, 100, False),
+    ("ragged S 200, D 40", 2, 4, 2, 200, 40, 16, False),
+]
 
 
 def log(msg: str) -> None:
@@ -195,8 +249,8 @@ def phase_build(rec: dict, state: dict) -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     report = _build.build(["kraken_gemm", "paged_attention",
-                           "grouped_moe_gemm", "decode_attention"],
-                          force=True)
+                           "grouped_moe_gemm", "decode_attention",
+                           "swa_attention"], force=True)
     secs = time.perf_counter() - t0
     for name, r in report.items():
         regs = [ln.strip() for ln in r["log"].splitlines()
@@ -215,7 +269,10 @@ def phase_build(rec: dict, state: dict) -> None:
 # ---------------------------------------------------------------------------
 
 def gemm_case(torch, kg, ref, m, k, n, act, dtype, *, bias=False,
-              timed=True, seed=0):
+              timed=True, seed=0, iters=(20, 5, 20)):
+    """One ``kraken_gemm`` against ``ref.matmul``; when ``timed``, the
+    kernel's, the plain version's and ``torch.matmul``'s time over
+    ``iters`` calls each."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     isz = torch.tensor([], dtype=dtype).element_size()
     a = torch.randn((m, k), generator=g, device="cuda").to(dtype)
@@ -244,10 +301,11 @@ def gemm_case(torch, kg, ref, m, k, n, act, dtype, *, bias=False,
                 return fn(bs[it[0]])
             return run
         row["ms"] = time_ms(cycle(lambda b: kg.kraken_gemm(
-            a, b, bias=bv, activation=act)), 20)
+            a, b, bias=bv, activation=act)), iters[0])
         row["plain_ms"] = time_ms(cycle(lambda b: ref.matmul(
-            a, b, bias=bv, activation=act)), 5)
-        row["library_ms"] = time_ms(cycle(lambda b: torch.matmul(a, b)), 20)
+            a, b, bias=bv, activation=act)), iters[1])
+        row["library_ms"] = time_ms(cycle(lambda b: torch.matmul(a, b)),
+                                    iters[2])
         nbytes = (m * k + k * n + m * n) * isz + (n * isz if bias else 0)
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * n * k,
@@ -659,7 +717,8 @@ def _plain_kernels():
     from repro_torch.kernels import ref
     from repro_torch.models.layers import Kernels
     return Kernels(ref.matmul, ref.paged_decode_attention,
-                   ref.grouped_expert_ffn, ref.decode_attention)
+                   ref.grouped_expert_ffn, ref.decode_attention,
+                   ref.sliding_window_attention)
 
 
 def two_steps(model, params, seed: int = 1):
@@ -736,25 +795,17 @@ def phase_e2e(rec: dict, state: dict) -> None:
         "the largest logit (bf16, full yi-6b)")
 
 
-def trace_pass(eng, seed: int) -> dict:
-    """``torch.profiler`` over one more pass of the serve workload through
-    the warm engine ``eng``: device time by kernel group and the device's
-    busy share of the wall time."""
-    import numpy as np
+def device_trace(run, label: str) -> dict:
+    """``torch.profiler`` over ``run()``: device time by kernel group and
+    the device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    rng = np.random.default_rng(seed)
-    calls0 = (eng._prefill.calls, eng._decode.calls)
     # device activity only: host-op rows would count their kernels twice
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for n in SERVE_LENS:
-            eng.submit(rng.integers(0, eng.model.cfg.vocab_size, (n,)),
-                       SERVE_NEW)
-        eng.run_until_idle()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    steps = (eng._prefill.calls - calls0[0], eng._decode.calls - calls0[1])
 
     def dev_us(evt):
         return getattr(evt, "self_device_time_total",
@@ -775,9 +826,12 @@ def trace_pass(eng, seed: int) -> dict:
             return "kraken_gemm"
         if "paged_decode_kernel" in key:
             return "paged_decode_attention"
+        if "swa_kernel" in key:
+            return "swa_attention"
         low = key.lower()
         if "gemm" in low or "cutlass" in low or "sm90" in low:
-            return "library GEMM (chunk attention, router, combine)"
+            return ("library GEMM (chunk and chunked attention, router, "
+                    "combine)")
         if "index" in low or "gather" in low or "scatter" in low:
             return "indexing (pool gather/scatter, embed, dispatch)"
         if "copy" in low:
@@ -792,14 +846,12 @@ def trace_pass(eng, seed: int) -> dict:
     out = {
         "wall_s": wall, "device_s": total_us / 1e6,
         "device_busy": total_us / 1e6 / wall,
-        "mixed_steps": steps[0], "decode_steps": steps[1],
         "groups_ms": {k: v / 1e3 for k, v in sorted(
             groups.items(), key=lambda kv: -kv[1])},
         "top": [{"us": us, "count": c, "name": key[:120]}
                 for us, c, key in rows[:15]]}
-    log(f"  profile {eng.model.cfg.name}: wall {wall:.2f} s, device busy "
-        f"{total_us / 1e6:.2f} s ({100 * total_us / 1e6 / wall:.1f}%), "
-        f"{steps[0]} mixed + {steps[1]} decode steps")
+    log(f"  profile {label}: wall {wall:.2f} s, device busy "
+        f"{total_us / 1e6:.2f} s ({100 * total_us / 1e6 / wall:.1f}%)")
     for k, v in out["groups_ms"].items():
         log(f"    {k:50s} {v:9.1f} ms")
     for r in out["top"][:8]:
@@ -808,6 +860,27 @@ def trace_pass(eng, seed: int) -> dict:
         # the profiler could not trace the card here: say so, measure nothing
         out["device_busy"] = None
         log("  profile: the profiler recorded no device time (not measured)")
+    return out
+
+
+def trace_pass(eng, seed: int) -> dict:
+    """``device_trace`` over one more pass of the serve workload through
+    the warm engine ``eng``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    calls0 = (eng._prefill.calls, eng._decode.calls)
+
+    def run():
+        for n in SERVE_LENS:
+            eng.submit(rng.integers(0, eng.model.cfg.vocab_size, (n,)),
+                       SERVE_NEW)
+        eng.run_until_idle()
+
+    out = device_trace(run, eng.model.cfg.name)
+    out["mixed_steps"] = eng._prefill.calls - calls0[0]
+    out["decode_steps"] = eng._decode.calls - calls0[1]
+    log(f"  profile {eng.model.cfg.name}: {out['mixed_steps']} mixed + "
+        f"{out['decode_steps']} decode steps")
     return out
 
 
@@ -1259,8 +1332,10 @@ def _counters():
     from repro_torch.kernels import kraken_gemm as kg
     from repro_torch.kernels import kraken_moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import swa_attention as sw
     return {"kraken_gemm": kg, "paged_decode_attention": pa,
-            "grouped_moe_gemm": mg, "decode_attention": dec}
+            "grouped_moe_gemm": mg, "decode_attention": dec,
+            "swa_attention": sw}
 
 
 def _zero_counts() -> None:
@@ -1293,7 +1368,7 @@ def phase_dense_serve(rec: dict, state: dict) -> None:
     dec_steps = len(prompts) * (SERVE_NEW - 1)
     want = {"kraken_gemm": (LAYERS * 7 + 1) * (len(prompts) + dec_steps),
             "paged_decode_attention": 0, "grouped_moe_gemm": 0,
-            "decode_attention": LAYERS * dec_steps}
+            "decode_attention": LAYERS * dec_steps, "swa_attention": 0}
     if launches != want:
         raise AssertionError(f"dense path launch counts {launches} do not "
                              f"match {len(prompts)} prefills + {dec_steps} "
@@ -1408,6 +1483,313 @@ def phase_dense_e2e(rec: dict, state: dict) -> None:
         "largest logit (bf16, full yi-6b); engine == sequential in float32")
 
 
+# ---------------------------------------------------------------------------
+# the cache-less windowed forward: swa_attention
+# ---------------------------------------------------------------------------
+
+def window_pairs(s: int, window: int) -> int:
+    """(query, key) pairs inside a causal window of ``window`` over ``s``
+    tokens: sum over i of min(i + 1, window)."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def swa_atol(torch, dt: str, s: int, window: int, device):
+    """``SWA_TOL``'s atol of dtype ``dt`` for each query row [S, 1] of a
+    call over ``s`` tokens: in bf16, row i attends to n = min(i + 1, W)
+    keys, and past ``SWA_ROW_KEYS`` its atol is scaled by
+    sqrt(SWA_ROW_KEYS / n)."""
+    atol = SWA_TOL[dt][0]
+    if dt != "bfloat16":
+        return torch.full((s, 1), atol, device=device)
+    n = torch.clamp(torch.arange(s, device=device) + 1, max=window)
+    scale = (SWA_ROW_KEYS / n.double()).clamp(max=1).sqrt()
+    return (atol * scale).float()[:, None]
+
+
+def swa_case(torch, sw, ref, *, name, b, h, kvh, s, d, window, dtype, timed,
+             seed):
+    """One ``swa_attention`` call: parity with the plain version and, when
+    ``timed``, the kernel's, the plain version's and one SDPA's time (a
+    boolean band mask, ``enable_gqa``) beside the bound."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, s, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dtype)
+    got = sw.swa_attention(q, k, v, window=window).float()
+    want = ref.sliding_window_attention(q, k, v, window=window).float()
+    torch.cuda.synchronize()
+    dt = str(dtype).split(".")[-1]
+    label = f"swa_attention {name} {dt}"
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite output")
+    rtol = SWA_TOL[dt][1]
+    atol = swa_atol(torch, dt, s, window, want.device)
+    diff = (got - want).abs()
+    over = (diff - rtol * want.abs()).clamp(min=0)
+    # the least SWA_TOL atol that passes (per row in bf16, as swa_atol)
+    need = float((over * (SWA_TOL[dt][0] / atol)).max().item())
+    if (diff > atol + rtol * want.abs()).any():
+        raise AssertionError(
+            f"{label}: max |err| {diff.max().item():.3e}, needs atol "
+            f"{need:.3e} > {SWA_TOL[dt][0]} (rtol {rtol})")
+    small = want.abs() < 0.1
+    row = {"name": name, "dtype": dt, "b": b, "h": h, "kv": kvh, "s": s,
+           "d": d, "window": window, "max_abs_err": float(diff.max().item()),
+           "small_err": float(diff[small].max().item()) if small.any()
+           else 0.0,
+           "atol_needed": need, "ms": None,
+           "plain_ms": None, "library_ms": None, "bound_ms": None,
+           "bound_by": None}
+    del got, want, diff, over, small
+    if not timed:
+        return row
+    row["ms"] = time_ms(lambda: sw.swa_attention(q, k, v, window=window), 20)
+    row["plain_ms"] = time_ms(
+        lambda: ref.sliding_window_attention(q, k, v, window=window), 3)
+    i = torch.arange(s, device="cuda")[:, None]
+    j = torch.arange(s, device="cuda")[None, :]
+    band = (j <= i) & (j > i - window)
+    row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=band, enable_gqa=True), 10)
+    # each input read once and the output written once; the operations of
+    # the pairs inside the window (QK^T and PV, 2 each per pair and dim),
+    # at the tensor-core rate for bf16 and the fp32 rate (no TF32) for f32
+    nbytes = (2 * h + 2 * kvh) * b * s * d * q.element_size()
+    flops = 4.0 * b * h * d * window_pairs(s, window)
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, peak)
+    return row
+
+
+def phase_swa_kernels(rec: dict, state: dict) -> None:
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as sw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for name, b, h, kvh, s, d, window, timed in SWA_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = swa_case(torch, sw, ref, name=name, b=b, h=h, kvh=kvh, s=s,
+                         d=d, window=window, dtype=dtype, timed=timed,
+                         seed=len(rows))
+            rows.append(r)
+            times = ("" if not timed else
+                     f" ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+                     f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f}")
+            log(f"  swa_attention {name:20s} {r['dtype']:8s} B={b} H={h}/{kvh} "
+                f"S={s} D={d} W={window} err={r['max_abs_err']:.2e} "
+                f"small={r['small_err']:.2e} atol_needed="
+                f"{r['atol_needed']:.2e}{times}")
+            torch.cuda.empty_cache()
+    rec["swa_attention"] = rows
+    served = next(r for r in rows
+                  if r["name"] == "gemma3 local" and r["dtype"] == "bfloat16")
+    log(f"swa_kernels: swa_attention matches plain in {len(rows)} cases "
+        f"(bf16, f32; windows 1..4096, GQA groups 2 and 6, ragged S, D 40 and "
+        f"240); gemma3 local layer bf16 {served['ms']:.4f} ms per call (plain "
+        f"{served['plain_ms']:.4f}, sdpa {served['library_ms']:.4f}, bound "
+        f"{served['bound_ms']:.4f} by {served['bound_by']})")
+
+    # the gemma3 forward's kraken_gemm shapes, bf16 (the forward) and f32
+    # (the float32 period), against the plain version: both sides of every
+    # swa_forward comparison run the same kraken_gemm
+    from repro_torch.kernels import kraken_gemm as kg
+    gemms = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, k, n, act, calls in GEMMA_GEMMS:
+            r = gemm_case(torch, kg, ref, SWA_SEQ, k, n, act, dtype,
+                          seed=len(gemms), iters=(5, 2, 5))
+            r["name"], r["calls_per_forward"] = name, calls
+            gemms.append(r)
+            torch.cuda.empty_cache()
+            log(f"  gemma3 gemm {name:8s} M={SWA_SEQ} K={k:<5d} N={n:<6d} "
+                f"{r['dtype']:8s} err={r['max_abs_err']:.2e} "
+                f"ms={r['ms']:.3f} plain={r['plain_ms']:.3f} "
+                f"lib={r['library_ms']:.3f} bound={r['bound_ms']:.3f}")
+    per_fwd = {dt: {key: sum(r[key] * r["calls_per_forward"] for r in gemms
+                             if r["dtype"] == dt)
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for dt in ("bfloat16", "float32")}
+    bf = per_fwd["bfloat16"]
+    log(f"swa_kernels: the gemma3 forward's kraken_gemm shapes match plain "
+        f"(bf16, f32); bf16 per forward ({GEMMA_LAYERS} layers x 7 + "
+        f"unembed): {bf['ms']:.1f} ms (plain {bf['plain_ms']:.1f}, "
+        f"torch.matmul {bf['library_ms']:.1f}, bound {bf['bound_ms']:.1f})")
+    rec["gemma3_path"] = {"gemm": gemms,
+                          "kraken_gemm_ms_per_forward": per_fwd}
+
+
+def _gemma3(kernels=None, layers: int = GEMMA_LAYERS,
+            dtype: str = "bfloat16"):
+    """gemma3-12b at full width and ``layers`` of its 48 layers."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch("gemma3-12b"), num_layers=layers,
+                              dtype=dtype)
+    return Model(cfg, kernels=kernels)
+
+
+def _plain_swa():
+    """The default kernels with only ``swa_attention`` swapped for its
+    plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import DEFAULT_KERNELS
+    return DEFAULT_KERNELS._replace(swa_attention=ref.sliding_window_attention)
+
+
+def compare_rows(name: str, got, want, tol: float) -> dict:
+    """max |got - want| against ``tol`` times max |want| over [rows, vocab]
+    logits, a block of rows at a time (a 4096 x 262144 float copy is 4 GB);
+    raises on non-finite or misshapen logits and on the tolerance."""
+    import torch
+    if got.shape != want.shape or got.dim() != 2:
+        raise AssertionError(f"{name}: logits shapes {tuple(got.shape)} and "
+                             f"{tuple(want.shape)}")
+    err = scale = 0.0
+    agree = 0
+    for r0 in range(0, got.shape[0], 256):
+        g, w = got[r0:r0 + 256].float(), want[r0:r0 + 256].float()
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+        err = max(err, (g - w).abs().max().item())
+        scale = max(scale, w.abs().max().item())
+        agree += int((g.argmax(-1) == w.argmax(-1)).sum().item())
+    res = {"rows": got.shape[0], "max_abs_err": err, "max_abs_ref": scale,
+           "rel": err / scale, "argmax_agree": agree / got.shape[0],
+           "tol": tol, "ok": err <= tol * scale}
+    log(f"  {name}: max |err| {err:.5f} of max |ref| {scale:.3f} "
+        f"({err / scale:.2e}, limit {tol}), argmax agree "
+        f"{res['argmax_agree']:.4f} over {got.shape[0]} rows")
+    if not res["ok"]:
+        raise AssertionError(f"{name}: {err} > {tol} * {scale}")
+    return res
+
+
+def _check_launches(label: str, got: dict, want: dict) -> None:
+    """``want`` for the named kernels, 0 for every other counter."""
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise AssertionError(f"{label}: launch counts {got}, expected {full}")
+
+
+def phase_swa_forward(rec: dict, state: dict) -> None:
+    """gemma3-12b's cache-less windowed forward at full width and depth."""
+    import numpy as np
+    import torch
+    _release(state, "engine", "params", "moe_engine", "moe_params")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  released the earlier models: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    model = _gemma3()
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(4)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, SWA_SEQ + 1)),
+                             device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    fwd = {"tokens": batch["tokens"]}
+    per_forward = {"kraken_gemm": GEMMA_LAYERS * 7 + 1,
+                   "swa_attention": GEMMA_LOCAL}
+
+    model.forward(params, fwd)            # warm: first launches, the tied
+    model.loss(params, batch)             # unembed's one transpose
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, _, _ = model.forward(params, fwd)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_launches("gemma3 forward", launches, per_forward)
+    _zero_counts()
+    t0 = time.perf_counter()
+    total, parts = model.loss(params, batch)
+    torch.cuda.synchronize()
+    loss_s = time.perf_counter() - t0
+    _check_launches("gemma3 loss", _read_counts(), per_forward)
+    if tuple(logits.shape) != (1, SWA_SEQ, cfg.vocab_size):
+        raise AssertionError(f"gemma3 logits shape {tuple(logits.shape)}")
+    ce, aux = float(parts["ce"]), float(parts["aux"])
+    if not (math.isfinite(float(total)) and math.isfinite(ce) and ce > 0
+            and aux == 0.0):
+        raise AssertionError(f"gemma3 loss {float(total)} (ce {ce}, aux {aux})")
+    if "profile" in rec["phases"]:
+        rec["swa_profile"] = device_trace(
+            lambda: model.forward(params, fwd), "gemma3-12b forward")
+    log(f"  gemma3-12b forward: {n_params / 1e9:.2f} B params bf16, S "
+        f"{SWA_SEQ}: forward {fwd_s * 1e3:.1f} ms = "
+        f"{SWA_SEQ / fwd_s:.0f} tok/s, loss {loss_s * 1e3:.1f} ms = "
+        f"{SWA_SEQ / loss_s:.0f} tok/s (ce {ce:.4f}), launches {launches}")
+
+    # 1. the same forward with only swa_attention swapped for its plain
+    # version
+    plain = _gemma3(_plain_swa())
+    _zero_counts()
+    want, _, _ = plain.forward(params, fwd)
+    _check_launches("gemma3 forward, plain swa", _read_counts(),
+                    {"kraken_gemm": per_forward["kraken_gemm"]})
+    res = {"bf16_vs_plain_swa": compare_rows(
+        "gemma3 bf16 logits, swa kernel vs plain", logits[0], want[0],
+        E2E_TOL)}
+    del plain, want
+    _release(state)
+
+    # 2. Model.prefill into a dense cache: the local layers run the chunked
+    # attention, not the kernel
+    caches = model.init_caches(1, SWA_SEQ)
+    _zero_counts()
+    last, caches = model.prefill(params, {
+        "tokens": fwd["tokens"],
+        "positions": torch.arange(SWA_SEQ, dtype=torch.int32, device="cuda")},
+        caches)
+    _check_launches("gemma3 prefill", _read_counts(),
+                    {"kraken_gemm": per_forward["kraken_gemm"]})
+    res["prefill_last_row"] = compare_rows(
+        "gemma3 bf16 last row, forward vs prefill", logits[0, -1:],
+        last[0], E2E_TOL)
+    peak = torch.cuda.max_memory_allocated()
+    del logits, last, caches, total, parts
+    del params, model
+    _release(state)
+
+    # 3. one period (5 local + 1 global) in float32, kernel against plain
+    m32 = _gemma3(layers=GEMMA_PERIOD, dtype="float32")
+    p32 = m32.init(torch.Generator(device="cuda").manual_seed(0))
+    _zero_counts()
+    got32, _, _ = m32.forward(p32, fwd)
+    f32_launches = _read_counts()
+    _check_launches("gemma3 float32 period", f32_launches,
+                    {"kraken_gemm": GEMMA_PERIOD * 7 + 1,
+                     "swa_attention": GEMMA_PERIOD - 1})
+    want32, _, _ = _gemma3(_plain_swa(), layers=GEMMA_PERIOD,
+                           dtype="float32").forward(p32, fwd)
+    res["float32_one_period"] = compare_rows(
+        "gemma3 float32 one period logits, swa kernel vs plain", got32[0],
+        want32[0], F32_E2E_TOL)
+    del got32, want32, p32, m32
+    _release(state)
+    rec["swa_forward"] = {
+        "params": n_params, "init_s": init_s, "seq": SWA_SEQ,
+        "forward_s": fwd_s, "forward_tok_s": SWA_SEQ / fwd_s,
+        "loss_s": loss_s, "loss_tok_s": SWA_SEQ / loss_s, "ce": ce,
+        "launches": launches, "float32_period_launches": f32_launches,
+        "max_memory_allocated_gb": peak / 1e9, **res}
+    log(f"swa_forward: gemma3-12b 48 layers bf16, {SWA_SEQ} tokens: forward "
+        f"{SWA_SEQ / fwd_s:.0f} tok/s, loss {SWA_SEQ / loss_s:.0f} tok/s, "
+        f"{launches['swa_attention']} swa_attention + "
+        f"{launches['kraken_gemm']} kraken_gemm launches per forward, logits "
+        f"within {E2E_TOL} of the plain-swa forward and of prefill, float32 "
+        f"period within {F32_E2E_TOL}; peak {peak / 1e9:.1f} GB allocated")
+
+
 def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
     """The kernels line's entries of the yi-6b path's two kernels."""
     dec = {r["name"]: r for r in rec["gemm"]
@@ -1452,19 +1834,24 @@ def kernels_line(rec: dict) -> dict:
     x q,k,v,o,gate,up,down + unembed), the attention row 32 calls; at
     mixtral (bf16, 8 layers, C = 1) the grouped row 8 x (gate, up, down).
     ``launches`` counts the yi-6b serve path's launches (the grouped GEMM's
-    the mixtral path's); ``launches_by_path`` both."""
+    the mixtral path's, ``decode_attention``'s the int8 dense path's,
+    ``swa_attention``'s one gemma3 forward's, whose times are that
+    forward's 40 calls); ``launches_by_path`` every path."""
     # launches are counted only by the serve phases: null when they did not
     # run
     launches = rec.get("launches", {})
     moe_launches = rec.get("moe_serve", {}).get("launches", {})
     dense = rec.get("dense_serve", {})
 
+    swa_fwd = rec.get("swa_forward", {})
+
     def by_path(name):
         return {"yi-6b": launches.get(name),
                 "mixtral-8x22b": moe_launches.get(name),
                 "yi-6b int8 dense": dense.get("launches", {}).get(name),
                 "yi-6b int8 engine": dense.get("engine_launches",
-                                               {}).get(name)}
+                                               {}).get(name),
+                "gemma3-12b forward": swa_fwd.get("launches", {}).get(name)}
 
     entries = []
     if "gemm" in rec:
@@ -1513,15 +1900,38 @@ def kernels_line(rec: dict) -> dict:
                       "mean over the 8 prompts' middle decode positions "
                       f"{DENSE_SERVE_Q_POS}; library = SDPA on a bf16 "
                       "cache (no dequant)"})
+    if "swa_attention" in rec:
+        rows = rec["swa_attention"]
+        served = next(r for r in rows if r["name"] == "gemma3 local"
+                      and r["dtype"] == "bfloat16")
+
+        def fwd(key):   # one gemma3 forward: 40 local layers
+            return GEMMA_LOCAL * served[key]
+
+        entries.append(
+            {"name": "swa_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/swa_attention.cu",
+             "replaces": "src/repro/kernels/swa_attention.py:74",
+             "launches": swa_fwd.get("launches", {}).get("swa_attention"),
+             "launches_by_path": by_path("swa_attention"),
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": fwd("ms"), "plain_ms": fwd("plain_ms"),
+             "bound_ms": fwd("bound_ms"), "bound_by": served["bound_by"],
+             "library_ms": fwd("library_ms"),
+             "shape": f"one gemma3-12b forward: {GEMMA_LOCAL} local layers x "
+                      f"(B 1, 16/8 heads, D 240, S {SWA_SEQ}, window 1024), "
+                      "bf16; library = SDPA with a boolean band mask"})
     return {"kernels": entries}
 
 
 PHASES = {"build": phase_build, "kernels": phase_kernels,
           "moe_kernels": phase_moe_kernels,
-          "dense_kernels": phase_dense_kernels, "serve": phase_serve,
+          "dense_kernels": phase_dense_kernels,
+          "swa_kernels": phase_swa_kernels, "serve": phase_serve,
           "e2e": phase_e2e, "profile": phase_profile,
           "dense_serve": phase_dense_serve, "dense_e2e": phase_dense_e2e,
-          "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e}
+          "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e,
+          "swa_forward": phase_swa_forward}
 
 
 def main(argv=None) -> int:
@@ -1557,7 +1967,8 @@ def main(argv=None) -> int:
     if "card" not in rec:
         rec["card"] = card_line()
     print(rec["card"])
-    if "gemm" in rec or "moe_gemm" in rec or "dense_attention" in rec:
+    if any(key in rec for key in ("gemm", "moe_gemm", "dense_attention",
+                                  "swa_attention")):
         print(json.dumps(kernels_line(rec)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

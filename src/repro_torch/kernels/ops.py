@@ -14,6 +14,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import kraken_gemm as _gemm
 from repro_torch.kernels import kraken_moe_gemm as _moe
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels import ref
 
 
@@ -63,6 +64,15 @@ def kraken_decode_attention(q, k, v, *, kv_pos, q_pos, k_scale=None,
     return ref.decode_attention(q, k, v, kv_pos=kv_pos, q_pos=q_pos,
                                 k_scale=k_scale, v_scale=v_scale,
                                 window=window)
+
+
+def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
+    """Causal sliding-window attention over a whole sequence: q
+    [B, H, S, D], k/v [B, KV, S, D]; token ``i`` attends to ``j`` iff
+    ``i - window < j <= i``."""
+    if _on_cuda(q):
+        return _swa.swa_attention(q, k, v, window=window)
+    return ref.sliding_window_attention(q, k, v, window=window)
 
 
 def grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo) -> torch.Tensor:

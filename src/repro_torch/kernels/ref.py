@@ -77,6 +77,31 @@ def grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo) -> torch.Tensor:
     return grouped_moe_gemm(silu_mul(gate, up), wo, sizes)
 
 
+def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int) -> torch.Tensor:
+    """Plain ``swa_attention``: causal sliding-window attention over a whole
+    sequence in fp32 (``repro.kernels.ref.sliding_window_attention``).
+
+    q: [B, H, S, D]; k/v: [B, KV, S, D].  Query head ``h`` reads KV head
+    ``h // (H // KV)``, as ``jnp.repeat`` of the KV heads and the Pallas
+    kernel's ``kv_head`` map both give.  Token ``i`` attends to key ``j``
+    iff ``i - window < j <= i``.  Scores, softmax and the value product are
+    fp32; the output is in q's dtype.
+    """
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    qg = q.reshape(b, kvh, h // kvh, s, d).to(torch.float32)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) \
+        * (1.0 / math.sqrt(d))
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(torch.float32))
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pages, v_pages, *, pos_pages, page_table,
                            q_pos, k_scale=None, v_scale=None,
                            window: int = 0) -> torch.Tensor:

@@ -11,8 +11,10 @@ goes through :func:`dense`, which calls ``kernels.matmul`` -- by default
 epilogue.  Decode attention reads the page pools through
 ``kernels.paged_attention`` (the hand-written ``paged_decode_attention``);
 the int8 dense-cache decode goes through ``kernels.decode_attention`` (the
-hand-written ``decode_attention``).  Callers may pass other ``Kernels``
-(the plain versions) to compare.
+hand-written ``decode_attention``); the cache-less windowed attention at
+``S % 128 == 0`` goes through ``kernels.swa_attention`` (the hand-written
+``swa_attention``).  Callers may pass other ``Kernels`` (the plain
+versions) to compare.
 
 Unlike the JAX version, both the dense and the paged caches are updated
 **in place** (``index_put_``, ``copy_``): JAX rebuilt every cache
@@ -45,10 +47,12 @@ class Kernels(NamedTuple):
     paged_attention: Callable
     moe_ffn: Callable
     decode_attention: Callable
+    swa_attention: Callable
 
 
 DEFAULT_KERNELS = Kernels(ops.kraken_matmul, ops.kraken_paged_attention,
-                          ops.grouped_expert_ffn, ops.kraken_decode_attention)
+                          ops.grouped_expert_ffn, ops.kraken_decode_attention,
+                          ops.swa_attention)
 
 
 class Spec(NamedTuple):
@@ -189,6 +193,91 @@ def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
     out = torch.einsum("bkgqs,bksd->bkgqd",
                        probs.to(v.dtype).to(torch.float32), v.to(torch.float32))
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+_CHUNK_Q = 1024
+_CHUNK_KV = 1024
+
+
+def _gqa_sdpa_chunked(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
+    """Flash-style double-chunked causal attention in torch ops, for long
+    prefill sequences (JAX ``_gqa_sdpa_chunked`` with ``causal=True``,
+    ``return_state=False``, ``allow_window_slice=True``; the
+    context-parallel state comes with the multi-device code, ROADMAP Queue 1
+    item 14).
+
+    q [B,H,Sq,D], k/v [B,KV,Skv,D], shared positions q_pos [Sq] and kv_pos
+    [Skv].  An online softmax over kv chunks inside a loop over q chunks
+    keeps the live scores at [B, H, cq, ckv] instead of [B, H, Sq, Skv].
+    For a window layer only the ``window + cq`` kv slice of each q chunk is
+    read, when it is at most half the padded kv length.  Padded q rows
+    carry position 2^30 and padded kv slots -2^30, so the mask drops them.
+    Scores are fp32 and the probabilities are rounded to V's dtype before
+    the value product, as there.
+    """
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    group = h // kvh
+    cq, ckv = min(_CHUNK_Q, sq), min(_CHUNK_KV, skv)
+    pad_q = -sq % cq
+    qp = torch.nn.functional.pad(q_pos, (0, pad_q), value=2 ** 30)
+    qpad = torch.nn.functional.pad(q, (0, 0, 0, pad_q))
+    nq = qpad.shape[2] // cq
+    scale = 1.0 / math.sqrt(d)
+
+    pad_kv = -skv % ckv
+    kpad = torch.nn.functional.pad(k, (0, 0, 0, pad_kv))
+    vpad = torch.nn.functional.pad(v, (0, 0, 0, pad_kv))
+    kvp = torch.nn.functional.pad(kv_pos, (0, pad_kv), value=POS_EMPTY)
+    skv_p = kpad.shape[2]
+    use_window_slice = bool(window) and (window + cq) * 2 <= skv_p
+    wlen = -(-(window + cq) // ckv) * ckv if use_window_slice else skv_p
+
+    qr = qpad.reshape(b, kvh, group, nq, cq, d)
+    outs = []
+    for qi in range(nq):
+        qck = qr[:, :, :, qi].to(torch.float32)     # [B, KV, G, cq, D]
+        qpc = qp[qi * cq:(qi + 1) * cq]
+        start = (min(max(qi * cq + cq - wlen, 0), skv_p - wlen)
+                 if use_window_slice else 0)
+        m = torch.full((b, kvh, group, cq, 1), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, kvh, group, cq, d), dtype=torch.float32,
+                          device=q.device)
+        for c0 in range(start, start + wlen, ckv):
+            kck = kpad[:, :, c0:c0 + ckv].to(torch.float32)
+            vck = vpad[:, :, c0:c0 + ckv]
+            kpc = kvp[c0:c0 + ckv]
+            logits = torch.einsum("bkgqd,bksd->bkgqs", qck, kck) * scale
+            mask = (kpc[None, :] >= 0) & (kpc[None, :] <= qpc[:, None])
+            if window:
+                mask = mask & (kpc[None, :] > qpc[:, None] - window)
+            logits = torch.where(mask, logits, -1e30)
+            m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bkgqs,bksd->bkgqd", p.to(v.dtype).to(torch.float32),
+                vck.to(torch.float32))
+            m = m_new
+        outs.append((acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype))
+    out = torch.cat(outs, dim=3).reshape(b, h, nq * cq, d)
+    return out[:, :, :sq]
+
+
+def _gqa_sdpa(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
+    """Causal GQA attention as JAX ``_gqa_sdpa`` dispatches it: the chunked
+    form for 2048 queries or more (it takes shared [S] positions), the
+    direct form below.  (JAX's unmasked mode comes with cross attention,
+    ROADMAP Queue 1 item 8; its context-parallel branch with the
+    multi-device code, item 14.)"""
+    if q.shape[2] >= 2048:
+        return _gqa_sdpa_chunked(q, k, v, window=window, q_pos=q_pos,
+                                 kv_pos=kv_pos)
+    return _gqa_sdpa_direct(q, k, v, window=window, q_pos=q_pos,
+                            kv_pos=kv_pos)
 
 
 @dataclasses.dataclass
@@ -418,8 +507,8 @@ def _dense_decode(cache: KVCache, q, k, v, *, positions, window: int,
     at its own ring slot ``pos % S_cache`` (in place), then attends at its
     own position.  int8 caches quantize the token first and attend through
     ``kernels.decode_attention`` over the quantized cache, the new token
-    included; float caches attend with the plain ``_gqa_sdpa_direct``, as
-    JAX does."""
+    included; float caches attend with the plain ``_gqa_sdpa``, as JAX
+    does."""
     if k.shape[2] != 1:
         raise ValueError(
             "per-slot positions with multi-token input: per-slot prefill "
@@ -445,8 +534,8 @@ def _dense_decode(cache: KVCache, q, k, v, *, positions, window: int,
             q[:, :, 0].contiguous(), cache.k, cache.v, kv_pos=cache.pos,
             q_pos=pvec, k_scale=cache.k_scale, v_scale=cache.v_scale,
             window=window)[:, :, None]
-    return _gqa_sdpa_direct(q, cache.k, cache.v, window=window,
-                            q_pos=positions, kv_pos=cache.pos)
+    return _gqa_sdpa(q, cache.k, cache.v, window=window, q_pos=positions,
+                     kv_pos=cache.pos)
 
 
 def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
@@ -456,7 +545,8 @@ def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
               kernels: Kernels = DEFAULT_KERNELS):
     """One attention layer through the uniform-GEMM projections.
 
-    Modes: causal self-attention over x (no cache); dense prefill (a
+    Modes: causal self-attention over x (no cache; a window layer at
+    ``S % 128 == 0`` through ``kernels.swa_attention``); dense prefill (a
     ``KVCache``, shared [S] positions: attend over the raw K/V, store the
     last rows); dense decode (a ``KVCache``, per-slot [B, 1] positions);
     paged decode (a ``PagedKVCache``, one token per slot, per-slot [B, 1]
@@ -487,14 +577,22 @@ def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
                                       window=window)
     elif cache is not None and positions.dim() == 1:
         _dense_prefill(cache, k, v, positions=positions)
-        out = _gqa_sdpa_direct(q, k, v, window=window, q_pos=positions,
-                               kv_pos=positions)
+        out = _gqa_sdpa(q, k, v, window=window, q_pos=positions,
+                        kv_pos=positions)
     elif cache is not None:
         out = _dense_decode(cache, q, k, v, positions=positions,
                             window=window, kernels=kernels)
+    elif window and q.shape[2] % 128 == 0:
+        # the reference's own dispatch, not a fallback: JAX takes its
+        # swa_attention kernel (128-row blocks) only when S % 128 == 0 and
+        # _gqa_sdpa otherwise.  The kernel masks by the implicit arange(S),
+        # as the Pallas kernel does: this branch only has shared [S]
+        # positions, and the mask depends on their differences alone.
+        out = kernels.swa_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), window=window)
     else:
-        out = _gqa_sdpa_direct(q, k, v, window=window, q_pos=positions,
-                               kv_pos=positions)
+        out = _gqa_sdpa(q, k, v, window=window, q_pos=positions,
+                        kv_pos=positions)
     y = dense(_merge_heads(out), params[f"{prefix}_wo"], kernels=kernels)
     return y, cache
 

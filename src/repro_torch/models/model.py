@@ -1,5 +1,5 @@
-"""Model: the public API over configs -- spec tree, init, forward, and the
-serving steps (``decode_step``, ``chunk_step``).
+"""Model: the public API over configs -- spec tree, init, forward, the
+loss value, and the serving steps (``decode_step``, ``chunk_step``).
 
 A port of ``repro.models.model``.  Parameters are a plain nested dict of
 tensors with ``repro``'s keys (``embed``, ``final_norm_gamma``,
@@ -11,6 +11,7 @@ their plain versions on CPU tensors).
 
 from __future__ import annotations
 
+import weakref
 from typing import Any
 
 import torch
@@ -50,6 +51,9 @@ class Model:
         self.cfg = cfg
         self.stack = LayerStack(cfg)
         self.kernels = kernels or L.DEFAULT_KERNELS
+        # the tied unembed [d_model, vocab]: (weak ref to the embedding it
+        # was made from, that tensor's version, the contiguous transpose)
+        self._tied = None
 
     # ------------------------------------------------------------------ specs
     def _spec_tree(self) -> dict[str, Any]:
@@ -87,8 +91,21 @@ class Model:
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]
 
+    def tied_unembed(self, embed: torch.Tensor) -> torch.Tensor:
+        """``embed.T`` as the contiguous [d_model, vocab] operand of the
+        unembed GEMM, transposed once and reused while ``embed`` is the same
+        tensor at the same version (an in-place update transposes it
+        again).  At gemma3's width the copy is 2 GB in bf16."""
+        if self._tied is not None:
+            ref, version, w = self._tied
+            if ref() is embed and version == embed._version:
+                return w
+        w = embed.T.contiguous()
+        self._tied = (weakref.ref(embed), embed._version, w)
+        return w
+
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        w = (params["embed"].T.contiguous() if self.cfg.tie_embeddings
+        w = (self.tied_unembed(params["embed"]) if self.cfg.tie_embeddings
              else params["unembed"])
         return L.dense(x, w, kernels=self.kernels)
 
@@ -111,6 +128,25 @@ class Model:
         x = L.apply_norm(self.cfg, params, "final_norm", x)
         logits = self._unembed(params, x)
         return logits, caches, aux
+
+    # ------------------------------------------------------------------ train
+    @torch.no_grad()
+    def loss(self, params: Params, batch: dict):
+        """Next-token cross-entropy of ``forward`` against
+        ``batch["labels"]`` [B, S], averaged over ``batch["mask"]`` (default
+        every position), plus ``0.01 * aux``.  Returns (total, {"ce",
+        "aux"}).  The value only: the gradient comes with training (ROADMAP
+        Queue 1 item 12)."""
+        logits, _, aux = self.forward(params, batch)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        labels = batch["labels"].long()
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        mask = batch.get("mask")
+        mask = (torch.ones_like(nll) if mask is None
+                else mask.to(torch.float32))
+        ce = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        total = ce + 0.01 * aux
+        return total, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------ serve
     def init_caches(self, batch: int, cache_len: int, *, device=None):

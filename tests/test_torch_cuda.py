@@ -69,6 +69,21 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # decode_attention (atol, rtol) by q dtype: kernel and plain version both
 # compute in fp32 and round once, so they differ by at most one bf16 ulp
 DECODE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 1e-2)}
+# swa_attention: chip_smoke.py's SWA_CASES, (name, B, H, KV, S, D, window),
+# and SWA_TOL, (atol, rtol) by dtype.  bf16: the kernel rounds its
+# probabilities to bf16 before the PV product, the plain version does not;
+# that error falls as 1/sqrt(n) in a row's n = min(i + 1, W) keys, so past
+# SWA_ROW_KEYS keys the bf16 atol of row i is scaled by sqrt(SWA_ROW_KEYS / n)
+SWA_CASES = [
+    ("gemma3 local", 1, 16, 8, 4096, 240, 1024),
+    ("mixtral", 1, 48, 8, 2048, 128, 4096),
+    ("edge window 1", 2, 4, 2, 256, 64, 1),
+    ("edge window 16", 2, 4, 2, 256, 64, 16),
+    ("edge window 100", 2, 4, 2, 256, 64, 100),
+    ("ragged S 200, D 40", 2, 4, 2, 200, 40, 16),
+]
+SWA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 1e-2)}
+SWA_ROW_KEYS = 25
 
 
 @pytest.mark.cuda
@@ -251,3 +266,33 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SWA_CASES, ids=[c[0] for c in SWA_CASES])
+def test_swa_attention_kernel_matches_plain(case, dtype):
+    """``swa_kernels``' cases, one test each: gemma3's local layer (D 240,
+    window 1024), mixtral's (group 6, window past S), windows 1, 16 and
+    100, and a ragged S with D 40 (no multiple of 16)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as tsw
+    dev = _cuda()
+    _, b, h, kvh, s, d, window = case
+    atol, rtol = SWA_TOL[dtype]
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, kvh, s, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, kvh, s, d), generator=g, device=dev).to(dtype)
+    before = tsw.launches
+    got = tsw.swa_attention(q, k, v, window=window)
+    want = ref.sliding_window_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        n = torch.clamp(torch.arange(s, device=dev) + 1, max=window)
+        atol = atol * (SWA_ROW_KEYS / n.double()).clamp(max=1).sqrt()
+        atol = atol.float()[:, None]
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()
+    assert (err <= atol + rtol * want.float().abs()).all(), err.max().item()
+    assert tsw.launches == before + 1
