@@ -69,10 +69,24 @@ default ``build/chip_smoke/``):
    its last row against ``Model.prefill`` into a dense cache (which runs the
    local layers through the chunked attention instead); then one period
    (6 layers) in float32, kernel against plain.
+14. ``conv_kernels`` -- ``kraken_conv2d_direct`` against its plain version
+   at every distinct conv geometry of AlexNet, VGG-16 and ResNet-50 (per
+   group; 5 + 9 + 20), at batch 1 in bfloat16 and float32 and at batch 32
+   in bfloat16, plus edge cases (R 1, 3 and 16, C_i 3, a ragged C_i chunk
+   and C_o tile, K 11 / S 4, a stride that leaves rows over, odd OH at
+   N > 1, asymmetric padding, bf16 in and f32 out).  Timed beside the
+   plain version, one cuDNN ``F.conv2d`` (channels_last) and the bound.
+15. ``conv_nets`` -- each network's conv layers in order, one layer at a
+   time as in the paper's Table V, at batch 1 and 32 in bfloat16: through
+   the direct kernel (exactly 8 / 13 / 53 launches per frame), through the
+   im2col route (``kraken_gemm``, as many launches) and through cuDNN;
+   frames per second of each route, both kernel routes against the plain
+   version, the peak allocation, and a ``torch.profiler`` trace of VGG-16
+   frames at each batch.
 
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
-swa_kernels, serve, e2e, profile, dense_serve, dense_e2e, moe_serve,
-moe_e2e, swa_forward``.
+swa_kernels, conv_kernels, serve, e2e, profile, dense_serve, dense_e2e,
+moe_serve, moe_e2e, swa_forward, conv_nets``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -183,6 +197,45 @@ SWA_CASES = [
     ("edge window 100", 2, 4, 2, 256, 64, 100, False),
     ("ragged S 200, D 40", 2, 4, 2, 200, 40, 16, False),
 ]
+# the conv path: every conv layer of the paper's three networks at their
+# published widths (``repro_torch.core.networks``, Table I), one layer at a
+# time as in the paper's Table V, at batch 1 and 32
+CONV_NETS = ("alexnet", "vgg16", "resnet50")
+CONV_BATCHES = (1, 32)
+CONV_R = 7   # output rows per block: the paper's R
+# kraken_conv2d_direct launches per frame: AlexNet's grouped layers run one
+# call per group, ResNet-50's repeated blocks one per repeat
+CONV_FRAME_LAUNCHES = {"alexnet": 8, "vgg16": 13, "resnet50": 53}
+# kraken_conv2d_direct and the im2col route against ref.conv2d, (atol, rtol)
+# elementwise by output dtype.  Both sides read the same inputs, sum the
+# products in fp32 and round once, so they differ by the summation order
+# and at most one output ulp: 2 bf16 ulps of rtol (8e-3) cover the rounding,
+# the atol the fp32 order on outputs near zero (the weights are scaled by
+# 1/sqrt(C_i K_H K_W), so outputs are O(1)).  The largest bf16 atol needed
+# over every case of conv_kernels on an H100 was 8.9e-6 (at K_H K_W C_i
+# 4608); a dropped tap or channel chunk needs 1.5 or more
+CONV_TOL = {"bfloat16": (2e-5, 8e-3), "float32": (1e-5, 1e-5)}
+# edge cases: (name, N, H, W, C_i, K, S, padding, C_o, R, out dtype or None)
+CONV_EDGE = [
+    ("R 1, VGG 3x3", 1, 28, 28, 64, 3, 1, ((1, 1), (1, 1)), 64, 1, None),
+    ("R 3, ragged C_o 96", 2, 28, 28, 64, 3, 1, ((1, 1), (1, 1)), 96, 3,
+     None),
+    ("AlexNet conv1 at R 1", 1, 227, 227, 3, 11, 4, ((0, 0), (0, 0)), 96, 1,
+     None),
+    ("AlexNet conv1 at R 3, N 2", 2, 227, 227, 3, 11, 4, ((0, 0), (0, 0)), 96,
+     3, None),
+    ("(H + pads - K) % S != 0", 2, 30, 28, 16, 3, 2, ((1, 1), (1, 1)), 40, 7,
+     None),
+    ("N 3, odd OH 13", 3, 13, 13, 32, 3, 1, ((1, 1), (1, 1)), 64, 7, None),
+    ("C_i 100: ragged chunk, C_o 72", 1, 14, 14, 100, 3, 1, ((1, 1), (1, 1)),
+     72, 7, None),
+    ("asymmetric padding, K 5 S 3", 2, 20, 17, 24, 5, 3, ((1, 2), (0, 1)), 48,
+     3, None),
+    ("R 16, K 7 S 2, C_i 3", 1, 64, 64, 3, 7, 2, ((3, 3), (3, 3)), 64, 16,
+     None),
+    ("bf16 in, f32 out", 2, 14, 14, 64, 3, 1, ((1, 1), (1, 1)), 64, 7,
+     "float32"),
+]
 
 
 def log(msg: str) -> None:
@@ -250,7 +303,7 @@ def phase_build(rec: dict, state: dict) -> None:
     t0 = time.perf_counter()
     report = _build.build(["kraken_gemm", "paged_attention",
                            "grouped_moe_gemm", "decode_attention",
-                           "swa_attention"], force=True)
+                           "swa_attention", "kraken_conv"], force=True)
     secs = time.perf_counter() - t0
     for name, r in report.items():
         regs = [ln.strip() for ln in r["log"].splitlines()
@@ -820,6 +873,8 @@ def device_trace(run, label: str) -> dict:
     total_us = sum(r[0] for r in rows)
 
     def group(key):
+        if "kraken_conv_kernel" in key:
+            return "kraken_conv2d_direct"
         if "grouped_moe_gemm_kernel" in key:
             return "grouped_moe_gemm"
         if "gemm_kernel" in key:
@@ -1329,13 +1384,14 @@ def dense_sequential(model, params, prompts, max_new: int) -> list:
 
 def _counters():
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import kraken_conv as kc
     from repro_torch.kernels import kraken_gemm as kg
     from repro_torch.kernels import kraken_moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import swa_attention as sw
     return {"kraken_gemm": kg, "paged_decode_attention": pa,
             "grouped_moe_gemm": mg, "decode_attention": dec,
-            "swa_attention": sw}
+            "swa_attention": sw, "kraken_conv2d_direct": kc}
 
 
 def _zero_counts() -> None:
@@ -1368,7 +1424,8 @@ def phase_dense_serve(rec: dict, state: dict) -> None:
     dec_steps = len(prompts) * (SERVE_NEW - 1)
     want = {"kraken_gemm": (LAYERS * 7 + 1) * (len(prompts) + dec_steps),
             "paged_decode_attention": 0, "grouped_moe_gemm": 0,
-            "decode_attention": LAYERS * dec_steps, "swa_attention": 0}
+            "decode_attention": LAYERS * dec_steps, "swa_attention": 0,
+            "kraken_conv2d_direct": 0}
     if launches != want:
         raise AssertionError(f"dense path launch counts {launches} do not "
                              f"match {len(prompts)} prefills + {dec_steps} "
@@ -1790,6 +1847,341 @@ def phase_swa_forward(rec: dict, state: dict) -> None:
         f"period within {F32_E2E_TOL}; peak {peak / 1e9:.1f} GB allocated")
 
 
+# ---------------------------------------------------------------------------
+# the conv path: kraken_conv2d_direct and the im2col route on the conv layers
+# of AlexNet, VGG-16 and ResNet-50
+# ---------------------------------------------------------------------------
+
+def conv_geometries() -> list[tuple]:
+    """Every distinct per-group conv geometry of the three networks, in
+    network order: (net, layer, H, W, C_i / groups, K, S, padding,
+    C_o / groups)."""
+    from repro_torch.core.networks import get_network
+    seen, out = set(), []
+    for net in CONV_NETS:
+        for sp in get_network(net)["conv"]:
+            geo = (sp.H, sp.W, sp.c_i_per_group, sp.K_H, sp.S_H,
+                   (sp.pad_h, sp.pad_w), sp.c_o_per_group)
+            if (net, geo) not in seen:
+                seen.add((net, geo))
+                out.append((net, sp.name) + geo)
+    return out
+
+
+def conv_check(label: str, got, want, dt: str) -> tuple[float, float]:
+    """``got`` within ``CONV_TOL[dt]`` of ``want`` elementwise; returns the
+    max |err| and the least atol that passes at the rtol."""
+    import torch
+    atol, rtol = CONV_TOL[dt]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: got {tuple(got.shape)} {got.dtype}, "
+                             f"want {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{label}: non-finite output")
+    diff = (g - w).abs()
+    need = float((diff - rtol * w.abs()).clamp(min=0).max().item())
+    err = float(diff.max().item())
+    if need > atol:
+        raise AssertionError(f"{label}: max |err| {err:.3e}, needs atol "
+                             f"{need:.3e} > {atol} (rtol {rtol})")
+    return err, need
+
+
+def conv_case(torch, kc, ref, *, name, n, h, w, ci, k, s, padding, co, R,
+              dtype, out_dtype=None, timed, seed, iters=(20, 5, 20)):
+    """One ``kraken_conv2d_direct`` call against ``ref.conv2d``; when
+    ``timed``, the kernel's, the plain version's and one cuDNN
+    ``F.conv2d``'s time (channels_last, TF32 off) beside the bound, whose
+    operations count only the taps inside the input (no padding zeros)."""
+    import torch.nn.functional as F
+    from repro_torch.core.networks import LayerSpec
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, h, w, ci), generator=g, device="cuda").to(dtype)
+    wt = (torch.randn((k, k, ci, co), generator=g, device="cuda")
+          / math.sqrt(ci * k * k)).to(dtype)
+    kw = dict(stride=(s, s), padding=padding, out_dtype=out_dtype)
+    got = kc.kraken_conv2d_direct(x, wt, R=R, **kw)
+    want = ref.conv2d(x, wt, **kw)
+    torch.cuda.synchronize()
+    dt = str(dtype).split(".")[-1]
+    odt = str(got.dtype).split(".")[-1]
+    label = f"kraken_conv2d_direct {name} N={n} {dt}"
+    err, need = conv_check(label, got, want, odt)
+    _, oh, ow, _ = got.shape
+    row = {"name": name, "n": n, "h": h, "w": w, "c_i": ci, "k": k, "s": s,
+           "padding": padding, "c_o": co, "R": R, "dtype": dt,
+           "out_dtype": odt, "max_abs_err": err, "atol_needed": need,
+           "ms": None, "plain_ms": None, "library_ms": None,
+           "bound_ms": None, "bound_by": None}
+    del got, want
+    if not timed:
+        return row
+    row["ms"] = time_ms(lambda: kc.kraken_conv2d_direct(x, wt, R=R, **kw),
+                        iters[0])
+    row["plain_ms"] = time_ms(lambda: ref.conv2d(x, wt, **kw), iters[1])
+    (pt, pb), (pl, pr) = padding
+    if (pt, pl) != (pb, pr):
+        raise ValueError(f"{name}: F.conv2d pads symmetrically only")
+    xl = x.permute(0, 3, 1, 2)        # NCHW view of NHWC memory
+    wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    row["library_ms"] = time_ms(lambda: F.conv2d(
+        xl, wl, stride=(s, s), padding=(pt, pl)), iters[2])
+    esize = x.element_size()
+    macs = LayerSpec(name, "conv", h, w, k, k, s, s, tuple(padding[0]),
+                     tuple(padding[1]), ci, co, N=n).macs_valid
+    nbytes = (x.numel() + wt.numel() + n * oh * ow * co) * esize
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    row["macs"], row["bytes"] = macs, nbytes
+    row["ops_ms"] = 2.0 * macs / peak * 1e3
+    row["bytes_ms"] = nbytes / PEAK_BYTES * 1e3
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * macs, peak)
+    return row
+
+
+def phase_conv_kernels(rec: dict, state: dict) -> None:
+    import torch
+    from repro_torch.kernels import kraken_conv as kc
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for net, layer, h, w, ci, k, s, padding, co in conv_geometries():
+        for n, dtype in ((1, torch.bfloat16), (1, torch.float32),
+                         (CONV_BATCHES[-1], torch.bfloat16)):
+            r = conv_case(torch, kc, ref, name=f"{net} {layer}", n=n, h=h,
+                          w=w, ci=ci, k=k, s=s, padding=padding, co=co,
+                          R=CONV_R, dtype=dtype, timed=True, seed=len(rows),
+                          iters=(20, 5, 20) if n == 1 else (5, 2, 5))
+            r["net"] = net
+            rows.append(r)
+            log(f"  conv {net:8s} {layer:18s} N={n:<2d} {r['dtype']:8s} "
+                f"err={r['max_abs_err']:.2e} atol_needed="
+                f"{r['atol_needed']:.2e} ms={r['ms']:.4f} "
+                f"plain={r['plain_ms']:.4f} cudnn={r['library_ms']:.4f} "
+                f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
+            torch.cuda.empty_cache()
+    for (name, n, h, w, ci, k, s, padding, co, R, odt) in CONV_EDGE:
+        for dtype in (torch.bfloat16, torch.float32):
+            if odt and dtype == torch.float32:
+                continue
+            r = conv_case(torch, kc, ref, name=name, n=n, h=h, w=w, ci=ci, k=k,
+                          s=s, padding=padding, co=co, R=R, dtype=dtype,
+                          out_dtype=getattr(torch, odt) if odt else None,
+                          timed=False, seed=len(rows))
+            r["net"] = None
+            rows.append(r)
+            log(f"  conv edge {name:32s} {r['dtype']:8s}->{r['out_dtype']:8s} "
+                f"err={r['max_abs_err']:.2e} atol_needed="
+                f"{r['atol_needed']:.2e}")
+    rec["conv_kernels"] = rows
+    need = {dt: max(r["atol_needed"] for r in rows if r["out_dtype"] == dt)
+            for dt in ("bfloat16", "float32")}
+    log(f"conv_kernels: kraken_conv2d_direct matches plain in {len(rows)} "
+        f"cases ({len(conv_geometries())} network geometries x (N 1 bf16, "
+        f"N 1 f32, N 32 bf16) + {len(rows) - 3 * len(conv_geometries())} "
+        f"edge cases); largest atol needed bf16 {need['bfloat16']:.2e} of "
+        f"{CONV_TOL['bfloat16'][0]}, f32 {need['float32']:.2e} of "
+        f"{CONV_TOL['float32'][0]}")
+
+
+def conv_layers(torch, net: str, batch: int, seed: int) -> list[dict]:
+    """A network's conv layers at ``batch`` in bf16: per layer a random
+    input [N, H, W, C_i] and HWIO weights scaled by 1/sqrt(fan-in), split
+    per group (AlexNet) into contiguous channel slices, and the same tensors
+    as channels_last NCHW views for cuDNN."""
+    from repro_torch.core.networks import get_network
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for sp in get_network(net, batch)["conv"]:
+        x = torch.randn((sp.N, sp.H, sp.W, sp.C_i), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        cig, cog = sp.c_i_per_group, sp.c_o_per_group
+        k = (torch.randn((sp.K_H, sp.K_W, cig, sp.C_o), generator=g,
+                         device="cuda")
+             / math.sqrt(cig * sp.K_H * sp.K_W)).to(torch.bfloat16)
+        calls = [(x, k)] if sp.groups == 1 else [
+            (x[..., i * cig:(i + 1) * cig].contiguous(),
+             k[..., i * cog:(i + 1) * cog].contiguous())
+            for i in range(sp.groups)]
+        out.append({"spec": sp, "calls": calls, "stride": (sp.S_H, sp.S_W),
+                    "padding": (sp.pad_h, sp.pad_w),
+                    "x_cl": x.permute(0, 3, 1, 2),
+                    "w_cl": k.permute(3, 2, 0, 1).contiguous(
+                        memory_format=torch.channels_last)})
+    return out
+
+
+def run_frame(layers: list[dict], conv) -> list[list]:
+    """Every conv layer in order (each repeat, each group its own call);
+    the outputs of each layer's last repeat."""
+    outs = []
+    for lay in layers:
+        for _ in range(lay["spec"].repeat):
+            got = [conv(x, k, lay) for x, k in lay["calls"]]
+        outs.append(got)
+    return outs
+
+
+def conv_trace(torch, layers: list[dict], direct, batch: int) -> dict:
+    """``device_trace`` over VGG-16 frames through the direct kernel, back
+    to back (20 at batch 1, 4 at batch 32), after one untraced profiler
+    session: the profiler's start-up drops the first kernels of a session.
+    The traced launches must be every launch of those frames, so that the
+    busy share is read from a whole trace."""
+    from torch.profiler import ProfilerActivity, profile
+    frames = 20 if batch == 1 else 4
+
+    def run():
+        for _ in range(frames):
+            run_frame(layers, direct)
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        run_frame(layers, direct)
+        torch.cuda.synchronize()
+    out = device_trace(run, f"vgg16 b{batch}, {frames} frames, direct")
+    out["frames"] = frames
+    out["traced_launches"] = sum(t["count"] for t in out["top"]
+                                 if "kraken_conv_kernel" in t["name"])
+    out["expected_launches"] = frames * CONV_FRAME_LAUNCHES["vgg16"]
+    log(f"    traced {out['traced_launches']} of "
+        f"{out['expected_launches']} kraken_conv2d_direct launches; per "
+        f"frame: wall {out['wall_s'] / frames * 1e3:.4f} ms, device "
+        f"{out['device_s'] / frames * 1e3:.4f} ms")
+    if out["traced_launches"] != out["expected_launches"]:
+        raise AssertionError(
+            f"vgg16 b{batch} trace: {out['traced_launches']} "
+            f"kraken_conv2d_direct launches traced, "
+            f"{out['expected_launches']} made")
+    return out
+
+
+def phase_conv_nets(rec: dict, state: dict) -> None:
+    """The conv layers of AlexNet, VGG-16 and ResNet-50 through the direct
+    kernel, the im2col route and cuDNN, at batch 1 and 32, bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.networks import get_network, total_macs, total_words
+    from repro_torch.kernels import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def direct(x, k, lay):
+        return ops.kraken_conv2d_direct(x, k, stride=lay["stride"],
+                                        padding=lay["padding"], R=CONV_R)
+
+    def im2col(x, k, lay):
+        return ops.kraken_conv2d(x, k, stride=lay["stride"],
+                                 padding=lay["padding"])
+
+    def plain(x, k, lay):
+        return ref.conv2d(x, k, stride=lay["stride"], padding=lay["padding"])
+
+    def cudnn_frame(layers):
+        for lay in layers:
+            sp = lay["spec"]
+            for _ in range(sp.repeat):
+                F.conv2d(lay["x_cl"], lay["w_cl"], stride=lay["stride"],
+                         padding=(sp.pad_h[0], sp.pad_w[0]), groups=sp.groups)
+
+    res = {}
+    for net in CONV_NETS:
+        for batch in CONV_BATCHES:
+            key = f"{net} b{batch}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            layers = conv_layers(torch, net, batch, seed=len(res))
+            per_frame = CONV_FRAME_LAUNCHES[net]
+            run_frame(layers, direct)        # first use
+            run_frame(layers, im2col)
+            torch.cuda.synchronize()
+            _zero_counts()
+            got = run_frame(layers, direct)
+            torch.cuda.synchronize()
+            launches = _read_counts()
+            _check_launches(f"{key} direct", launches,
+                            {"kraken_conv2d_direct": per_frame})
+            _zero_counts()
+            got2 = run_frame(layers, im2col)
+            torch.cuda.synchronize()
+            im2col_launches = _read_counts()
+            _check_launches(f"{key} im2col", im2col_launches,
+                            {"kraken_gemm": per_frame})
+            errs = {"direct": 0.0, "im2col": 0.0}
+            need = {"direct": 0.0, "im2col": 0.0}
+            for lay, d_outs, i_outs in zip(layers, got, got2):
+                for (x, k), d, i in zip(lay["calls"], d_outs, i_outs):
+                    want = plain(x, k, lay)
+                    for route, out in (("direct", d), ("im2col", i)):
+                        e, nd = conv_check(
+                            f"{key} {lay['spec'].name} {route}", out, want,
+                            "bfloat16")
+                        errs[route] = max(errs[route], e)
+                        need[route] = max(need[route], nd)
+                    del want
+            del got, got2
+            it = 10 if batch == 1 else 3
+            batch_ms = {
+                "direct": time_ms(lambda: run_frame(layers, direct), it),
+                "im2col": time_ms(lambda: run_frame(layers, im2col), it),
+                "cudnn": time_ms(lambda: cudnn_frame(layers), it),
+                "plain": time_ms(lambda: run_frame(layers, plain),
+                                 max(1, it // 3))}
+            peak = torch.cuda.max_memory_allocated()
+            specs = get_network(net, batch)["conv"]
+            macs = total_macs(specs, valid=True)   # no padding taps
+            nbytes = 2 * sum(total_words(specs, w) for w in ("x", "k", "y"))
+            bnd, by = bound_ms(nbytes, 2.0 * macs, PEAK_BF16)
+            r = {"net": net, "batch": batch, "gmac": macs / 1e9,
+                 "mbytes": nbytes / 1e6, "bound_ms": bnd, "bound_by": by,
+                 "launches": launches, "im2col_launches": im2col_launches,
+                 "max_abs_err": errs, "atol_needed": need,
+                 "batch_ms": batch_ms,
+                 "frame_ms": {k: v / batch for k, v in batch_ms.items()},
+                 "fps": {k: 1e3 * batch / v for k, v in batch_ms.items()},
+                 "bound_frame_ms": bnd / batch,
+                 "max_memory_allocated_gb": peak / 1e9}
+            if net == "vgg16":
+                r["trace"] = conv_trace(torch, layers, direct, batch)
+            res[key] = r
+            fps = r["fps"]
+            log(f"  {key:12s} {macs / 1e9 / batch:6.2f} GMAC/frame: frames/s "
+                f"direct {fps['direct']:.1f}, im2col {fps['im2col']:.1f}, "
+                f"cudnn {fps['cudnn']:.1f}, plain {fps['plain']:.1f}; frame "
+                f"ms direct {r['frame_ms']['direct']:.4f} bound "
+                f"{r['bound_frame_ms']:.4f} ({by}); launches/frame "
+                f"{per_frame}; err direct {errs['direct']:.2e} im2col "
+                f"{errs['im2col']:.2e}; peak {peak / 1e9:.2f} GB")
+            del layers
+    rec["conv_nets"] = res
+    log("conv_nets: every conv layer of " + ", ".join(CONV_NETS) + " at "
+        f"batch {' and '.join(map(str, CONV_BATCHES))} through "
+        "kraken_conv2d_direct (launches/frame "
+        + "/".join(str(CONV_FRAME_LAUNCHES[n]) for n in CONV_NETS)
+        + ") and the im2col route (as many kraken_gemm launches), both "
+        "within CONV_TOL of the plain version")
+
+
+def conv_entry(rec: dict, by_path) -> dict:
+    """The kernels line's ``kraken_conv2d_direct`` entry: one VGG-16 frame
+    at batch 1 in bf16 as ``conv_nets`` timed it (its 13 layers back to
+    back); the times are null when that phase did not run."""
+    vgg = rec.get("conv_nets", {}).get("vgg16 b1", {})
+    frame = vgg.get("frame_ms", {})
+    return {"name": "kraken_conv2d_direct", "route": "cuda",
+            "source": "src/repro_torch/csrc/kraken_conv.cu",
+            "replaces": "src/repro/kernels/kraken_conv.py:115",
+            "launches": vgg.get("launches", {}).get("kraken_conv2d_direct"),
+            "launches_by_path": by_path("kraken_conv2d_direct"),
+            "max_abs_err": max(r["max_abs_err"] for r in rec["conv_kernels"]),
+            "ms": frame.get("direct"), "plain_ms": frame.get("plain"),
+            "bound_ms": vgg.get("bound_frame_ms"),
+            "bound_by": vgg.get("bound_by"),
+            "library_ms": frame.get("cudnn"),
+            "shape": "one VGG-16 frame at batch 1, bf16: its 13 conv layers "
+                     f"one call each, R {CONV_R}; library = cuDNN F.conv2d, "
+                     "channels_last"}
+
+
 def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
     """The kernels line's entries of the yi-6b path's two kernels."""
     dec = {r["name"]: r for r in rec["gemm"]
@@ -1836,7 +2228,9 @@ def kernels_line(rec: dict) -> dict:
     ``launches`` counts the yi-6b serve path's launches (the grouped GEMM's
     the mixtral path's, ``decode_attention``'s the int8 dense path's,
     ``swa_attention``'s one gemma3 forward's, whose times are that
-    forward's 40 calls); ``launches_by_path`` every path."""
+    forward's 40 calls; ``kraken_conv2d_direct``'s one VGG-16 frame's at
+    batch 1, whose times are its 13 layers); ``launches_by_path`` every
+    path."""
     # launches are counted only by the serve phases: null when they did not
     # run
     launches = rec.get("launches", {})
@@ -1851,7 +2245,11 @@ def kernels_line(rec: dict) -> dict:
                 "yi-6b int8 dense": dense.get("launches", {}).get(name),
                 "yi-6b int8 engine": dense.get("engine_launches",
                                                {}).get(name),
-                "gemma3-12b forward": swa_fwd.get("launches", {}).get(name)}
+                "gemma3-12b forward": swa_fwd.get("launches", {}).get(name),
+                **{f"{key} conv direct": r["launches"].get(name)
+                   for key, r in rec.get("conv_nets", {}).items()},
+                **{f"{key} conv im2col": r["im2col_launches"].get(name)
+                   for key, r in rec.get("conv_nets", {}).items()}}
 
     entries = []
     if "gemm" in rec:
@@ -1921,17 +2319,20 @@ def kernels_line(rec: dict) -> dict:
              "shape": f"one gemma3-12b forward: {GEMMA_LOCAL} local layers x "
                       f"(B 1, 16/8 heads, D 240, S {SWA_SEQ}, window 1024), "
                       "bf16; library = SDPA with a boolean band mask"})
+    if "conv_kernels" in rec:
+        entries.append(conv_entry(rec, by_path))
     return {"kernels": entries}
 
 
 PHASES = {"build": phase_build, "kernels": phase_kernels,
           "moe_kernels": phase_moe_kernels,
           "dense_kernels": phase_dense_kernels,
-          "swa_kernels": phase_swa_kernels, "serve": phase_serve,
+          "swa_kernels": phase_swa_kernels,
+          "conv_kernels": phase_conv_kernels, "serve": phase_serve,
           "e2e": phase_e2e, "profile": phase_profile,
           "dense_serve": phase_dense_serve, "dense_e2e": phase_dense_e2e,
           "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e,
-          "swa_forward": phase_swa_forward}
+          "swa_forward": phase_swa_forward, "conv_nets": phase_conv_nets}
 
 
 def main(argv=None) -> int:
@@ -1968,7 +2369,7 @@ def main(argv=None) -> int:
         rec["card"] = card_line()
     print(rec["card"])
     if any(key in rec for key in ("gemm", "moe_gemm", "dense_attention",
-                                  "swa_attention")):
+                                  "swa_attention", "conv_kernels")):
         print(json.dumps(kernels_line(rec)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

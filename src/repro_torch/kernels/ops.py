@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import kraken_conv as _conv
 from repro_torch.kernels import kraken_gemm as _gemm
 from repro_torch.kernels import kraken_moe_gemm as _moe
 from repro_torch.kernels import paged_attention as _pa
@@ -39,6 +40,52 @@ def kraken_matmul(a: torch.Tensor, b: torch.Tensor, *,
         return _gemm.kraken_gemm(a, b, bias=bias, activation=activation)
     return ref.matmul(a, b, bias=bias, activation=activation,
                       out_dtype=out_dtype)
+
+
+def kraken_conv2d_direct(x: torch.Tensor, k: torch.Tensor, *,
+                         stride: tuple[int, int] = (1, 1),
+                         padding: tuple[tuple[int, int], tuple[int, int]] = (
+                             (0, 0), (0, 0)),
+                         R: int = 7, bco: int | None = None,
+                         out_dtype=None) -> torch.Tensor:
+    """Direct Kraken-dataflow convolution: x [N, H, W, C_i] NHWC, k
+    [K_H, K_W, C_i, C_o] HWIO -> NHWC, fp32 accumulation, cast once to
+    ``out_dtype`` (default x's dtype).  ``R`` is the paper's row count, the
+    output rows per block on the card; ``bco`` must be None (the card's
+    c_o tile is the kernel's own)."""
+    if _on_cuda(x):
+        return _conv.kraken_conv2d_direct(x, k, stride=stride,
+                                          padding=padding, R=R, bco=bco,
+                                          out_dtype=out_dtype)
+    _conv.check_args(x.shape, k.shape, stride=stride, padding=padding, R=R,
+                     bco=bco)
+    return ref.conv2d(x, k, stride=stride, padding=padding,
+                      out_dtype=out_dtype)
+
+
+def kraken_conv2d(x: torch.Tensor, k: torch.Tensor, *,
+                  stride: tuple[int, int] = (1, 1),
+                  padding: tuple[tuple[int, int], tuple[int, int]] = (
+                      (0, 0), (0, 0)),
+                  out_dtype=None) -> torch.Tensor:
+    """Convolution by the uniform lowering conv -> im2col ->
+    :func:`kraken_matmul` (``repro.kernels.ops.kraken_conv2d``).
+
+    x: [N, H, W, C_i], k: [K_H, K_W, C_i, C_o] -> [N, OH, OW, C_o].  The
+    patches are channel-major, (C_i, K_H, K_W), as JAX's
+    ``conv_general_dilated_patches`` gives them, and the weight rows follow
+    that order.
+    """
+    (s_h, s_w), ((pt, pb), (pl, pr)) = stride, padding
+    n = x.shape[0]
+    k_h, k_w, c_i, c_o = k.shape
+    xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb))
+    patches = xp.unfold(1, k_h, s_h).unfold(2, k_w, s_w)  # [N,OH,OW,C,KH,KW]
+    oh, ow = patches.shape[1], patches.shape[2]
+    lhs = patches.reshape(n * oh * ow, c_i * k_h * k_w)
+    rhs = k.permute(2, 0, 1, 3).reshape(c_i * k_h * k_w, c_o)
+    out = kraken_matmul(lhs, rhs, out_dtype=out_dtype)
+    return out.reshape(n, oh, ow, c_o)
 
 
 def kraken_paged_attention(q, k_pages, v_pages, *, pos_pages, page_table,

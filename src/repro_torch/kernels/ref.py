@@ -38,6 +38,34 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bias: torch.Tensor | None = None
     return out.to(out_dtype or a.dtype)
 
 
+def conv2d(x: torch.Tensor, k: torch.Tensor, *,
+           stride: tuple[int, int] = (1, 1),
+           padding: tuple[tuple[int, int], tuple[int, int]] = ((0, 0), (0, 0)),
+           out_dtype=None) -> torch.Tensor:
+    """Plain ``kraken_conv2d_direct``: NHWC x HWIO -> NHWC cross-correlation
+    in fp32, cast once at the end (``repro.kernels.ref.conv2d``).
+
+    x: [N, H, W, C_i]; k: [K_H, K_W, C_i, C_o]; ``padding`` is ((top,
+    bottom), (left, right)) of zeros.  The sum over the (kh, kw) taps of the
+    strided input slice ``@ k[kh, kw]``; it calls no library convolution,
+    so that cuDNN stays a separate yardstick.
+    """
+    (s_h, s_w), ((pt, pb), (pl, pr)) = stride, padding
+    k_h, k_w = k.shape[:2]
+    xf = torch.nn.functional.pad(x.to(torch.float32), (0, 0, pl, pr, pt, pb))
+    kf = k.to(torch.float32)
+    oh = (xf.shape[1] - k_h) // s_h + 1
+    ow = (xf.shape[2] - k_w) // s_w + 1
+    out = None
+    for kh in range(k_h):
+        for kw in range(k_w):
+            xs = xf[:, kh:kh + (oh - 1) * s_h + 1:s_h,
+                    kw:kw + (ow - 1) * s_w + 1:s_w]          # [N, OH, OW, C_i]
+            term = xs @ kf[kh, kw]
+            out = term if out is None else out + term
+    return out.to(out_dtype or x.dtype)
+
+
 def grouped_moe_gemm(xs: torch.Tensor, w: torch.Tensor,
                      sizes: torch.Tensor) -> torch.Tensor:
     """Plain ``grouped_moe_gemm``: every expert's ``xs[e, :sizes[e]] @

@@ -84,6 +84,31 @@ SWA_CASES = [
 ]
 SWA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 1e-2)}
 SWA_ROW_KEYS = 25
+# kraken_conv2d_direct: chip_smoke.py's CONV_TOL, (atol, rtol) by output
+# dtype: both sides sum fp32 products and round once, so they differ by the
+# summation order and one output ulp (2 bf16 ulps of rtol cover it)
+CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-5, 8e-3)}
+# (name, N, H, W, C_i, K, S, padding, C_o, R): the paper geometries of
+# tests/test_kraken_conv.py at their (K, S) classes and chip_smoke.py's edge
+# cases
+CONV_CASES = [
+    ("alexnet conv1 K11 S4", 1, 35, 35, 3, 11, 4, ((0, 0), (0, 0)), 8, 7),
+    ("alexnet conv2 K5", 1, 27, 27, 8, 5, 1, ((2, 2), (2, 2)), 12, 2),
+    ("3x3 N 2", 2, 14, 14, 8, 3, 1, ((1, 1), (1, 1)), 16, 7),
+    ("resnet conv1 K7 S2", 1, 28, 28, 4, 7, 2, ((3, 3), (3, 3)), 8, 7),
+    ("1x1", 1, 14, 14, 8, 1, 1, ((0, 0), (0, 0)), 12, 7),
+    ("strided 3x3", 1, 16, 16, 8, 3, 2, ((1, 1), (1, 1)), 8, 7),
+    ("R 1", 1, 28, 28, 64, 3, 1, ((1, 1), (1, 1)), 64, 1),
+    ("R 3, ragged C_o 96", 2, 28, 28, 64, 3, 1, ((1, 1), (1, 1)), 96, 3),
+    ("alexnet conv1 full, R 1", 1, 227, 227, 3, 11, 4, ((0, 0), (0, 0)), 96,
+     1),
+    ("(H + pads - K) % S != 0", 2, 30, 28, 16, 3, 2, ((1, 1), (1, 1)), 40, 7),
+    ("N 3, odd OH", 3, 13, 13, 32, 3, 1, ((1, 1), (1, 1)), 64, 7),
+    ("C_i 100 ragged chunk", 1, 14, 14, 100, 3, 1, ((1, 1), (1, 1)), 72, 7),
+    ("asymmetric padding K5 S3", 2, 20, 17, 24, 5, 3, ((1, 2), (0, 1)), 48,
+     3),
+    ("R 16", 1, 64, 64, 3, 7, 2, ((3, 3), (3, 3)), 64, 16),
+]
 
 
 @pytest.mark.cuda
@@ -296,3 +321,56 @@ def test_swa_attention_kernel_matches_plain(case, dtype):
     err = (got.float() - want.float()).abs()
     assert (err <= atol + rtol * want.float().abs()).all(), err.max().item()
     assert tsw.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_kraken_conv_kernel_matches_plain(case, dtype):
+    """The direct conv kernel against ``ref.conv2d`` under ``CONV_TOL``,
+    through ``ops`` (a CUDA tensor launches the kernel, never the plain
+    version) and its wrapper, with the exact output shape."""
+    from repro_torch.kernels import kraken_conv as tkc
+    from repro_torch.kernels import ops, ref
+    dev = _cuda()
+    _, n, h, w, ci, k, s, padding, co, R = case
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((n, h, w, ci), generator=g, device=dev).to(dtype)
+    wt = (torch.randn((k, k, ci, co), generator=g, device=dev)
+          / (ci * k * k) ** 0.5).to(dtype)
+    kw = dict(stride=(s, s), padding=padding)
+    before = tkc.launches
+    got = ops.kraken_conv2d_direct(x, wt, R=R, **kw)
+    want = ref.conv2d(x, wt, **kw)
+    torch.cuda.synchronize()
+    (pt, pb), (pl, pr) = padding
+    oh, ow = (h + pt + pb - k) // s + 1, (w + pl + pr - k) // s + 1
+    assert tuple(got.shape) == (n, oh, ow, co) and got.dtype == dtype
+    assert tkc.launches == before + 1
+    atol, rtol = CONV_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got.float()).all()
+    assert (err <= atol + rtol * want.float().abs()).all(), err.max().item()
+
+
+@pytest.mark.cuda
+def test_kraken_conv_im2col_route_matches_plain():
+    """``ops.kraken_conv2d`` on the card: im2col, then one ``kraken_gemm``
+    launch, within ``CONV_TOL`` of the plain version."""
+    from repro_torch.kernels import kraken_gemm as tkg
+    from repro_torch.kernels import ops, ref
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, 15, 15, 24), generator=g, device=dev).to(dtype)
+        wt = (torch.randn((3, 3, 24, 40), generator=g, device=dev)
+              / (24 * 9) ** 0.5).to(dtype)
+        kw = dict(stride=(2, 2), padding=((1, 1), (1, 1)))
+        before = tkg.launches
+        got = ops.kraken_conv2d(x, wt, **kw)
+        want = ref.conv2d(x, wt, **kw)
+        torch.cuda.synchronize()
+        assert tkg.launches == before + 1
+        atol, rtol = CONV_TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        assert (err <= atol + rtol * want.float().abs()).all(), err.max()
