@@ -72,10 +72,17 @@ default ``build/chip_smoke/``):
 14. ``conv_kernels`` -- ``kraken_conv2d_direct`` against its plain version
    at every distinct conv geometry of AlexNet, VGG-16 and ResNet-50 (per
    group; 5 + 9 + 20), at batch 1 in bfloat16 and float32 and at batch 32
-   in bfloat16, plus edge cases (R 1, 3 and 16, C_i 3, a ragged C_i chunk
-   and C_o tile, K 11 / S 4, a stride that leaves rows over, odd OH at
-   N > 1, asymmetric padding, bf16 in and f32 out).  Timed beside the
-   plain version, one cuDNN ``F.conv2d`` (channels_last) and the bound.
+   in bfloat16, plus edge cases (R 1, 3 and 16, C_i 3 packed at K 3 / S 1
+   and K 11 / S 4, a ragged C_i chunk that TMA cannot take (C_i 100) and
+   C_o tile, an odd C_i (35) that TMA cannot take either, a stride that
+   leaves rows over, odd OH at N > 1, asymmetric padding, bf16 in and f32
+   out, a split over C_i at batch 1, 7 x 7 maps at N 3) and an Inf in the
+   input (packed and not), which must reach exactly the outputs whose
+   window holds it.  Each case runs twice and must give the same bits;
+   its plan (tile, ring stages, split, shared memory, blocks) is logged.  Timed
+   beside the plain version, one cuDNN ``F.conv2d`` (channels_last, TF32
+   off) and the bound, with the TFLOP/s on in-bounds taps and the ratio to
+   cuDNN.
 15. ``conv_nets`` -- each network's conv layers in order, one layer at a
    time as in the paper's Table V, at batch 1 and 32 in bfloat16: through
    the direct kernel (exactly 8 / 13 / 53 launches per frame), through the
@@ -197,12 +204,8 @@ SWA_CASES = [
     ("edge window 100", 2, 4, 2, 256, 64, 100, False),
     ("ragged S 200, D 40", 2, 4, 2, 200, 40, 16, False),
 ]
-# the conv path: every conv layer of the paper's three networks at their
-# published widths (``repro_torch.core.networks``, Table I), one layer at a
-# time as in the paper's Table V, at batch 1 and 32
-CONV_NETS = ("alexnet", "vgg16", "resnet50")
-CONV_BATCHES = (1, 32)
-CONV_R = 7   # output rows per block: the paper's R
+# the conv path: the networks, batches, R, edge cases and geometries are
+# repro_torch.core.conv_cases's (the CPU tests plan the same cases).
 # kraken_conv2d_direct launches per frame: AlexNet's grouped layers run one
 # call per group, ResNet-50's repeated blocks one per repeat
 CONV_FRAME_LAUNCHES = {"alexnet": 8, "vgg16": 13, "resnet50": 53}
@@ -215,27 +218,6 @@ CONV_FRAME_LAUNCHES = {"alexnet": 8, "vgg16": 13, "resnet50": 53}
 # over every case of conv_kernels on an H100 was 8.9e-6 (at K_H K_W C_i
 # 4608); a dropped tap or channel chunk needs 1.5 or more
 CONV_TOL = {"bfloat16": (2e-5, 8e-3), "float32": (1e-5, 1e-5)}
-# edge cases: (name, N, H, W, C_i, K, S, padding, C_o, R, out dtype or None)
-CONV_EDGE = [
-    ("R 1, VGG 3x3", 1, 28, 28, 64, 3, 1, ((1, 1), (1, 1)), 64, 1, None),
-    ("R 3, ragged C_o 96", 2, 28, 28, 64, 3, 1, ((1, 1), (1, 1)), 96, 3,
-     None),
-    ("AlexNet conv1 at R 1", 1, 227, 227, 3, 11, 4, ((0, 0), (0, 0)), 96, 1,
-     None),
-    ("AlexNet conv1 at R 3, N 2", 2, 227, 227, 3, 11, 4, ((0, 0), (0, 0)), 96,
-     3, None),
-    ("(H + pads - K) % S != 0", 2, 30, 28, 16, 3, 2, ((1, 1), (1, 1)), 40, 7,
-     None),
-    ("N 3, odd OH 13", 3, 13, 13, 32, 3, 1, ((1, 1), (1, 1)), 64, 7, None),
-    ("C_i 100: ragged chunk, C_o 72", 1, 14, 14, 100, 3, 1, ((1, 1), (1, 1)),
-     72, 7, None),
-    ("asymmetric padding, K 5 S 3", 2, 20, 17, 24, 5, 3, ((1, 2), (0, 1)), 48,
-     3, None),
-    ("R 16, K 7 S 2, C_i 3", 1, 64, 64, 3, 7, 2, ((3, 3), (3, 3)), 64, 16,
-     None),
-    ("bf16 in, f32 out", 2, 14, 14, 64, 3, 1, ((1, 1), (1, 1)), 64, 7,
-     "float32"),
-]
 
 
 def log(msg: str) -> None:
@@ -298,6 +280,20 @@ def assert_close(name, got, want, atol, rtol) -> float:
 # phase 1: build
 # ---------------------------------------------------------------------------
 
+def ptxas_by_function(log_text: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {function: [its register and spill
+    lines]}."""
+    out, fn = {}, None
+    for ln in log_text.splitlines():
+        if "Function properties for " in ln:
+            fn = ln.split("Function properties for ", 1)[1].strip()
+        elif "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if "'" in ln else fn
+        if fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.strip())
+    return out
+
+
 def phase_build(rec: dict, state: dict) -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -312,7 +308,19 @@ def phase_build(rec: dict, state: dict) -> None:
                                              "ptxas": regs}
         for ln in regs:
             log(f"  ptxas {name}: {ln}")
-    log(f"build: {len(report)} kernels in {secs:.1f} s (parallel nvcc)")
+    # the bf16 conv kernel's accumulators live in registers: a spill fails
+    # the build; whether ptxas serialised its wgmma (C7520) is logged
+    conv = ptxas_by_function(report["kraken_conv"]["log"])
+    wgmma = {fn: lines for fn, lines in conv.items()
+             if "kraken_conv_kernel" in fn}
+    if len(wgmma) != 4 or any(" 0 bytes spill stores" not in " ".join(v)
+                              for v in wgmma.values()):
+        raise AssertionError(f"kraken_conv_kernel variants: {wgmma}")
+    serial = "C7520" in report["kraken_conv"]["log"]
+    rec["build"]["kraken_conv"]["wgmma_serialised"] = serial
+    log(f"build: {len(report)} kernels in {secs:.1f} s (parallel nvcc); "
+        f"kraken_conv_kernel's 4 variants (bf16 in) spill nothing; wgmma "
+        f"{'SERIALISED by ptxas (C7520)' if serial else 'not serialised'}")
     rec["card"] = card_line()
     log(f"card: {rec['card']}")
 
@@ -875,6 +883,10 @@ def device_trace(run, label: str) -> dict:
     def group(key):
         if "kraken_conv_kernel" in key:
             return "kraken_conv2d_direct"
+        if "kraken_conv_weights" in key:
+            return "kraken_conv2d_direct: the weights' K-major copy"
+        if "kraken_conv_reduce" in key:
+            return "kraken_conv2d_direct: the split's fixed-order sum"
         if "grouped_moe_gemm_kernel" in key:
             return "grouped_moe_gemm"
         if "gemm_kernel" in key:
@@ -1852,20 +1864,13 @@ def phase_swa_forward(rec: dict, state: dict) -> None:
 # of AlexNet, VGG-16 and ResNet-50
 # ---------------------------------------------------------------------------
 
-def conv_geometries() -> list[tuple]:
-    """Every distinct per-group conv geometry of the three networks, in
-    network order: (net, layer, H, W, C_i / groups, K, S, padding,
-    C_o / groups)."""
-    from repro_torch.core.networks import get_network
-    seen, out = set(), []
-    for net in CONV_NETS:
-        for sp in get_network(net)["conv"]:
-            geo = (sp.H, sp.W, sp.c_i_per_group, sp.K_H, sp.S_H,
-                   (sp.pad_h, sp.pad_w), sp.c_o_per_group)
-            if (net, geo) not in seen:
-                seen.add((net, geo))
-                out.append((net, sp.name) + geo)
-    return out
+class ConvMismatch(AssertionError):
+    """A conv output outside ``CONV_TOL``; ``need`` is the least atol that
+    would pass at the rtol (inf for a wrong shape or a non-finite value)."""
+
+    def __init__(self, msg: str, need: float):
+        super().__init__(msg)
+        self.need = need
 
 
 def conv_check(label: str, got, want, dt: str) -> tuple[float, float]:
@@ -1874,45 +1879,73 @@ def conv_check(label: str, got, want, dt: str) -> tuple[float, float]:
     import torch
     atol, rtol = CONV_TOL[dt]
     if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"{label}: got {tuple(got.shape)} {got.dtype}, "
-                             f"want {tuple(want.shape)} {want.dtype}")
+        raise ConvMismatch(f"{label}: got {tuple(got.shape)} {got.dtype}, "
+                           f"want {tuple(want.shape)} {want.dtype}",
+                           math.inf)
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
-        raise AssertionError(f"{label}: non-finite output")
+        raise ConvMismatch(f"{label}: non-finite output", math.inf)
     diff = (g - w).abs()
     need = float((diff - rtol * w.abs()).clamp(min=0).max().item())
     err = float(diff.max().item())
     if need > atol:
-        raise AssertionError(f"{label}: max |err| {err:.3e}, needs atol "
-                             f"{need:.3e} > {atol} (rtol {rtol})")
+        raise ConvMismatch(f"{label}: max |err| {err:.3e}, needs atol "
+                           f"{need:.3e} > {atol} (rtol {rtol})", need)
     return err, need
 
 
 def conv_case(torch, kc, ref, *, name, n, h, w, ci, k, s, padding, co, R,
-              dtype, out_dtype=None, timed, seed, iters=(20, 5, 20)):
+              dtype, out_dtype=None, timed, seed, iters=(20, 5, 20),
+              inf=False):
     """One ``kraken_conv2d_direct`` call against ``ref.conv2d``; when
     ``timed``, the kernel's, the plain version's and one cuDNN
     ``F.conv2d``'s time (channels_last, TF32 off) beside the bound, whose
-    operations count only the taps inside the input (no padding zeros)."""
+    operations count only the taps inside the input (no padding zeros).
+    With ``inf``, x[0, h // 2, w // 2, 0] is Inf: the outputs the plain
+    version leaves finite must be finite and within tolerance, the others
+    not finite."""
     import torch.nn.functional as F
     from repro_torch.core.networks import LayerSpec
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((n, h, w, ci), generator=g, device="cuda").to(dtype)
+    if inf:
+        x[0, h // 2, w // 2, 0] = math.inf
     wt = (torch.randn((k, k, ci, co), generator=g, device="cuda")
           / math.sqrt(ci * k * k)).to(dtype)
     kw = dict(stride=(s, s), padding=padding, out_dtype=out_dtype)
     got = kc.kraken_conv2d_direct(x, wt, R=R, **kw)
+    again = kc.kraken_conv2d_direct(x, wt, R=R, **kw)
     want = ref.conv2d(x, wt, **kw)
     torch.cuda.synchronize()
     dt = str(dtype).split(".")[-1]
     odt = str(got.dtype).split(".")[-1]
     label = f"kraken_conv2d_direct {name} N={n} {dt}"
+    if inf:
+        fin = torch.isfinite(want)
+        if fin.all() or not torch.equal(torch.isfinite(got), fin):
+            raise ConvMismatch(
+                f"{label}: {int((~torch.isfinite(got)).sum())} outputs not "
+                f"finite, the plain version {int((~fin).sum())}", math.inf)
+        got, again, want = got[fin], again[fin], want[fin]
     err, need = conv_check(label, got, want, odt)
-    _, oh, ow, _ = got.shape
+    if not torch.equal(got, again):     # the split's sum has a fixed order
+        raise AssertionError(f"{label}: two runs of one call differ")
+    (pt, pb), (pl, pr) = padding
+    oh, ow = (h + pt + pb - k) // s + 1, (w + pl + pr - k) // s + 1
+    q = kc.plan(x.shape, wt.shape, R=R, dtype=dtype, sms=torch.cuda.
+                get_device_properties(0).multi_processor_count, **kw)
+    plan = ({"kernel": "fma", "ck": q["ck"], "khs": q["khs"],
+             "smem": q["smem"], "blocks": (-(-co // 64)) * n * q["L"]
+             * (-(-ow // 16))} if q["path"] == 0 else
+            {"kernel": "wgmma", "tile": f"{q['G']}x{q['TR']}x{q['TC']}",
+             "BN": q["BN"], "packed": q["packed"],
+             "band": ("tma", "ld2")[q["band_mode"]],
+             "stages": f"{q['NB']}+{q['NW']}", "split": q["split"],
+             "smem": q["smem"], "tiles": q["tiles"], "blocks": q["grid"]})
     row = {"name": name, "n": n, "h": h, "w": w, "c_i": ci, "k": k, "s": s,
            "padding": padding, "c_o": co, "R": R, "dtype": dt,
            "out_dtype": odt, "max_abs_err": err, "atol_needed": need,
-           "ms": None, "plain_ms": None, "library_ms": None,
+           "plan": plan, "ms": None, "plain_ms": None, "library_ms": None,
            "bound_ms": None, "bound_by": None}
     del got, want
     if not timed:
@@ -1920,7 +1953,6 @@ def conv_case(torch, kc, ref, *, name, n, h, w, ci, k, s, padding, co, R,
     row["ms"] = time_ms(lambda: kc.kraken_conv2d_direct(x, wt, R=R, **kw),
                         iters[0])
     row["plain_ms"] = time_ms(lambda: ref.conv2d(x, wt, **kw), iters[1])
-    (pt, pb), (pl, pr) = padding
     if (pt, pl) != (pb, pr):
         raise ValueError(f"{name}: F.conv2d pads symmetrically only")
     xl = x.permute(0, 3, 1, 2)        # NCHW view of NHWC memory
@@ -1936,51 +1968,84 @@ def conv_case(torch, kc, ref, *, name, n, h, w, ci, k, s, padding, co, R,
     row["ops_ms"] = 2.0 * macs / peak * 1e3
     row["bytes_ms"] = nbytes / PEAK_BYTES * 1e3
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * macs, peak)
+    row["tflops"] = 2.0 * macs / row["ms"] * 1e-9        # in-bounds taps
+    row["x_cudnn"] = row["ms"] / row["library_ms"]
     return row
 
 
 def phase_conv_kernels(rec: dict, state: dict) -> None:
     import torch
+    from repro_torch.core.conv_cases import (CONV_BATCHES, CONV_EDGE,
+                                             CONV_NONFINITE, CONV_R,
+                                             conv_geometries)
     from repro_torch.kernels import kraken_conv as kc
     from repro_torch.kernels import ref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = []
+    rows, failed = [], []
+
+    def case(**kw):
+        """One case; a mismatch is kept, so that every case is checked
+        before the phase fails."""
+        try:
+            return conv_case(torch, kc, ref, seed=len(rows) + len(failed),
+                             **kw)
+        except ConvMismatch as e:
+            failed.append(e)
+            log(f"  FAIL {e}")
+            return None
+
     for net, layer, h, w, ci, k, s, padding, co in conv_geometries():
         for n, dtype in ((1, torch.bfloat16), (1, torch.float32),
                          (CONV_BATCHES[-1], torch.bfloat16)):
-            r = conv_case(torch, kc, ref, name=f"{net} {layer}", n=n, h=h,
-                          w=w, ci=ci, k=k, s=s, padding=padding, co=co,
-                          R=CONV_R, dtype=dtype, timed=True, seed=len(rows),
-                          iters=(20, 5, 20) if n == 1 else (5, 2, 5))
+            r = case(name=f"{net} {layer}", n=n, h=h, w=w, ci=ci, k=k, s=s,
+                     padding=padding, co=co, R=CONV_R, dtype=dtype,
+                     timed=True,
+                     iters=(20, 5, 20) if n == 1 else (5, 2, 5))
+            if r is None:
+                continue
             r["net"] = net
             rows.append(r)
             log(f"  conv {net:8s} {layer:18s} N={n:<2d} {r['dtype']:8s} "
                 f"err={r['max_abs_err']:.2e} atol_needed="
                 f"{r['atol_needed']:.2e} ms={r['ms']:.4f} "
                 f"plain={r['plain_ms']:.4f} cudnn={r['library_ms']:.4f} "
-                f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
+                f"bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"TFLOP/s={r['tflops']:.1f} x_cudnn={r['x_cudnn']:.2f} "
+                f"plan={json.dumps(r['plan'])}")
             torch.cuda.empty_cache()
-    for (name, n, h, w, ci, k, s, padding, co, R, odt) in CONV_EDGE:
+    edge = ([c + (False,) for c in CONV_EDGE]
+            + [c + (None, True) for c in CONV_NONFINITE])
+    for (name, n, h, w, ci, k, s, padding, co, R, odt, inf) in edge:
         for dtype in (torch.bfloat16, torch.float32):
             if odt and dtype == torch.float32:
                 continue
-            r = conv_case(torch, kc, ref, name=name, n=n, h=h, w=w, ci=ci, k=k,
-                          s=s, padding=padding, co=co, R=R, dtype=dtype,
-                          out_dtype=getattr(torch, odt) if odt else None,
-                          timed=False, seed=len(rows))
+            r = case(name=name, n=n, h=h, w=w, ci=ci, k=k, s=s,
+                     padding=padding, co=co, R=R, dtype=dtype,
+                     out_dtype=getattr(torch, odt) if odt else None,
+                     timed=False, inf=inf)
+            if r is None:
+                continue
             r["net"] = None
             rows.append(r)
             log(f"  conv edge {name:32s} {r['dtype']:8s}->{r['out_dtype']:8s} "
                 f"err={r['max_abs_err']:.2e} atol_needed="
-                f"{r['atol_needed']:.2e}")
+                f"{r['atol_needed']:.2e} plan={json.dumps(r['plan'])}")
     rec["conv_kernels"] = rows
+    if failed:
+        worst = max(failed, key=lambda e: e.need)
+        raise AssertionError(
+            f"conv_kernels: {len(failed)} of {len(rows) + len(failed)} "
+            f"cases outside CONV_TOL; largest atol needed {worst.need:.3e} "
+            f"({worst}); first: {failed[0]}")
     need = {dt: max(r["atol_needed"] for r in rows if r["out_dtype"] == dt)
             for dt in ("bfloat16", "float32")}
+    splits = sum(r["plan"].get("split", 1) > 1 for r in rows)
     log(f"conv_kernels: kraken_conv2d_direct matches plain in {len(rows)} "
         f"cases ({len(conv_geometries())} network geometries x (N 1 bf16, "
         f"N 1 f32, N 32 bf16) + {len(rows) - 3 * len(conv_geometries())} "
-        f"edge cases); largest atol needed bf16 {need['bfloat16']:.2e} of "
+        f"edge cases), each bit-identical over two runs ({splits} split "
+        f"C_i); largest atol needed bf16 {need['bfloat16']:.2e} of "
         f"{CONV_TOL['bfloat16'][0]}, f32 {need['float32']:.2e} of "
         f"{CONV_TOL['float32'][0]}")
 
@@ -2041,12 +2106,19 @@ def conv_trace(torch, layers: list[dict], direct, batch: int) -> dict:
         torch.cuda.synchronize()
     out = device_trace(run, f"vgg16 b{batch}, {frames} frames, direct")
     out["frames"] = frames
-    out["traced_launches"] = sum(t["count"] for t in out["top"]
-                                 if "kraken_conv_kernel" in t["name"])
+    def traced(kernel):
+        return sum(t["count"] for t in out["top"] if kernel in t["name"])
+
+    out["traced_launches"] = traced("kraken_conv_kernel")
+    out["traced_weight_copies"] = traced("kraken_conv_weights")
+    out["traced_split_sums"] = traced("kraken_conv_reduce")
     out["expected_launches"] = frames * CONV_FRAME_LAUNCHES["vgg16"]
     log(f"    traced {out['traced_launches']} of "
-        f"{out['expected_launches']} kraken_conv2d_direct launches; per "
-        f"frame: wall {out['wall_s'] / frames * 1e3:.4f} ms, device "
+        f"{out['expected_launches']} kraken_conv2d_direct launches "
+        f"(kraken_conv_kernel), {out['traced_weight_copies']} "
+        f"kraken_conv_weights, {out['traced_split_sums']} "
+        f"kraken_conv_reduce; per frame: wall "
+        f"{out['wall_s'] / frames * 1e3:.4f} ms, device "
         f"{out['device_s'] / frames * 1e3:.4f} ms")
     if out["traced_launches"] != out["expected_launches"]:
         raise AssertionError(
@@ -2061,6 +2133,7 @@ def phase_conv_nets(rec: dict, state: dict) -> None:
     kernel, the im2col route and cuDNN, at batch 1 and 32, bf16."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.conv_cases import CONV_BATCHES, CONV_NETS, CONV_R
     from repro_torch.core.networks import get_network, total_macs, total_words
     from repro_torch.kernels import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2138,6 +2211,8 @@ def phase_conv_nets(rec: dict, state: dict) -> None:
                  "batch_ms": batch_ms,
                  "frame_ms": {k: v / batch for k, v in batch_ms.items()},
                  "fps": {k: 1e3 * batch / v for k, v in batch_ms.items()},
+                 "direct_x_cudnn": batch_ms["direct"] / batch_ms["cudnn"],
+                 "direct_x_im2col": batch_ms["direct"] / batch_ms["im2col"],
                  "bound_frame_ms": bnd / batch,
                  "max_memory_allocated_gb": peak / 1e9}
             if net == "vgg16":
@@ -2149,8 +2224,10 @@ def phase_conv_nets(rec: dict, state: dict) -> None:
                 f"cudnn {fps['cudnn']:.1f}, plain {fps['plain']:.1f}; frame "
                 f"ms direct {r['frame_ms']['direct']:.4f} bound "
                 f"{r['bound_frame_ms']:.4f} ({by}); launches/frame "
-                f"{per_frame}; err direct {errs['direct']:.2e} im2col "
-                f"{errs['im2col']:.2e}; peak {peak / 1e9:.2f} GB")
+                f"{per_frame}; direct / cudnn {r['direct_x_cudnn']:.2f}, "
+                f"direct / im2col {r['direct_x_im2col']:.2f}; err direct "
+                f"{errs['direct']:.2e} im2col {errs['im2col']:.2e}; peak "
+                f"{peak / 1e9:.2f} GB")
             del layers
     rec["conv_nets"] = res
     log("conv_nets: every conv layer of " + ", ".join(CONV_NETS) + " at "
@@ -2165,6 +2242,7 @@ def conv_entry(rec: dict, by_path) -> dict:
     """The kernels line's ``kraken_conv2d_direct`` entry: one VGG-16 frame
     at batch 1 in bf16 as ``conv_nets`` timed it (its 13 layers back to
     back); the times are null when that phase did not run."""
+    from repro_torch.core.conv_cases import CONV_R
     vgg = rec.get("conv_nets", {}).get("vgg16 b1", {})
     frame = vgg.get("frame_ms", {})
     return {"name": "kraken_conv2d_direct", "route": "cuda",

@@ -51,8 +51,8 @@ def kraken_conv2d_direct(x: torch.Tensor, k: torch.Tensor, *,
     """Direct Kraken-dataflow convolution: x [N, H, W, C_i] NHWC, k
     [K_H, K_W, C_i, C_o] HWIO -> NHWC, fp32 accumulation, cast once to
     ``out_dtype`` (default x's dtype).  ``R`` is the paper's row count, the
-    output rows per block on the card; ``bco`` must be None (the card's
-    c_o tile is the kernel's own)."""
+    output rows of one band (a tile on the card holds whole bands);
+    ``bco`` must be None (the card's c_o tile is the kernel's plan's)."""
     if _on_cuda(x):
         return _conv.kraken_conv2d_direct(x, k, stride=stride,
                                           padding=padding, R=R, bco=bco,

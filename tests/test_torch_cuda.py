@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.conv_cases import CONV_NONFINITE  # noqa: E402
+
 POS_EMPTY = -(2 ** 30)
 
 
@@ -105,9 +107,17 @@ CONV_CASES = [
     ("(H + pads - K) % S != 0", 2, 30, 28, 16, 3, 2, ((1, 1), (1, 1)), 40, 7),
     ("N 3, odd OH", 3, 13, 13, 32, 3, 1, ((1, 1), (1, 1)), 64, 7),
     ("C_i 100 ragged chunk", 1, 14, 14, 100, 3, 1, ((1, 1), (1, 1)), 72, 7),
+    ("C_i 35 odd, 2-byte band fill", 2, 12, 12, 35, 3, 1, ((1, 1), (1, 1)),
+     40, 7),
     ("asymmetric padding K5 S3", 2, 20, 17, 24, 5, 3, ((1, 2), (0, 1)), 48,
      3),
     ("R 16", 1, 64, 64, 3, 7, 2, ((3, 3), (3, 3)), 64, 16),
+    ("split over C_i at b1, VGG-16 conv5_1", 1, 14, 14, 512, 3, 1,
+     ((1, 1), (1, 1)), 512, 7),
+    ("7x7 maps, N 3", 3, 7, 7, 512, 3, 1, ((1, 1), (1, 1)), 512, 7),
+    ("C_i 3 packed, K 11 S 4, padded", 1, 99, 99, 3, 11, 4, ((2, 2), (2, 2)),
+     72, 7),
+    ("C_i 3 packed, K 3 S 1", 2, 30, 30, 3, 3, 1, ((1, 1), (1, 1)), 64, 7),
 ]
 
 
@@ -351,6 +361,35 @@ def test_kraken_conv_kernel_matches_plain(case, dtype):
     err = (got.float() - want.float()).abs()
     assert torch.isfinite(got.float()).all()
     assert (err <= atol + rtol * want.float().abs()).all(), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV_NONFINITE,
+                         ids=[c[0] for c in CONV_NONFINITE])
+def test_kraken_conv_inf_stays_in_its_window(case, dtype):
+    """chip_smoke.py's Inf cases: an Inf at x[0, H // 2, W // 2, 0] makes
+    exactly the outputs whose window holds it non-finite, as in
+    ``ref.conv2d``; the others stay within ``CONV_TOL``
+    (packed, the kernel's lanes also load the next pixels' elements under
+    zero weights)."""
+    from repro_torch.kernels import ops, ref
+    dev = _cuda()
+    _, n, h, w, ci, k, s, padding, co, R = case
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((n, h, w, ci), generator=g, device=dev).to(dtype)
+    x[0, h // 2, w // 2, 0] = float("inf")
+    wt = (torch.randn((k, k, ci, co), generator=g, device=dev)
+          / (ci * k * k) ** 0.5).to(dtype)
+    kw = dict(stride=(s, s), padding=padding)
+    got = ops.kraken_conv2d_direct(x, wt, R=R, **kw).float()
+    want = ref.conv2d(x, wt, **kw).float()
+    fin = torch.isfinite(want)
+    assert not fin.all()
+    assert torch.equal(torch.isfinite(got), fin)
+    atol, rtol = CONV_TOL[dtype]
+    err = (got[fin] - want[fin]).abs()
+    assert (err <= atol + rtol * want[fin].abs()).all(), err.max().item()
 
 
 @pytest.mark.cuda
