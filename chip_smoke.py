@@ -13,7 +13,13 @@ default ``build/chip_smoke/``):
 2. ``kernels``  -- hold ``kraken_gemm`` and ``paged_decode_attention``
    against their plain PyTorch versions on the card at the yi-6b main-path
    shapes, in bfloat16 and float32, and time them (CUDA events) beside the
-   plain version, one library call and the bound.
+   plain version, one library call and the bound; ``kraken_gemm`` also at
+   the edge cases of ``repro_torch/core/gemm_cases.py`` (M 1, a split at
+   decode, M 65, K 27 and 363 and N 123, which TMA refuses, a ragged K) and
+   every epilogue at ragged shapes.  Each GEMM runs twice and must give the
+   same bits; its plan, TFLOP/s, GB/s and ratios to ``torch.matmul`` and
+   the bound are logged, and every case is checked before a miss fails the
+   phase with the largest atol it needs.
 3. ``moe_kernels`` -- the same for ``grouped_moe_gemm`` at the mixtral and
    llama4 expert shapes, decode and mixed-step capacities, bfloat16, float32
    and int8 (exact), with skewed, empty, past-capacity and all-empty sizes;
@@ -126,22 +132,14 @@ SLOTS, CHUNK, PAGE, MAX_LEN = 4, 64, 16, 512
 # the serve workload: 8 prompts of 17..300 tokens, 16 new tokens each
 SERVE_LENS = [round(17 + i * (300 - 17) / 7) for i in range(8)]
 SERVE_NEW = 16
-# (name, K, N, activation, calls per decode step)
-GEMMS = [("wq|wo", 4096, 4096, None, 2 * LAYERS),
-         ("wk|wv", 4096, 512, None, 2 * LAYERS),
-         ("gate", 4096, 11008, "silu", LAYERS),
-         ("up", 4096, 11008, None, LAYERS),
-         ("down", 11008, 4096, None, LAYERS),
-         ("unembed", 4096, 64000, None, 1)]
+# kraken_gemm's shapes (yi-6b's GEMMS, mixtral's MIXTRAL_GEMMS, gemma3's
+# GEMMA_GEMMS and the edge cases) are repro_torch.core.gemm_cases's: the CPU
+# tests plan the same cases.
 # mixtral-8x22b served at full width and MOE_LAYERS of its 56 layers; the
 # grouped GEMM cases: (name, E, C, d, f, sizes, uses per MoE layer at decode)
 MOE_LAYERS = 8
-# the mixtral path's other kernels at its shapes: (name, K, N, calls per
-# decode step) for kraken_gemm, and 48/8 heads of 128 under the 4096 window
-# for paged_decode_attention
-MIXTRAL_GEMMS = [("wq|wo", 6144, 6144, 2 * MOE_LAYERS),
-                 ("wk|wv", 6144, 1024, 2 * MOE_LAYERS),
-                 ("unembed", 6144, 32768, 1)]
+# paged_decode_attention at the mixtral path's 48/8 heads of 128 under the
+# 4096 window
 MIXTRAL_HEADS, MIXTRAL_KV_HEADS, MIXTRAL_WINDOW = 48, 8, 4096
 MOE_CASES = [
     # 4 decode tokens top-2 at capacity 1: 6 of 8 experts live
@@ -183,15 +181,6 @@ SWA_ROW_KEYS = 25
 # 1024) + 1 global; 16/8 heads of 240; the forward's sequence length
 SWA_SEQ = 4096
 GEMMA_LAYERS, GEMMA_LOCAL, GEMMA_PERIOD = 48, 40, 6
-# the gemma3 forward's kraken_gemm shapes at M = SWA_SEQ: (name, K, N,
-# activation, calls per forward); 48 x (q, k, v, o, gate, up, down) + the
-# tied unembed = 337
-GEMMA_GEMMS = [("wq|wo", 3840, 3840, None, 2 * GEMMA_LAYERS),
-               ("wk|wv", 3840, 1920, None, 2 * GEMMA_LAYERS),
-               ("gate", 3840, 15360, "silu", GEMMA_LAYERS),
-               ("up", 3840, 15360, None, GEMMA_LAYERS),
-               ("down", 15360, 3840, None, GEMMA_LAYERS),
-               ("unembed", 3840, 262144, None, 1)]
 # the float32 one-period forward, kernel against plain: both run the same
 # float32 kraken_gemm, so only the attention's sum order differs (~1e-6)
 F32_E2E_TOL = 1e-4
@@ -246,6 +235,34 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int, replays: int = 5) -> float:
+    """Mean device time of one call of ``fn``: ``calls`` consecutive calls
+    captured in one CUDA graph and replayed ``replays`` times (CUDA events),
+    so the host's cost of a call is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
 
 
 def rotating(make, nbytes: int, budget: int = 160 << 20, most: int = 32):
@@ -318,9 +335,29 @@ def phase_build(rec: dict, state: dict) -> None:
         raise AssertionError(f"kraken_conv_kernel variants: {wgmma}")
     serial = "C7520" in report["kraken_conv"]["log"]
     rec["build"]["kraken_conv"]["wgmma_serialised"] = serial
+    # kraken_gemm's six bf16 variants: no spill, no serialised wgmma; the
+    # two-consumer (BM 128) ones hand registers over with setmaxnreg, which
+    # needs the kernel at its launch-bound count, 168 a thread at 384
+    gemm = {fn: lines for fn, lines in
+            ptxas_by_function(report["kraken_gemm"]["log"]).items()
+            if "kraken_gemm_wgmma" in fn}
+    if len(gemm) != 6 or any(" 0 bytes spill stores" not in " ".join(v)
+                             for v in gemm.values()):
+        raise AssertionError(f"kraken_gemm_wgmma variants: {gemm}")
+    for fn, lines in gemm.items():
+        if "ILi128E" in fn and "Used 168 registers" not in " ".join(lines):
+            raise AssertionError(f"{fn}: setmaxnreg needs 168 registers at "
+                                 f"entry: {lines}")
+    gemm_serial = [ln for ln in report["kraken_gemm"]["log"].splitlines()
+                   if "C7520" in ln]
+    if gemm_serial:
+        raise AssertionError(f"ptxas serialised kraken_gemm's wgmma: "
+                             f"{gemm_serial}")
     log(f"build: {len(report)} kernels in {secs:.1f} s (parallel nvcc); "
         f"kraken_conv_kernel's 4 variants (bf16 in) spill nothing; wgmma "
-        f"{'SERIALISED by ptxas (C7520)' if serial else 'not serialised'}")
+        f"{'SERIALISED by ptxas (C7520)' if serial else 'not serialised'}; "
+        "kraken_gemm_wgmma's 6 variants spill nothing, wgmma not "
+        "serialised")
     rec["card"] = card_line()
     log(f"card: {rec['card']}")
 
@@ -331,9 +368,11 @@ def phase_build(rec: dict, state: dict) -> None:
 
 def gemm_case(torch, kg, ref, m, k, n, act, dtype, *, bias=False,
               timed=True, seed=0, iters=(20, 5, 20)):
-    """One ``kraken_gemm`` against ``ref.matmul``; when ``timed``, the
+    """One ``kraken_gemm`` against ``ref.matmul`` under ``GEMM_TOL``, run
+    twice (the two outputs must have the same bits); when ``timed``, the
     kernel's, the plain version's and ``torch.matmul``'s time over
-    ``iters`` calls each."""
+    ``iters`` calls each.  A miss does not raise: the row says ``ok``
+    False and the least atol it needs (``check_gemm_rows`` raises)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     isz = torch.tensor([], dtype=dtype).element_size()
     a = torch.randn((m, k), generator=g, device="cuda").to(dtype)
@@ -346,13 +385,25 @@ def gemm_case(torch, kg, ref, m, k, n, act, dtype, *, bias=False,
     bv = (torch.randn((n,), generator=g, device="cuda").to(dtype)
           if bias else None)
     got = kg.kraken_gemm(a, bs[0], bias=bv, activation=act)
+    again = kg.kraken_gemm(a, bs[0], bias=bv, activation=act)
     want = ref.matmul(a, bs[0], bias=bv, activation=act)
     torch.cuda.synchronize()
-    atol, rtol = GEMM_TOL[str(dtype).split(".")[-1]]
-    err = assert_close(f"gemm {m}x{k}x{n} {act} {dtype}", got, want,
-                       atol, rtol)
-    row = {"m": m, "k": k, "n": n, "act": act, "bias": bias,
-           "dtype": str(dtype).split(".")[-1], "max_abs_err": err}
+    dt = str(dtype).split(".")[-1]
+    atol, rtol = GEMM_TOL[dt]
+    err = (got.float() - want.float()).abs()
+    finite = bool(torch.isfinite(got.float()).all())
+    need = (float((err - rtol * want.float().abs()).max().clamp_min(0))
+            if finite else math.inf)
+    same = torch.equal(got.view(torch.int16) if isz == 2 else got,
+                       again.view(torch.int16) if isz == 2 else again)
+    q = kg.plan(m, k, n, dtype=dtype, a_align=kg.alignment(a),
+                b_align=kg.alignment(bs[0]))
+    row = {"m": m, "k": k, "n": n, "act": act, "bias": bias, "dtype": dt,
+           "max_abs_err": float(err.max()) if finite else math.inf,
+           "atol_needed": need, "same_bits": same,
+           "ok": finite and need <= atol and same, "plan": q,
+           "plan_text": kg.describe(q)}
+    del got, again, want, err
     if timed:
         it = [0]
 
@@ -367,11 +418,52 @@ def gemm_case(torch, kg, ref, m, k, n, act, dtype, *, bias=False,
             a, b, bias=bv, activation=act)), iters[1])
         row["library_ms"] = time_ms(cycle(lambda b: torch.matmul(a, b)),
                                     iters[2])
+        # device time alone, each of the rotating weights once per replay
+        row["device_ms"] = graph_ms(cycle(lambda b: kg.kraken_gemm(
+            a, b, bias=bv, activation=act)), len(bs))
+        row["device_library_ms"] = graph_ms(
+            cycle(lambda b: torch.matmul(a, b)), len(bs))
         nbytes = (m * k + k * n + m * n) * isz + (n * isz if bias else 0)
+        flops = 2.0 * m * n * k
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * n * k,
-                                                    peak)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, peak)
+        row["tflop_s"] = flops / row["ms"] / 1e9
+        row["gb_s"] = nbytes / row["ms"] / 1e6
+        row["x_matmul"] = row["ms"] / row["library_ms"]
+        row["x_bound"] = row["ms"] / row["bound_ms"]
     return row
+
+
+def gemm_line(label: str, r: dict) -> str:
+    """One log line of a ``gemm_case`` row: error, plan and, when timed,
+    time beside the plain version, torch.matmul and the bound."""
+    out = (f"  {label} M={r['m']:<5d} K={r['k']:<5d} N={r['n']:<6d} "
+           f"{r['dtype']:8s} err={r['max_abs_err']:.2e} "
+           f"atol_needed={r['atol_needed']:.2e}"
+           f"{'' if r['same_bits'] else ' BITS DIFFER'} [{r['plan_text']}]")
+    if "ms" in r:
+        out += (f" ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+                f"matmul={r['library_ms']:.4f} bound={r['bound_ms']:.4f} "
+                f"{r['tflop_s']:.1f} TFLOP/s {r['gb_s']:.0f} GB/s "
+                f"x_matmul={r['x_matmul']:.2f} x_bound={r['x_bound']:.2f}; "
+                f"device (graph) {r['device_ms']:.4f} matmul "
+                f"{r['device_library_ms']:.4f}")
+    return out
+
+
+def check_gemm_rows(label: str, rows: list) -> None:
+    """Raise, after every case has run, if any ``gemm_case`` row missed
+    ``GEMM_TOL`` or gave other bits on its second run."""
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        need = max(r["atol_needed"] for r in bad)
+        raise AssertionError(
+            f"{label}: kraken_gemm fails {len(bad)} of {len(rows)} cases "
+            f"(largest atol needed {need:.3e}): "
+            + "; ".join(f"{r['m']}x{r['k']}x{r['n']} {r['dtype']} "
+                        f"{r['act']} bias={r['bias']} need "
+                        f"{r['atol_needed']:.2e} same_bits={r['same_bits']}"
+                        for r in bad[:12]))
 
 
 def build_pool(torch, *, b, kvh, d, ps, mp, q_pos, dead, dtype, seed):
@@ -474,6 +566,7 @@ def attn_case(torch, pa, ref, *, dtype, window, seed=0, heads=HEADS,
 
 def phase_kernels(rec: dict, state: dict) -> None:
     import torch
+    from repro_torch.core.gemm_cases import GEMM_EDGE, GEMMS, RAGGED
     from repro_torch.kernels import kraken_gemm as kg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -486,13 +579,31 @@ def phase_kernels(rec: dict, state: dict) -> None:
                 r = gemm_case(torch, kg, ref, m, k, n, act, dtype)
                 r["name"] = name
                 rows.append(r)
-                log(f"  gemm {name:8s} M={m:<4d} K={k:<5d} N={n:<5d} "
-                    f"{r['dtype']:8s} err={r['max_abs_err']:.2e} "
-                    f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-                    f"lib={r['library_ms']:.4f} bound={r['bound_ms']:.4f}")
-    # every epilogue, with and without bias, at ragged shapes: one that
-    # takes the scalar (masked) loads and one that takes the 16-byte loads
-    for (m, k, n) in ((37, 200, 123), (5, 136, 72)):
+                log(gemm_line(f"gemm {name:8s}", r))
+    for m in (SLOTS, SLOTS * CHUNK):
+        step = {key: sum(r[key] * c for r, (_, _, _, _, c) in zip(
+            [r for r in rows if r["m"] == m and r["dtype"] == "bfloat16"],
+            GEMMS)) for key in ("ms", "library_ms", "bound_ms", "device_ms",
+                                "device_library_ms")}
+        rec.setdefault("gemm_steps", {})[str(m)] = step
+        log(f"kernels: yi-6b {'decode' if m == SLOTS else 'mixed'} step "
+            f"(M {m}) bf16 kraken_gemm {step['ms']:.2f} ms, torch.matmul "
+            f"{step['library_ms']:.2f}, bound {step['bound_ms']:.2f} "
+            f"(x_matmul {step['ms'] / step['library_ms']:.2f}, x_bound "
+            f"{step['ms'] / step['bound_ms']:.2f}); device (graph) "
+            f"{step['device_ms']:.2f} ms, torch.matmul "
+            f"{step['device_library_ms']:.2f}")
+    # the plan's corners (one row, a split at decode, a second row tile, A
+    # and B that TMA refuses, a ragged K) and every epilogue, with and
+    # without bias, at ragged shapes
+    for name, m, k, n, act, bias in GEMM_EDGE:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = gemm_case(torch, kg, ref, m, k, n, act, dtype, bias=bias,
+                          timed=False, seed=len(rows))
+            r["name"] = name
+            rows.append(r)
+            log(gemm_line(f"edge {name[:30]:30s}", r))
+    for (m, k, n) in RAGGED:
         for act in (None, "relu", "silu", "gelu"):
             for bias in (False, True):
                 for dtype in (torch.bfloat16, torch.float32):
@@ -500,9 +611,14 @@ def phase_kernels(rec: dict, state: dict) -> None:
                                   bias=bias, timed=False, seed=3)
                     r["name"] = "ragged"
                     rows.append(r)
-    log(f"kernels: kraken_gemm matches plain in {len(rows)} cases, max err "
-        f"bf16 {max(r['max_abs_err'] for r in rows if r['dtype'] == 'bfloat16'):.2e} "
-        f"f32 {max(r['max_abs_err'] for r in rows if r['dtype'] == 'float32'):.2e}")
+    rec["gemm"] = rows
+    check_gemm_rows("kernels", rows)
+    log(f"kernels: kraken_gemm matches plain in {len(rows)} cases, each "
+        f"bit-identical over two runs ({sum(r['plan']['split'] > 1 for r in rows)} "
+        f"split over K, {sum(r['plan']['fill_a'] or r['plan']['fill_b'] for r in rows)} "
+        "with an operand TMA refuses), largest atol needed bf16 "
+        f"{max(r['atol_needed'] for r in rows if r['dtype'] == 'bfloat16'):.2e} "
+        f"f32 {max(r['atol_needed'] for r in rows if r['dtype'] == 'float32'):.2e}")
     arows = []
     for dtype in (torch.bfloat16, torch.float32, torch.int8):
         for window in (0, 64):
@@ -513,7 +629,6 @@ def phase_kernels(rec: dict, state: dict) -> None:
                 f"plain={r['plain_ms']:.4f} bound={r['bound_ms']:.5f}")
     log(f"kernels: paged_decode_attention matches plain in {len(arows)} "
         "cases (live, dead, sentinel, ring-wrap, window, all-dead slot)")
-    rec["gemm"] = rows
     rec["attention"] = arows
 
 
@@ -626,16 +741,15 @@ def phase_moe_kernels(rec: dict, state: dict) -> None:
     # the mixtral path's kraken_gemm and paged_decode_attention shapes
     from repro_torch.kernels import kraken_gemm as kg
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.core.gemm_cases import MIXTRAL_GEMMS
     path = []
     for m in (SLOTS, SLOTS * CHUNK):
         for name, k, n, _ in MIXTRAL_GEMMS:
             r = gemm_case(torch, kg, ref, m, k, n, None, torch.bfloat16)
             r["name"] = name
             path.append(r)
-            log(f"  mixtral gemm {name:8s} M={m:<4d} K={k:<5d} N={n:<5d} "
-                f"err={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
-                f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
-                f"bound={r['bound_ms']:.4f}")
+            log(gemm_line(f"mixtral gemm {name:8s}", r))
+    check_gemm_rows("moe_kernels", path)
     att = attn_case(torch, pa, ref, dtype=torch.bfloat16,
                     window=MIXTRAL_WINDOW, heads=MIXTRAL_HEADS,
                     kv_heads=MIXTRAL_KV_HEADS)
@@ -889,7 +1003,8 @@ def device_trace(run, label: str) -> dict:
             return "kraken_conv2d_direct: the split's fixed-order sum"
         if "grouped_moe_gemm_kernel" in key:
             return "grouped_moe_gemm"
-        if "gemm_kernel" in key:
+        # the wgmma kernel, the split's fixed-order sum, the fp32 kernel
+        if "kraken_gemm" in key or "gemm_kernel" in key:
             return "kraken_gemm"
         if "paged_decode_kernel" in key:
             return "paged_decode_attention"
@@ -1664,6 +1779,7 @@ def phase_swa_kernels(rec: dict, state: dict) -> None:
     # the gemma3 forward's kraken_gemm shapes, bf16 (the forward) and f32
     # (the float32 period), against the plain version: both sides of every
     # swa_forward comparison run the same kraken_gemm
+    from repro_torch.core.gemm_cases import GEMMA_GEMMS
     from repro_torch.kernels import kraken_gemm as kg
     gemms = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1673,19 +1789,22 @@ def phase_swa_kernels(rec: dict, state: dict) -> None:
             r["name"], r["calls_per_forward"] = name, calls
             gemms.append(r)
             torch.cuda.empty_cache()
-            log(f"  gemma3 gemm {name:8s} M={SWA_SEQ} K={k:<5d} N={n:<6d} "
-                f"{r['dtype']:8s} err={r['max_abs_err']:.2e} "
-                f"ms={r['ms']:.3f} plain={r['plain_ms']:.3f} "
-                f"lib={r['library_ms']:.3f} bound={r['bound_ms']:.3f}")
+            log(gemm_line(f"gemma3 gemm {name:8s}", r))
+    check_gemm_rows("swa_kernels", gemms)
     per_fwd = {dt: {key: sum(r[key] * r["calls_per_forward"] for r in gemms
                              if r["dtype"] == dt)
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "device_ms", "device_library_ms")}
                for dt in ("bfloat16", "float32")}
     bf = per_fwd["bfloat16"]
+    flops = sum(2.0 * SWA_SEQ * r["k"] * r["n"] * r["calls_per_forward"]
+                for r in gemms if r["dtype"] == "bfloat16")
     log(f"swa_kernels: the gemma3 forward's kraken_gemm shapes match plain "
         f"(bf16, f32); bf16 per forward ({GEMMA_LAYERS} layers x 7 + "
-        f"unembed): {bf['ms']:.1f} ms (plain {bf['plain_ms']:.1f}, "
-        f"torch.matmul {bf['library_ms']:.1f}, bound {bf['bound_ms']:.1f})")
+        f"unembed): {bf['ms']:.1f} ms = {flops / bf['ms'] / 1e9:.0f} TFLOP/s "
+        f"(plain {bf['plain_ms']:.1f}, torch.matmul {bf['library_ms']:.1f}, "
+        f"bound {bf['bound_ms']:.1f}; x_matmul "
+        f"{bf['ms'] / bf['library_ms']:.2f})")
     rec["gemma3_path"] = {"gemm": gemms,
                           "kraken_gemm_ms_per_forward": per_fwd}
 
@@ -2262,6 +2381,7 @@ def conv_entry(rec: dict, by_path) -> dict:
 
 def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
     """The kernels line's entries of the yi-6b path's two kernels."""
+    from repro_torch.core.gemm_cases import GEMMS
     dec = {r["name"]: r for r in rec["gemm"]
            if r.get("ms") is not None and r["m"] == SLOTS
            and r["dtype"] == "bfloat16"}

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks written for kraken_conv.cu: mbarriers,
-// TMA tile loads, ldmatrix and wgmma with A in registers and B in
-// shared memory, and the host-side tensor-map encoder.  Plain inline PTX, no
-// CUTLASS; kraken_gemm's redesign is meant to reuse them.
+// Hopper (sm_90a) building blocks of kraken_conv.cu and kraken_gemm.cu:
+// mbarriers, TMA tile loads, ldmatrix, wgmma with A in registers (RS) or in
+// shared memory (SS), their operand descriptors, and the host-side
+// tensor-map encoder.  Plain inline PTX, no CUTLASS.
 //
 // Conventions: every shared-memory operand of a TMA load or of wgmma is a
 // 1024-byte aligned buffer laid out with the 128-byte swizzle (16-byte chunk
@@ -64,11 +64,43 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma, TMA) before it signals them ready on a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // ---- copies ----------------------------------------------------------------
 
 // TMA tile loads: the box at signed element coordinates (innermost first)
 // into `dst`; elements outside the tensor arrive as zeros.  Completion is
 // counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same, with an L2 cache policy (l2_evict_first) for data read once.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+// An L2 policy under which the lines a load brings in are evicted first.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -98,10 +130,27 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
 }
 
 // Descriptor of a K-major bf16 operand: rows of 64 elements (128 bytes) with
-// the 128-byte swizzle, 8-row groups 1024 bytes apart.  Adding 2 to it
-// advances 16 elements (32 bytes) along K.
+// the 128-byte swizzle.  The stride byte offset (SBO) is the step between
+// 8-row groups along M or N, 1024 bytes; the leading byte offset is not
+// read for a swizzled K-major operand whose K fits one 128-byte row, and is
+// set to 1.  Adding 2 to it advances 16 elements (32 bytes) along K.
 __device__ __forceinline__ uint64_t desc_k128(uint32_t smem_addr) {
   return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of an MN-major bf16 operand (wgmma's B read through the
+// transpose immediate): blocks of 64 MN-contiguous
+// elements (128 bytes) by 8 K rows, each row a 128-byte swizzled line -- what
+// a TMA box of [rows, 64] with the 128-byte swizzle leaves.  For this layout
+// the two offsets mean the opposite of the K-major case: the stride byte
+// offset (SBO) is the step between 8-row groups along K (1024 bytes: the
+// rows are packed), the leading byte offset (LBO) the step between 64-wide
+// blocks along MN (`lbo_bytes`; one TMA box of R rows is R * 128 bytes).
+// Adding 128 to it advances 16 rows (2048 bytes) along K.
+__device__ __forceinline__ uint64_t desc_mn128(uint32_t smem_addr, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -111,8 +160,21 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Hand registers from the producer warpgroup to the consumers (warp-
+// specialised kernels launched at their __launch_bounds__ register count).
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
 }
 
 // Keep the compiler from moving accumulator reads or writes across a wgmma
@@ -181,6 +243,79 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
+
+// The accumulator operands of an m64nNk16 product: N/2 floats a thread.
+#define HOPPER_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HOPPER_D16(i) HOPPER_D4(i), HOPPER_D4(i + 4), HOPPER_D4(i + 8), HOPPER_D4(i + 12)
+#define HOPPER_D32(i) HOPPER_D16(i), HOPPER_D16(i + 16)
+
+// d (fp32, the wgmma accumulator layout) += a (64 x 16, shared, K-major:
+// desc_k128) * b (16 x N, shared, MN-major: desc_mn128, read through the
+// transpose immediate); scale_d 0 overwrites d.  Run by the whole warpgroup.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_D32(0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_D32(0), HOPPER_D32(32)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_D32(0), HOPPER_D32(32), HOPPER_D32(64), HOPPER_D32(96)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+#undef HOPPER_D32
+#undef HOPPER_D16
+#undef HOPPER_D4
 
 }  // namespace hopper
 

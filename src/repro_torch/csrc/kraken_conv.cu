@@ -542,7 +542,7 @@ kraken_conv_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int s = 0; s < 4; ++s)
           if (s < ks) mma_step<BN>(acc, a[s], db + 2 * s);
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(acc);
         mbar_arrive(&empty_w[ws]);
         if (++ws == p.NW) { ws = 0; wph ^= 1; }

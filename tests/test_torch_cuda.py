@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.conv_cases import CONV_NONFINITE  # noqa: E402
+from repro_torch.core.gemm_cases import GEMM_EDGE  # noqa: E402
 
 POS_EMPTY = -(2 ** 30)
 
@@ -140,6 +141,31 @@ def test_gemm_kernel_matches_plain(dtype):
                 torch.testing.assert_close(got, want, rtol=TOL[dtype],
                                            atol=TOL[dtype])
     assert tkg.launches == before + 3 * 4 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GEMM_EDGE, ids=[c[0] for c in GEMM_EDGE])
+def test_gemm_kernel_edge_cases(case, dtype):
+    """``kernels``' edge cases: one row, splits over K at decode, a second
+    row tile, A (K 27, 363) and B (N 123) that TMA refuses, a ragged K;
+    within the tolerance of the plain version, and the same bits twice."""
+    from repro_torch.kernels import kraken_gemm as tkg
+    from repro_torch.kernels import ref
+    _, m, k, n, act, bias = case
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+    bv = torch.randn((n,), generator=g, device=dev) if bias else None
+    before = tkg.launches
+    got = tkg.kraken_gemm(a, b, bias=bv, activation=act)
+    again = tkg.kraken_gemm(a, b, bias=bv, activation=act)
+    want = ref.matmul(a, b, bias=bv, activation=act)
+    torch.cuda.synchronize()
+    assert tkg.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(got.float(), again.float())
 
 
 @pytest.mark.cuda
