@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of kraken_conv.cu and kraken_gemm.cu:
-// mbarriers, TMA tile loads, ldmatrix, wgmma with A in registers (RS) or in
-// shared memory (SS), their operand descriptors, and the host-side
-// tensor-map encoder.  Plain inline PTX, no CUTLASS.
+// Hopper (sm_90a) building blocks of kraken_conv.cu, kraken_gemm.cu and
+// swa_attention.cu: mbarriers, TMA tile loads, ldmatrix, wgmma with A in
+// registers (RS) or in shared memory (SS), their operand descriptors, and the
+// host-side tensor-map encoder.  Plain inline PTX, no CUTLASS.
 //
 // Conventions: every shared-memory operand of a TMA load or of wgmma is a
 // 1024-byte aligned buffer laid out with the 128-byte swizzle (16-byte chunk
@@ -311,6 +311,90 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t de
       "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
       : HOPPER_D32(0), HOPPER_D32(32), HOPPER_D32(64), HOPPER_D32(96)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (fp32, the wgmma accumulator layout) += a (64 x 16, shared, K-major:
+// desc_k128) * b (16 x 64, shared, K-major: desc_k128 -- b's columns are
+// rows of 16 contiguous elements, as the keys of an attention tile lie);
+// scale_d 0 overwrites d.  Run by the whole warpgroup.
+__device__ __forceinline__ void wgmma_ss_kk_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D32(0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (fp32) += a (64 x 16 bf16, registers: the mma.m16n8k16 A fragment of
+// each warp's 16 rows) * b (16 x N, shared, MN-major: desc_mn128, read
+// through the transpose immediate); scale_d 0 overwrites d.  Run by the whole
+// warpgroup.
+__device__ __forceinline__ void wgmma_rs_mn_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_mn_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HOPPER_D32(0), HOPPER_D32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_mn_m64n256k16(float (&d)[128], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : HOPPER_D32(0), HOPPER_D32(32), HOPPER_D32(64), HOPPER_D32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 #undef HOPPER_D32

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import attention_cases as ac  # noqa: E402
 from repro_torch.core.conv_cases import CONV_NONFINITE  # noqa: E402
 from repro_torch.core.gemm_cases import GEMM_EDGE  # noqa: E402
 
@@ -69,24 +70,18 @@ def _cuda():
 # bf16: both round one fp32 sum to bf16, summed in another order (1 ulp);
 # fp32: sums of <= 200 products in another order
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# decode_attention (atol, rtol) by q dtype: kernel and plain version both
-# compute in fp32 and round once, so they differ by at most one bf16 ulp
-DECODE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 1e-2)}
+# decode_attention's and swa_attention's tolerances (atol, rtol), DECODE_TOL
+# by q dtype and SWA_TOL by dtype (the bf16 atol of a row scaled by
+# sqrt(SWA_ROW_KEYS / n) past n = SWA_ROW_KEYS keys), are chip_smoke.py's:
+# repro_torch.core.attention_cases, with the reason for each
+DECODE_TOL = {torch.float32: ac.DECODE_TOL["float32"],
+              torch.bfloat16: ac.DECODE_TOL["bfloat16"]}
 # swa_attention: chip_smoke.py's SWA_CASES, (name, B, H, KV, S, D, window),
-# and SWA_TOL, (atol, rtol) by dtype.  bf16: the kernel rounds its
-# probabilities to bf16 before the PV product, the plain version does not;
-# that error falls as 1/sqrt(n) in a row's n = min(i + 1, W) keys, so past
-# SWA_ROW_KEYS keys the bf16 atol of row i is scaled by sqrt(SWA_ROW_KEYS / n)
-SWA_CASES = [
-    ("gemma3 local", 1, 16, 8, 4096, 240, 1024),
-    ("mixtral", 1, 48, 8, 2048, 128, 4096),
-    ("edge window 1", 2, 4, 2, 256, 64, 1),
-    ("edge window 16", 2, 4, 2, 256, 64, 16),
-    ("edge window 100", 2, 4, 2, 256, 64, 100),
-    ("ragged S 200, D 40", 2, 4, 2, 200, 40, 16),
-]
-SWA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 1e-2)}
-SWA_ROW_KEYS = 25
+# and the bf16 kernel's head-dim and window classes (SWA_EDGE)
+SWA_CASES = [c[:7] for c in ac.SWA_CASES]
+SWA_TOL = {torch.float32: ac.SWA_TOL["float32"],
+           torch.bfloat16: ac.SWA_TOL["bfloat16"]}
+SWA_ROW_KEYS = ac.SWA_ROW_KEYS
 # kraken_conv2d_direct: chip_smoke.py's CONV_TOL, (atol, rtol) by output
 # dtype: both sides sum fp32 products and round once, so they differ by the
 # summation order and one output ulp (2 bf16 ulps of rtol cover it)
@@ -250,6 +245,63 @@ def test_decode_attention_kernel_matches_plain(kv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", ac.DECODE_SPLIT_CASES,
+                         ids=[c[0] for c in ac.DECODE_SPLIT_CASES])
+def test_decode_attention_kernel_splits(case, kv):
+    """The split plan's corners (no split once B * KV fills the card, one
+    tile a split, several tiles a split over a ragged S, GQA 6): a wrapped
+    ring, an all-empty row, then positions live only in the first 40 slots
+    (every later chunk dead); the same bits on a second run."""
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    _, b, h, kvh, s, d = case
+    rng = np.random.default_rng(b * s)
+    quant = kv == "int8"
+    qdt = torch.float32 if kv == "float32" else torch.bfloat16
+    shape = (b, kvh, s, d)
+    if quant:
+        k = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        v = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        ks = torch.from_numpy((rng.random(shape[:3]) / 127).astype(
+            np.float32)).to(dev)
+        vs = torch.from_numpy((rng.random(shape[:3]) / 127).astype(
+            np.float32)).to(dev)
+    else:
+        k = torch.from_numpy(rng.normal(size=shape)).to(qdt)
+        v = torch.from_numpy(rng.normal(size=shape)).to(qdt)
+        ks = vs = None
+    k, v = k.to(dev), v.to(dev)
+    q = torch.from_numpy(rng.normal(size=(b, h, d))).to(qdt).to(dev)
+    q_pos = [(s * 3 // 2 + 7 * i) if i % 3 != 1 else s // 3 for i in range(b)]
+    empty = b // 2 if b > 1 else None
+    ring = np.full((b, s), POS_EMPTY, np.int32)
+    first = np.full((b, s), POS_EMPTY, np.int32)
+    for i, qp in enumerate(q_pos):
+        p = np.arange(max(0, qp + 1 - s), qp + 1)
+        if i != empty:
+            ring[i, p % s] = p
+        first[i, :40] = np.arange(40)
+    pl = tdec.plan(b, h, kvh, s, d, torch.int8 if quant else qdt,
+                   sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (pl["splits"] == 1) == (b * kvh >= 132)
+    atol, rtol = DECODE_TOL[qdt]
+    for pos in (ring, first):
+        kw = dict(kv_pos=torch.from_numpy(pos).to(dev),
+                  q_pos=torch.tensor(q_pos, dtype=torch.int32, device=dev),
+                  k_scale=ks, v_scale=vs)
+        got = tdec.decode_attention(q, k, v, **kw)
+        again = tdec.decode_attention(q, k, v, **kw)
+        want = ref.decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        assert torch.equal(got, again)
+        if pos is ring and empty is not None:
+            assert not got[empty].any()  # the all-empty row is exact zero
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_grouped_moe_gemm_kernel_matches_plain(dtype):
     """Skewed sizes with an empty expert and one past C, an all-empty
@@ -340,6 +392,23 @@ def test_swa_attention_kernel_matches_plain(case, dtype):
     from repro_torch.kernels import swa_attention as tsw
     dev = _cuda()
     _, b, h, kvh, s, d, window = case
+    _check_swa(tsw, ref, dev, b, h, kvh, s, d, window, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ac.SWA_EDGE, ids=[c[0] for c in ac.SWA_EDGE])
+def test_swa_attention_kernel_head_dims_and_windows(case):
+    """The bf16 kernel at D 40, 64, 128 and 240 (one, two and four 64-column
+    boxes, zero columns past D) under windows 1, 16, 100, 1024 and 4096,
+    over a ragged S."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as tsw
+    dev = _cuda()
+    _, b, h, kvh, s, d, window = case
+    _check_swa(tsw, ref, dev, b, h, kvh, s, d, window, torch.bfloat16)
+
+
+def _check_swa(tsw, ref, dev, b, h, kvh, s, d, window, dtype):
     atol, rtol = SWA_TOL[dtype]
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)

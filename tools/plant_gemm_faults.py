@@ -55,7 +55,9 @@ def slug(name: str) -> str:
     return re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")[:40]
 
 
-def plant(dest: Path, old: str, new: str) -> None:
+def plant(dest: Path, old: str, new: str, kernel: str = KERNEL) -> None:
+    """Copy what the checks need into ``dest`` and replace ``old`` by
+    ``new``, found exactly once, in its copy of ``kernel``."""
     if dest.exists():
         shutil.rmtree(dest)
     shutil.copytree(ROOT / "src", dest / "src",
@@ -64,10 +66,10 @@ def plant(dest: Path, old: str, new: str) -> None:
     for rel in ("chip_smoke.py", "pytest.ini", "tests/conftest.py",
                 "tests/test_torch_cuda.py"):
         shutil.copy(ROOT / rel, dest / rel)
-    src = (dest / KERNEL).read_text()
+    src = (dest / kernel).read_text()
     if src.count(old) != 1:
-        raise SystemExit(f"fault site not found once in {KERNEL}: {old!r}")
-    (dest / KERNEL).write_text(src.replace(old, new))
+        raise SystemExit(f"fault site not found once in {kernel}: {old!r}")
+    (dest / kernel).write_text(src.replace(old, new))
 
 
 def run_fault(name: str, dest: Path) -> dict:
