@@ -21,9 +21,16 @@ default ``build/chip_smoke/``):
    the bound are logged, and every case is checked before a miss fails the
    phase with the largest atol it needs.
 3. ``moe_kernels`` -- the same for ``grouped_moe_gemm`` at the mixtral and
-   llama4 expert shapes, decode and mixed-step capacities, bfloat16, float32
-   and int8 (exact), with skewed, empty, past-capacity and all-empty sizes;
-   and for the two other kernels at the mixtral path's shapes.
+   llama4 expert shapes of ``repro_torch/core/moe_cases.py``, decode and
+   mixed-step capacities, bfloat16, float32 and int8 (exact), with skewed,
+   empty, past-capacity and all-empty sizes and garbage in the dead rows,
+   and in bf16 at its edge cases (a split of d, two m tiles, negative
+   sizes, Inf in the dead rows, the tile route); rows past the sizes
+   exactly zero, two calls bit-identical, the plan logged, every case
+   checked before a miss fails the phase with the largest atol it needs;
+   timed event-timed and device-only beside ``torch.bmm``, and summed per
+   mixtral decode and mixed step against the bound; then the two other
+   kernels at the mixtral path's shapes.
 4. ``serve``    -- serve full-width, full-depth yi-6b (bf16, seeded random
    weights) through ``repro_torch``'s PagedEngine: 4 slots, page 16,
    max_len 512, chunk 64, 8 requests of 17-300 prompt tokens, 16 new tokens,
@@ -139,31 +146,15 @@ SERVE_NEW = 16
 # kraken_gemm's shapes (yi-6b's GEMMS, mixtral's MIXTRAL_GEMMS, gemma3's
 # GEMMA_GEMMS and the edge cases) are repro_torch.core.gemm_cases's: the CPU
 # tests plan the same cases.
-# mixtral-8x22b served at full width and MOE_LAYERS of its 56 layers; the
-# grouped GEMM cases: (name, E, C, d, f, sizes, uses per MoE layer at decode)
+# mixtral-8x22b served at full width and MOE_LAYERS of its 56 layers;
+# grouped_moe_gemm's cases (MOE_CASES, MIXED_USES, MOE_EDGE) are
+# repro_torch.core.moe_cases's: the card tests and the CPU plan tests read
+# the same.  GEMM_TOL, kraken_gemm's and grouped_moe_gemm's tolerance, is
+# repro_torch.core.gemm_cases's.
 MOE_LAYERS = 8
 # paged_decode_attention at the mixtral path's 48/8 heads of 128 under the
 # 4096 window
 MIXTRAL_HEADS, MIXTRAL_KV_HEADS, MIXTRAL_WINDOW = 48, 8, 4096
-MOE_CASES = [
-    # 4 decode tokens top-2 at capacity 1: 6 of 8 experts live
-    ("mixtral gate|up decode", 8, 1, 6144, 16384, [1, 0, 1, 1, 0, 1, 1, 1], 2),
-    ("mixtral down decode", 8, 1, 16384, 6144, [1, 0, 1, 1, 0, 1, 1, 1], 1),
-    # 256 mixed-step tokens top-2 at capacity 80: one expert empty, one
-    # past capacity
-    ("mixtral gate|up mixed", 8, 80, 6144, 16384,
-     [80, 75, 64, 0, 70, 50, 100, 73], 0),
-    ("mixtral down mixed", 8, 80, 16384, 6144,
-     [80, 75, 64, 0, 70, 50, 100, 73], 0),
-    ("mixtral all empty", 8, 1, 6144, 16384, [0] * 8, 0),
-    # llama4 maverick: 4 decode tokens top-1 over 128 experts at capacity 1
-    # (one size past it), 256 mixed-step tokens at capacity 2
-    ("llama4 gate|up decode", 128, 1, 5120, 8192, "decode", 0),
-    ("llama4 down decode", 128, 1, 8192, 5120, "decode", 0),
-    ("llama4 gate|up mixed", 128, 2, 5120, 8192, "mixed", 0),
-    ("llama4 down mixed", 128, 2, 8192, 5120, "mixed", 0),
-]
-GEMM_TOL = {"bfloat16": (3e-2, 2e-2), "float32": (1e-4, 1e-4)}   # atol, rtol
 ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}  # by q dtype
 # decode_attention's and swa_attention's cases and tolerances (DECODE_TOL,
 # SWA_TOL, SWA_ROW_KEYS) are repro_torch.core.attention_cases's: the card
@@ -351,6 +342,24 @@ def phase_build(rec: dict, state: dict) -> None:
     if swa_serial:
         raise AssertionError(f"ptxas serialised swa_attention's wgmma: "
                              f"{swa_serial}")
+    # grouped_moe_gemm's two wgmma tiles and the split's sum: no spill; the
+    # two-consumer (BM 128) tile hands registers over with setmaxnreg, so
+    # 168 registers at entry; whether ptxas serialised wgmma is logged
+    moe_log = report["grouped_moe_gemm"]["log"]
+    moe = {fn: lines for fn, lines in ptxas_by_function(moe_log).items()
+           if "grouped_moe_gemm_wgmma" in fn or "grouped_moe_gemm_sum" in fn}
+    moe_wg = {fn: lines for fn, lines in moe.items() if "wgmma" in fn}
+    if len(moe_wg) != 2 or len(moe) != 3 or any(
+            " 0 bytes spill stores" not in " ".join(v) for v in moe.values()):
+        raise AssertionError(f"grouped_moe_gemm kernels: {moe}")
+    for fn, lines in moe_wg.items():
+        if "ILi128E" in fn and "Used 168 registers" not in " ".join(lines):
+            raise AssertionError(f"{fn}: setmaxnreg needs 168 registers at "
+                                 f"entry: {lines}")
+    moe_serial = [ln for ln in moe_log.splitlines() if "C7520" in ln]
+    rec["build"]["grouped_moe_gemm"]["wgmma_serialised"] = moe_serial
+    for ln in moe_serial:
+        log(f"  ptxas grouped_moe_gemm C7520: {ln.strip()}")
     dec = ptxas_by_function(report["decode_attention"]["log"])
     if len(dec) != 10 or any(" 0 bytes spill stores" not in " ".join(v)
                              for v in dec.values()):
@@ -360,7 +369,10 @@ def phase_build(rec: dict, state: dict) -> None:
         f"{'SERIALISED by ptxas (C7520)' if serial else 'not serialised'}; "
         "kraken_gemm_wgmma's 6 variants spill nothing, wgmma not "
         "serialised; swa_wgmma's 3 variants at 168 registers, no spill, "
-        "wgmma not serialised; decode_attention's 10 kernels spill nothing")
+        "wgmma not serialised; decode_attention's 10 kernels spill nothing; "
+        "grouped_moe_gemm's 2 wgmma tiles and its sum spill nothing, the "
+        "128 x 128 one at 168 registers, wgmma "
+        f"{'SERIALISED by ptxas (C7520)' if moe_serial else 'not serialised'}")
     rec["card"] = card_line()
     log(f"card: {rec['card']}")
 
@@ -376,6 +388,7 @@ def gemm_case(torch, kg, ref, m, k, n, act, dtype, *, bias=False,
     kernel's, the plain version's and ``torch.matmul``'s time over
     ``iters`` calls each.  A miss does not raise: the row says ``ok``
     False and the least atol it needs (``check_gemm_rows`` raises)."""
+    from repro_torch.core.gemm_cases import GEMM_TOL
     g = torch.Generator(device="cuda").manual_seed(seed)
     isz = torch.tensor([], dtype=dtype).element_size()
     a = torch.randn((m, k), generator=g, device="cuda").to(dtype)
@@ -635,28 +648,18 @@ def phase_kernels(rec: dict, state: dict) -> None:
     rec["attention"] = arows
 
 
-def _moe_sizes(spec, e: int, seed: int) -> list[int]:
-    """A case's per-expert sizes: a literal list, or llama4's routing of 4
-    decode tokens ("decode", one expert past capacity 1) or 256 mixed-step
-    tokens ("mixed") top-1 over ``e`` experts."""
-    import numpy as np
-    if not isinstance(spec, str):
-        return list(spec)
-    rng = np.random.default_rng(seed)
-    if spec == "decode":
-        sizes = np.zeros(e, np.int64)
-        live = rng.choice(e, 4, replace=False)
-        sizes[live] = 1
-        sizes[live[0]] = 2
-        return sizes.tolist()
-    return np.bincount(rng.integers(0, e, 256), minlength=e).tolist()
-
-
-def moe_case(torch, mg, ref, *, e, c, d, f, sizes, dtype, seed=0):
-    """One grouped GEMM: parity (int8 exact, dead rows exactly zero) and
-    the kernel's, the plain version's and one ``torch.bmm``'s time.  Every
-    live call reads more than the 50 MB L2 of expert weights, so repeated
-    calls find it cold, as a serving step does."""
+def moe_case(torch, mg, ref, *, e, c, d, f, sizes, dtype, seed=0, fill=99.0,
+             timed=True):
+    """One grouped GEMM against ``ref.grouped_moe_gemm``, with ``fill``
+    (garbage or Inf) in the dead capacity rows: int8 exact, bf16 and f32
+    within ``GEMM_TOL``, rows past the sizes exactly zero, two calls
+    bit-identical.  When ``timed``, the kernel's, the plain version's and
+    one ``torch.bmm``'s time, event-timed and (kernel and ``torch.bmm``)
+    device-only by CUDA-graph replay.  Every live call reads more than the
+    50 MB L2 of expert weights, so repeated calls find it cold, as a serving
+    step does.  A miss does not raise: the row says ``ok`` False and the
+    least atol it needs (``check_moe_rows`` raises)."""
+    from repro_torch.core.gemm_cases import GEMM_TOL
     g = torch.Generator(device="cuda").manual_seed(seed)
     integer = dtype == torch.int8
     w = torch.empty((e, d, f), dtype=dtype, device="cuda")
@@ -666,7 +669,7 @@ def moe_case(torch, mg, ref, *, e, c, d, f, sizes, dtype, seed=0):
                                  device="cuda", dtype=torch.int8)
         else:
             w[i] = torch.randn((d, f), generator=g, device="cuda") \
-                / math.sqrt(d)
+                / math.sqrt(max(d, 1))
     if integer:
         xs = torch.randint(-128, 128, (e, c, d), generator=g, device="cuda",
                            dtype=torch.int8)
@@ -674,72 +677,210 @@ def moe_case(torch, mg, ref, *, e, c, d, f, sizes, dtype, seed=0):
         xs = torch.randn((e, c, d), generator=g, device="cuda").to(dtype)
     sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
     live = (torch.arange(c, device="cuda")[None, :]
-            < sz.clamp(max=c)[:, None])[..., None]
+            < sz.clamp(0, c)[:, None])[..., None]
     # garbage in the dead capacity rows: the kernel must mask, not rely on
     # zeros there
-    xs = torch.where(live, xs, torch.full_like(xs, 99))
+    xs = torch.where(live, xs, torch.full_like(xs, fill))
     got = mg.grouped_moe_gemm(xs, w, sz)
+    again = mg.grouped_moe_gemm(xs, w, sz)
     want = ref.grouped_moe_gemm(xs, w, sz)
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
-    label = f"grouped_moe_gemm E={e} C={c} d={d} f={f} {name}"
-    if got.masked_fill(live, 0).any():
-        raise AssertionError(f"{label}: rows past sizes are not zero")
+    dead_zero = not bool(got.masked_fill(live, 0).any())
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    same = torch.equal(got.view(bits), again.view(bits))
     if integer:
-        if got.dtype != torch.int32 or not torch.equal(got, want):
-            raise AssertionError(f"{label}: int8 result is not exact")
-        err = 0.0
+        exact = got.dtype == torch.int32 and torch.equal(got, want)
+        err = 0.0 if exact else math.inf
+        need = err
+        fits = exact
     else:
-        err = assert_close(label, got, want, *GEMM_TOL[name])
+        atol, rtol = GEMM_TOL[name]
+        diff = (got.float() - want.float()).abs()
+        finite = bool(torch.isfinite(got.float()).all())
+        err = float(diff.max()) if finite and diff.numel() else (
+            0.0 if finite else math.inf)
+        need = (float((diff - rtol * want.float().abs()).max().clamp_min(0))
+                if finite and diff.numel() else err)
+        fits = finite and need <= atol
+    q = mg.plan(e, c, d, f, dtype)
     row = {"e": e, "c": c, "d": d, "f": f, "dtype": name,
-           "sizes": [int(x) for x in sizes], "max_abs_err": err,
-           "ms": time_ms(lambda: mg.grouped_moe_gemm(xs, w, sz), 10),
-           "plain_ms": time_ms(lambda: ref.grouped_moe_gemm(xs, w, sz), 3),
-           "library_ms": None}
-    if not integer:
-        xm = torch.where(live, xs, torch.zeros_like(xs))
-        row["library_ms"] = time_ms(lambda: torch.bmm(xm, w), 10)
-    # the bound counts what these sizes need: the active experts' weights,
-    # the live rows, the size table and the whole output, which is written
-    rows = [min(max(int(x), 0), c) for x in sizes]
-    active = sum(1 for r in rows if r)
-    isz = w.element_size()
-    nbytes = (active * d * f + sum(rows) * d) * isz + e * 4 \
-        + e * c * f * got.element_size()
-    peak = {torch.bfloat16: PEAK_BF16, torch.float32: PEAK_FP32,
-            torch.int8: PEAK_INT8}[dtype]
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * sum(rows) * d * f,
-                                                peak)
-    row["active_experts"] = active
-    row["weights_tb_s"] = active * d * f * isz / (row["ms"] * 1e-3) / 1e12
+           "sizes": [int(x) for x in sizes], "fill": fill,
+           "max_abs_err": err, "atol_needed": need,
+           "dead_rows_zero": dead_zero, "same_bits": same,
+           "ok": fits and dead_zero and same,
+           "plan": q, "plan_text": mg.describe(q, sizes)}
+    del got, again, want
+    if timed:
+        row["ms"] = time_ms(lambda: mg.grouped_moe_gemm(xs, w, sz), 10)
+        row["plain_ms"] = time_ms(lambda: ref.grouped_moe_gemm(xs, w, sz), 3)
+        row["device_ms"] = graph_ms(lambda: mg.grouped_moe_gemm(xs, w, sz),
+                                    10)
+        row["library_ms"] = row["device_library_ms"] = None
+        if not integer:
+            xm = torch.where(live, xs, torch.zeros_like(xs))
+            row["library_ms"] = time_ms(lambda: torch.bmm(xm, w), 10)
+            row["device_library_ms"] = graph_ms(lambda: torch.bmm(xm, w), 10)
+        # the bound counts what these sizes need: the active experts'
+        # weights, the live rows, the size table and the whole output,
+        # which is written
+        rows = [min(max(int(x), 0), c) for x in sizes]
+        active = sum(1 for r in rows if r)
+        isz = w.element_size()
+        osz = 4 if integer else isz
+        nbytes = (active * d * f + sum(rows) * d) * isz + e * 4 \
+            + e * c * f * osz
+        peak = {torch.bfloat16: PEAK_BF16, torch.float32: PEAK_FP32,
+                torch.int8: PEAK_INT8}[dtype]
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2.0 * sum(rows) * d * f, peak)
+        row["active_experts"] = active
+        row["weights_tb_s"] = active * d * f * isz / (row["ms"] * 1e-3) / 1e12
+        row["device_weights_tb_s"] = (active * d * f * isz
+                                      / (row["device_ms"] * 1e-3) / 1e12)
     return row
+
+
+def moe_line(r: dict) -> str:
+    """One log line of a ``moe_case`` row: error, plan and, when timed, the
+    kernel beside the plain version, torch.bmm and the bound."""
+    out = (f"  moe {r['name'][:44]:44s} {r['dtype']:8s} "
+           f"err={r['max_abs_err']:.2e} atol_needed={r['atol_needed']:.2e}"
+           f"{'' if r['dead_rows_zero'] else ' DEAD ROWS NOT ZERO'}"
+           f"{'' if r['same_bits'] else ' BITS DIFFER'} [{r['plan_text']}]")
+    if "ms" in r:
+        lib = ("-" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} (device {r['device_library_ms']:.4f})")
+        out += (f" ms={r['ms']:.4f} device={r['device_ms']:.4f} "
+                f"plain={r['plain_ms']:.4f} bmm={lib} "
+                f"bound={r['bound_ms']:.4f} active={r['active_experts']} "
+                f"({r['weights_tb_s']:.2f} TB/s, device "
+                f"{r['device_weights_tb_s']:.2f})")
+    return out
+
+
+def check_moe_rows(label: str, rows: list) -> None:
+    """Raise, after every case has run, if any ``moe_case`` row missed its
+    tolerance, left a dead row non-zero or gave other bits on its second
+    run."""
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        need = max(r["atol_needed"] for r in bad)
+        raise AssertionError(
+            f"{label}: grouped_moe_gemm fails {len(bad)} of {len(rows)} cases "
+            f"(largest atol needed {need:.3e}): "
+            + "; ".join(f"{r['name']} {r['dtype']} need "
+                        f"{r['atol_needed']:.2e} dead_rows_zero="
+                        f"{r['dead_rows_zero']} same_bits={r['same_bits']}"
+                        for r in bad[:12]))
+
+
+def empty_sum_cost(torch, mg, calls: int = 100, turns: int = 5) -> dict:
+    """What a plan that may split d costs a call that takes no split: at
+    mixtral's decode sizes (6 of 8 experts live) the kernel fills the grid
+    unsplit, yet the call allocates the partials and launches the sum,
+    which returns at once.  Per decode shape, the host time of a call
+    (``calls`` back to back, no synchronize, median of ``turns``) and its
+    device time (``graph_ms``) on the planned split against the same plan
+    with split 1 (no sum launch), in turns; both give the same output."""
+    from repro_torch.core.moe_cases import MOE_CASES
+    out = {}
+    for name, e, c, d, f, sizes, uses in MOE_CASES:
+        if not uses:
+            continue
+        w = torch.randn((e, d, f), device="cuda", dtype=torch.bfloat16)
+        xs = torch.randn((e, c, d), device="cuda", dtype=torch.bfloat16)
+        sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        q = mg.plan(e, c, d, f)
+        plans = {"planned": (q, mg.plan_array(q)),
+                 "split 1": ({**q, "split": 1},
+                             mg.plan_array({**q, "split": 1}))}
+        if not torch.equal(mg.run_plan(xs, w, sz, *plans["planned"]),
+                           mg.run_plan(xs, w, sz, *plans["split 1"])):
+            raise AssertionError(f"{name}: the split-1 plan differs")
+        host = {k: [] for k in plans}
+        for _ in range(turns):
+            for k, (pq, fields) in plans.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    mg.run_plan(xs, w, sz, pq, fields)
+                host[k].append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+        r = {"most_split": q["split"],
+             "split_taken": mg.live_split(q, mg.live_tiles(q, sizes))}
+        for k, (pq, fields) in plans.items():
+            r[f"host_us {k}"] = sorted(host[k])[turns // 2]
+            r[f"device_us {k}"] = 1e3 * graph_ms(
+                lambda pq=pq, fields=fields: mg.run_plan(xs, w, sz, pq,
+                                                         fields), 10)
+        out[name] = r
+        log(f"moe_kernels: {name}: a plan that may split {q['split']} ways "
+            f"(split taken {r['split_taken']}): host "
+            f"{r['host_us planned']:.1f} us a call against "
+            f"{r['host_us split 1']:.1f} with split 1 (no sum); device "
+            f"{r['device_us planned']:.1f} us against "
+            f"{r['device_us split 1']:.1f}")
+        del w, xs
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_moe_kernels(rec: dict, state: dict) -> None:
     import torch
+    from repro_torch.core.moe_cases import (MIXED_USES, MOE_CASES, MOE_EDGE,
+                                            moe_sizes)
     from repro_torch.kernels import kraken_moe_gemm as mg
     from repro_torch.kernels import ref
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
     for name, e, c, d, f, spec, uses in MOE_CASES:
-        sizes = _moe_sizes(spec, e, seed=0)
+        sizes = moe_sizes(spec, e, seed=0)
         for dtype in (torch.bfloat16, torch.float32, torch.int8):
             r = moe_case(torch, mg, ref, e=e, c=c, d=d, f=f, sizes=sizes,
                          dtype=dtype, seed=len(rows))
             r["name"], r["uses_per_layer"] = name, uses
             rows.append(r)
             torch.cuda.empty_cache()
-            lib = ("-" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f}")
-            log(f"  moe {name:22s} {r['dtype']:8s} active={r['active_experts']:<3d} "
-                f"err={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
-                f"plain={r['plain_ms']:.4f} lib={lib} "
-                f"bound={r['bound_ms']:.4f} ({r['weights_tb_s']:.2f} TB/s)")
-    log(f"moe_kernels: grouped_moe_gemm matches plain in {len(rows)} cases "
-        "(int8 exact; skewed, empty, past-capacity and all-empty sizes), max "
-        f"err bf16 {max(r['max_abs_err'] for r in rows if r['dtype'] == 'bfloat16'):.2e} "
-        f"f32 {max(r['max_abs_err'] for r in rows if r['dtype'] == 'float32'):.2e}")
+            log(moe_line(r))
+    for name, e, c, d, f, sizes, fill in MOE_EDGE:
+        r = moe_case(torch, mg, ref, e=e, c=c, d=d, f=f, sizes=sizes,
+                     dtype=torch.bfloat16, seed=len(rows), fill=fill,
+                     timed=False)
+        r["name"], r["uses_per_layer"] = name, 0
+        rows.append(r)
+        torch.cuda.empty_cache()
+        log(moe_line(r))
     rec["moe_gemm"] = rows
+    check_moe_rows("moe_kernels", rows)
+    log(f"moe_kernels: grouped_moe_gemm matches plain in {len(rows)} cases "
+        "(int8 exact; skewed, empty, past-capacity, negative and all-empty "
+        "sizes; garbage and Inf in dead rows exactly zero; each bit-identical "
+        "over two runs), largest atol needed bf16 "
+        f"{max(r['atol_needed'] for r in rows if r['dtype'] == 'bfloat16'):.2e} "
+        f"f32 {max(r['atol_needed'] for r in rows if r['dtype'] == 'float32'):.2e}")
+    # one mixtral decode step (C 1) and one [4, 64] mixed step (C 80) at
+    # MOE_LAYERS layers: gate, up and down per layer
+    steps = {}
+    for step, uses in (("decode", {n: u for n, *_, u in MOE_CASES if u}),
+                       ("mixed", MIXED_USES)):
+        sel = [r for r in rows if r["dtype"] == "bfloat16"
+               and r["name"] in uses and "ms" in r]
+        steps[step] = {key: MOE_LAYERS * sum(r[key] * uses[r["name"]]
+                                             for r in sel)
+                       for key in ("ms", "device_ms", "plain_ms",
+                                   "library_ms", "device_library_ms",
+                                   "bound_ms")}
+        t = steps[step]
+        log(f"moe_kernels: mixtral {step} step ({MOE_LAYERS} layers) bf16 "
+            f"grouped_moe_gemm {t['ms']:.2f} ms event-timed, "
+            f"{t['device_ms']:.2f} device-only; torch.bmm "
+            f"{t['library_ms']:.2f} / {t['device_library_ms']:.2f}; bound "
+            f"{t['bound_ms']:.2f} (x_bmm {t['ms'] / t['library_ms']:.2f}, "
+            f"device {t['device_ms'] / t['device_library_ms']:.2f}; x_bound "
+            f"{t['device_ms'] / t['bound_ms']:.2f} device)")
+    rec["moe_steps"] = steps
+    rec["moe_empty_sum"] = empty_sum_cost(torch, mg)
 
     # the mixtral path's kraken_gemm and paged_decode_attention shapes
     from repro_torch.kernels import kraken_gemm as kg
@@ -973,6 +1114,14 @@ def phase_e2e(rec: dict, state: dict) -> None:
         "the largest logit (bf16, full yi-6b)")
 
 
+# device_trace's groups of the port's own kernels
+PORTED_GROUPS = ("kraken_conv2d_direct",
+                 "kraken_conv2d_direct: the weights' K-major copy",
+                 "kraken_conv2d_direct: the split's fixed-order sum",
+                 "grouped_moe_gemm", "kraken_gemm", "paged_decode_attention",
+                 "swa_attention", "decode_attention")
+
+
 def device_trace(run, label: str) -> dict:
     """``torch.profiler`` over ``run()``: device time by kernel group and
     the device's busy share of the wall time."""
@@ -1004,7 +1153,9 @@ def device_trace(run, label: str) -> dict:
             return "kraken_conv2d_direct: the weights' K-major copy"
         if "kraken_conv_reduce" in key:
             return "kraken_conv2d_direct: the split's fixed-order sum"
-        if "grouped_moe_gemm_kernel" in key:
+        # the wgmma kernel, the split's fixed-order sum and the tile loop;
+        # before kraken_gemm's test, which "grouped_moe_gemm_kernel" meets
+        if "grouped_moe_gemm" in key:
             return "grouped_moe_gemm"
         # the wgmma kernel, the split's fixed-order sum, the fp32 kernel
         if "kraken_gemm" in key or "gemm_kernel" in key:
@@ -1036,7 +1187,11 @@ def device_trace(run, label: str) -> dict:
         "groups_ms": {k: v / 1e3 for k, v in sorted(
             groups.items(), key=lambda kv: -kv[1])},
         "top": [{"us": us, "count": c, "name": key[:120]}
-                for us, c, key in rows[:15]]}
+                for us, c, key in rows[:15]],
+        # every kernel of the port by name (a split's sum apart from its
+        # product kernel)
+        "ported": [{"us": us, "count": c, "name": key[:120]}
+                   for us, c, key in rows if group(key) in PORTED_GROUPS]}
     log(f"  profile {label}: wall {wall:.2f} s, device busy "
         f"{total_us / 1e6:.2f} s ({100 * total_us / 1e6 / wall:.1f}%)")
     for k, v in out["groups_ms"].items():
@@ -1145,6 +1300,10 @@ def phase_moe_serve(rec: dict, state: dict) -> None:
         f"launches {launches} (grouped_moe_gemm = 3 x {MOE_LAYERS} per step)")
     if "profile" in rec["phases"]:
         rec["moe_profile"] = trace_pass(eng, seed=2)
+        for r in rec["moe_profile"]["ported"]:
+            if "grouped_moe_gemm" in r["name"]:
+                log(f"    grouped_moe_gemm by kernel: {r['us'] / 1e3:.2f} ms "
+                    f"x{r['count']} {r['name'][:80]}")
 
 
 def _capture_moe_inputs(fn):
@@ -1207,6 +1366,7 @@ def _layer_gate(cfg, seen, plain) -> float:
     a host sync anywhere in it raises.  Returns the largest error."""
     import torch
     from repro_torch.models import moe as M
+    from repro_torch.core.gemm_cases import GEMM_TOL
     from repro_torch.models.layers import DEFAULT_KERNELS
     atol, rtol = GEMM_TOL["bfloat16"]
     err = 0.0
@@ -2527,12 +2687,10 @@ def kernels_line(rec: dict) -> dict:
     if "gemm" in rec:
         entries += yi_entries(rec, launches, by_path)
     if "moe_gemm" in rec:
-        moe = [r for r in rec["moe_gemm"]
-               if r["uses_per_layer"] and r["dtype"] == "bfloat16"]
-
-        def moe_step(key):
-            return MOE_LAYERS * sum(r[key] * r["uses_per_layer"] for r in moe)
-
+        dec = rec["moe_steps"]["decode"]
+        plan = next(r["plan_text"] for r in rec["moe_gemm"]
+                    if r["name"] == "mixtral gate|up decode"
+                    and r["dtype"] == "bfloat16")
         entries.append(
             {"name": "grouped_moe_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/grouped_moe_gemm.cu",
@@ -2540,13 +2698,18 @@ def kernels_line(rec: dict) -> dict:
              "launches": moe_launches.get("grouped_moe_gemm"),
              "launches_by_path": by_path("grouped_moe_gemm"),
              "max_abs_err": max(r["max_abs_err"] for r in rec["moe_gemm"]),
-             "ms": moe_step("ms"), "plain_ms": moe_step("plain_ms"),
-             "bound_ms": moe_step("bound_ms"), "bound_by": "bytes",
-             "library_ms": moe_step("library_ms"),
+             "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+             "bound_ms": dec["bound_ms"], "bound_by": "bytes",
+             "library_ms": dec["library_ms"],
+             "device_ms": dec["device_ms"],
+             "device_library_ms": dec["device_library_ms"],
+             "plan": plan, "mixed_step": rec["moe_steps"]["mixed"],
              "shape": f"one mixtral-8x22b decode step at {MOE_LAYERS} layers, "
                       "bf16, C=1, 6 of 8 experts live: "
                       f"{MOE_LAYERS} x (gate, up: 6144x16384; down: "
-                      "16384x6144)"})
+                      "16384x6144); mixed_step: one [4, 64] step, C=80, 7 "
+                      "of 8 live, 492 rows; library = torch.bmm on the "
+                      "masked buffer, all 8 experts"})
     if "dense_attention" in rec:
         rows = rec["dense_attention"] + rec["dense_attention_serve"]
         serve = rec["dense_attention_serve"]

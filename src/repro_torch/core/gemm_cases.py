@@ -7,6 +7,12 @@ kernel's plan for each on the CPU, so both read them from here.
 
 from __future__ import annotations
 
+# kraken_gemm and grouped_moe_gemm against their plain versions, (atol,
+# rtol) by dtype: bf16 sums fp32 products in another order and rounds once
+# (one output ulp, 2^-8 of rtol, with room for the order); fp32 sums in
+# another order only
+GEMM_TOL = {"bfloat16": (3e-2, 2e-2), "float32": (1e-4, 1e-4)}
+
 # yi-6b (``YI_6B``): d_model 4096, 32 heads / 4 KV heads of 128, d_ff 11008,
 # vocab 64000, 32 layers; served at 4 slots x chunk 64
 YI_LAYERS = 32

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of kraken_conv.cu, kraken_gemm.cu and
-// swa_attention.cu: mbarriers, TMA tile loads, ldmatrix, wgmma with A in
-// registers (RS) or in shared memory (SS), their operand descriptors, and the
-// host-side tensor-map encoder.  Plain inline PTX, no CUTLASS.
+// Hopper (sm_90a) building blocks of kraken_conv.cu, kraken_gemm.cu,
+// grouped_moe_gemm.cu and swa_attention.cu: mbarriers, TMA tile loads,
+// ldmatrix, wgmma with A in registers (RS) or in shared memory (SS), their
+// operand descriptors, and the host-side tensor-map encoder.  Plain inline
+// PTX, no CUTLASS.
 //
 // Conventions: every shared-memory operand of a TMA load or of wgmma is a
 // 1024-byte aligned buffer laid out with the 128-byte swizzle (16-byte chunk
@@ -107,6 +108,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same, with an L2 cache policy (l2_evict_first) for data read once.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "l"(policy)
       : "memory");
 }
 
@@ -311,6 +323,24 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t de
       "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
       : HOPPER_D32(0), HOPPER_D32(32), HOPPER_D32(64), HOPPER_D32(96)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The SS product above at a tile width N of 64, 128 or 256, accumulating
+// (scale_d 1): the one call of kraken_gemm.cu and grouped_moe_gemm.cu.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_ss_m64n64k16(d, desc_a, desc_b, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_ss_m64n128k16(d, desc_a, desc_b, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  wgmma_ss_m64n256k16(d, desc_a, desc_b, 1);
 }
 
 // d (fp32, the wgmma accumulator layout) += a (64 x 16, shared, K-major:

@@ -207,21 +207,6 @@ __device__ void fill_tile(unsigned char* dst, const uint16_t* __restrict__ src, 
   }
 }
 
-template <int BN>
-__device__ __forceinline__ void mma_ss(float (&acc)[BN / 2], uint64_t da, uint64_t db);
-template <>
-__device__ __forceinline__ void mma_ss<64>(float (&acc)[32], uint64_t da, uint64_t db) {
-  wgmma_ss_m64n64k16(acc, da, db, 1);
-}
-template <>
-__device__ __forceinline__ void mma_ss<128>(float (&acc)[64], uint64_t da, uint64_t db) {
-  wgmma_ss_m64n128k16(acc, da, db, 1);
-}
-template <>
-__device__ __forceinline__ void mma_ss<256>(float (&acc)[128], uint64_t da, uint64_t db) {
-  wgmma_ss_m64n256k16(acc, da, db, 1);
-}
-
 template <int BM, int BN>
 __global__ void __launch_bounds__(128 * (BM / 64 + 1), 1)
 kraken_gemm_wgmma(const __grid_constant__ CUtensorMap amap,
@@ -306,7 +291,7 @@ kraken_gemm_wgmma(const __grid_constant__ CUtensorMap amap,
     const uint64_t db = desc_mn128(st + A_BYTES, KB * ROW);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KB / 16; ++kk) mma_ss<BN>(acc, da + 2 * kk, db + 128 * kk);
+    for (int kk = 0; kk < KB / 16; ++kk) wgmma_ss<BN>(acc, da + 2 * kk, db + 128 * kk);
     wgmma_commit();
     // keep this stage's products in flight; the previous stage's are done
     wgmma_wait<1>();

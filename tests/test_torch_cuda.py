@@ -19,7 +19,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import attention_cases as ac  # noqa: E402
 from repro_torch.core.conv_cases import CONV_NONFINITE  # noqa: E402
-from repro_torch.core.gemm_cases import GEMM_EDGE  # noqa: E402
+from repro_torch.core.gemm_cases import GEMM_EDGE, GEMM_TOL  # noqa: E402
+from repro_torch.core.moe_cases import (MOE_CASES, MOE_EDGE,  # noqa: E402
+                                        moe_sizes)
 
 POS_EMPTY = -(2 ** 30)
 
@@ -339,6 +341,87 @@ def test_grouped_moe_gemm_kernel_matches_plain(dtype):
         for i, s in enumerate(sizes):
             assert not got[i, min(s, c):].any()
     assert tmg.launches == before + len(cases)
+
+
+# grouped_moe_gemm's bf16 plans: chip_smoke.py's MOE_CASES (full width) and
+# MOE_EDGE, as (name, E, C, d, f, sizes, the value in the dead rows)
+MOE_PLAN_CASES = ([(n, e, c, d, f, moe_sizes(s, e), 99.0)
+                   for n, e, c, d, f, s, _ in MOE_CASES] + MOE_EDGE)
+
+
+def _moe_operands(dev, e, c, d, f, sizes, fill, seed):
+    """bf16 xs [e, c, d] with ``fill`` in the rows at or past each size,
+    weights [e, d, f] scaled by 1/sqrt(d), and the sizes, made on the card
+    one expert at a time."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.empty((e, d, f), dtype=torch.bfloat16, device=dev)
+    for i in range(e):
+        w[i] = torch.randn((d, f), generator=g, device=dev) / max(d, 1) ** 0.5
+    xs = torch.randn((e, c, d), generator=g, device=dev).to(torch.bfloat16)
+    for i, s in enumerate(sizes):
+        xs[i, min(max(s, 0), c):] = fill
+    return xs, w, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_PLAN_CASES,
+                         ids=[c[0] for c in MOE_PLAN_CASES])
+def test_grouped_moe_gemm_kernel_plans(case):
+    """bf16 at every plan class (the wgmma kernel's 64 x 256 and 128 x 128
+    tiles, f under BN, a split of d taken at run time, two m tiles, the tile
+    route) against the plain version within GEMM_TOL; rows past the sizes
+    exactly zero (garbage or Inf there); two calls bit-identical."""
+    from repro_torch.kernels import kraken_moe_gemm as tmg
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    _, e, c, d, f, sizes, fill = case
+    xs, w, sz = _moe_operands(dev, e, c, d, f, sizes, fill, seed=e * c + d)
+    before = tmg.launches
+    got = tmg.grouped_moe_gemm(xs, w, sz)
+    again = tmg.grouped_moe_gemm(xs, w, sz)
+    want = ref.grouped_moe_gemm(xs, w, sz)
+    torch.cuda.synchronize()
+    assert tmg.launches == before + 2
+    atol, rtol = GEMM_TOL["bfloat16"]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    for i, s in enumerate(sizes):
+        assert not got[i, min(max(s, 0), c):].any()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_grouped_expert_ffn_captures_in_a_cuda_graph():
+    """mixtral's decode-step expert FFN (E 8, C 1, d 6144, f 16384) captured
+    in one CUDA graph: a replay gives the eager call's bits; after the sizes
+    change in place (one live expert: the kernel now splits d) a replay
+    gives the new eager call's bits, within GEMM_TOL of the plain FFN."""
+    from repro_torch.kernels import kraken_moe_gemm as tmg
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    e, d, f = 8, 6144, 16384
+    buf, wg, sz = _moe_operands(dev, e, 1, d, f, [1, 0, 1, 1, 0, 1, 1, 1],
+                                0.0, seed=1)
+    _, wu, _ = _moe_operands(dev, e, 1, d, f, [0] * e, 0.0, seed=2)
+    _, wo, _ = _moe_operands(dev, e, 1, f, d, [0] * e, 0.0, seed=3)
+    args = (buf, sz, wg, wu, wo)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmg.grouped_expert_ffn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tmg.grouped_expert_ffn(*args)
+    atol, rtol = GEMM_TOL["bfloat16"]
+    for sizes in ([1, 0, 1, 1, 0, 1, 1, 1], [0, 0, 0, 0, 0, 1, 0, 0]):
+        sz.copy_(torch.tensor(sizes, dtype=torch.int32, device=dev))
+        graph.replay()
+        eager = tmg.grouped_expert_ffn(*args)
+        want = ref.grouped_expert_ffn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(captured.view(torch.int16), eager.view(torch.int16))
+        torch.testing.assert_close(captured, want, rtol=rtol, atol=atol)
+        assert not captured[torch.tensor(sizes, device=dev) == 0].any()
 
 
 @pytest.mark.cuda
