@@ -19,7 +19,14 @@ default ``build/chip_smoke/``):
    every epilogue at ragged shapes.  Each GEMM runs twice and must give the
    same bits; its plan, TFLOP/s, GB/s and ratios to ``torch.matmul`` and
    the bound are logged, and every case is checked before a miss fails the
-   phase with the largest atol it needs.
+   phase with the largest atol it needs.  ``paged_decode_attention`` runs
+   every ``PAGED_CASES`` entry of ``repro_torch/core/attention_cases.py``
+   (yi-6b, its int8 pools and mixtral at 1, 4 and 64 slots; a ring wrap, a
+   window, dead slots, sentinels mid-table, shapes TMA refuses) in each of
+   its pool dtypes: within ``ATTN_TOL``, dead slots exactly zero, two calls
+   bit-identical and the same bits with Inf and NaN in every dead entry and
+   the trash page; its plan and the largest atol needed are logged, and the
+   serve shapes are timed event-timed and device-only (CUDA-graph replay).
 3. ``moe_kernels`` -- the same for ``grouped_moe_gemm`` at the mixtral and
    llama4 expert shapes of ``repro_torch/core/moe_cases.py``, decode and
    mixed-step capacities, bfloat16, float32 and int8 (exact), with skewed,
@@ -152,13 +159,13 @@ SERVE_NEW = 16
 # the same.  GEMM_TOL, kraken_gemm's and grouped_moe_gemm's tolerance, is
 # repro_torch.core.gemm_cases's.
 MOE_LAYERS = 8
-# paged_decode_attention at the mixtral path's 48/8 heads of 128 under the
-# 4096 window
-MIXTRAL_HEADS, MIXTRAL_KV_HEADS, MIXTRAL_WINDOW = 48, 8, 4096
-ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}  # by q dtype
-# decode_attention's and swa_attention's cases and tolerances (DECODE_TOL,
-# SWA_TOL, SWA_ROW_KEYS) are repro_torch.core.attention_cases's: the card
-# tests hold the kernels to the same, and the CPU tests plan the same cases.
+# paged_decode_attention's, decode_attention's and swa_attention's cases
+# and tolerances (PAGED_CASES, ATTN_TOL, DECODE_TOL, SWA_TOL, SWA_ROW_KEYS)
+# are repro_torch.core.attention_cases's: the card tests hold the kernels to
+# the same, and the CPU tests plan the same cases.  The mixtral path's
+# paged_decode_attention case is its "mixtral 4 slots" (48/8 heads of 128
+# under the 4096 window).
+MIXTRAL_PAGED = "mixtral 4 slots"
 E2E_TOL = 0.05   # max |kernel - plain| <= E2E_TOL * max |plain| on bf16 logits
 # gemma3-12b (``GEMMA3_12B``): 48 layers = 8 periods of 5 local (window
 # 1024) + 1 global; 16/8 heads of 240; the forward's sequence length
@@ -364,12 +371,30 @@ def phase_build(rec: dict, state: dict) -> None:
     if len(dec) != 10 or any(" 0 bytes spill stores" not in " ".join(v)
                              for v in dec.values()):
         raise AssertionError(f"decode_attention kernels: {dec}")
+    # paged_decode_attention's eight split variants (four dtype pairs x the
+    # tma and ldg routes): the two the engines serve (tma over bf16 pools,
+    # and bf16 q over int8 pools) spill nothing
+    paged = {fn: lines for fn, lines in
+             ptxas_by_function(report["paged_attention"]["log"]).items()
+             if "paged_decode_attention_split" in fn}
+    paged_tma = {fn: lines for fn, lines in paged.items()
+                 if "13__nv_bfloat16S1_Lb1EE" in fn
+                 or "13__nv_bfloat16aLb1EE" in fn}
+    for fn, lines in paged.items():
+        args = fn.split("paged_decode_attention_split", 1)[1].split("EEv")[0]
+        log(f"  ptxas paged_attention split{args}: {' | '.join(lines)}")
+    if len(paged) != 8 or len(paged_tma) != 2 or any(
+            " 0 bytes spill stores" not in " ".join(v)
+            for v in paged_tma.values()):
+        raise AssertionError(f"paged_decode_attention_split variants: "
+                             f"{paged}")
     log(f"build: {len(report)} kernels in {secs:.1f} s (parallel nvcc); "
         f"kraken_conv_kernel's 4 variants (bf16 in) spill nothing; wgmma "
         f"{'SERIALISED by ptxas (C7520)' if serial else 'not serialised'}; "
         "kraken_gemm_wgmma's 6 variants spill nothing, wgmma not "
         "serialised; swa_wgmma's 3 variants at 168 registers, no spill, "
         "wgmma not serialised; decode_attention's 10 kernels spill nothing; "
+        "paged_decode_attention's 2 served tma variants spill nothing; "
         "grouped_moe_gemm's 2 wgmma tiles and its sum spill nothing, the "
         "128 x 128 one at 168 registers, wgmma "
         f"{'SERIALISED by ptxas (C7520)' if moe_serial else 'not serialised'}")
@@ -482,102 +507,122 @@ def check_gemm_rows(label: str, rows: list) -> None:
                         for r in bad[:12]))
 
 
-def build_pool(torch, *, b, kvh, d, ps, mp, q_pos, dead, dtype, seed):
-    """A page pool as token-by-token serving leaves it: shuffled physical
-    pages, ring-written positions 0..q_pos[i] per slot, sentinel rows for
-    slots in ``dead`` (and one sentinel entry in slot 3's row)."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    n_pages = b * mp + 4
-    logical = mp * ps
-    table = np.full((b, mp), n_pages, np.int32)
-    perm = rng.permutation(n_pages)
-    for i in range(b):
-        if i not in dead:
-            table[i] = perm[i * mp:(i + 1) * mp]
-    if b > 3 and 3 not in dead:
-        table[3, 0] = n_pages
-    pos = np.full((n_pages, ps), -(2 ** 30), np.int32)
-    for i in range(b):
-        if i in dead:
-            continue
-        for p in range(int(q_pos[i]) + 1):
-            li = p % logical
-            page = table[i, li // ps]
-            if page < n_pages:
-                pos[page, li % ps] = p
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (n_pages, kvh, ps, d)
-    scales = None
-    if dtype == torch.int8:
-        k = torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                          dtype=torch.int32).to(torch.int8)
-        v = torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                          dtype=torch.int32).to(torch.int8)
-        scales = [torch.rand(shape[:3], generator=gen, device="cuda") / 127
-                  for _ in range(2)]
-    else:
-        k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    return (k, v, torch.as_tensor(pos, device="cuda"),
-            torch.as_tensor(table, device="cuda"), scales, pos, table)
+def paged_case(torch, pa, ref, case, dtype: str, *, seed=0):
+    """One ``PAGED_CASES`` entry with pools of ``dtype`` against
+    ``ref.paged_decode_attention`` under ``ATTN_TOL``: the dead slots exact
+    zeros, two calls bit-identical, and the same bits again with Inf in K
+    and NaN in V (int8: in their scales) at every entry no slot attends to,
+    the unreferenced pages and the trash page.  When the case is timed, the
+    kernel's and the plain version's time event-timed (host included) and
+    the kernel's device-only (``graph_ms``), and the bound from this run's
+    live pages.  A miss does not raise: the row says ``ok`` False and the
+    least atol it needs (``check_paged``)."""
+    from repro_torch.core.attention_cases import ATTN_TOL, paged_pool
+    name, b, h, kvh, d, ps, mp, _, window, q_pos, dead, _, timed, _ = case
+    quant = dtype == "int8"
+    qdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    kvdt = torch.int8 if quant else qdt
 
+    def on_card(x):
+        n = x["n_pages"]
+        put = lambda a: torch.from_numpy(a).to("cuda")  # noqa: E731
+        sc = {key: put(x[key])[:n] if quant else None
+              for key in ("k_scale", "v_scale")}
+        return (put(x["q"]).to(qdt), put(x["k"]).to(kvdt)[:n],
+                put(x["v"]).to(kvdt)[:n],
+                dict(pos_pages=put(x["pos"])[:n], page_table=put(x["table"]),
+                     q_pos=put(x["q_pos"]), window=window, **sc))
 
-def attn_case(torch, pa, ref, *, dtype, window, seed=0, heads=HEADS,
-              kv_heads=KV_HEADS):
-    b, h, kvh, d, ps, mp = SLOTS, heads, kv_heads, HEAD_DIM, PAGE, \
-        MAX_LEN // PAGE
-    q_pos = [300, 700, 40, 17]     # slot 1 wraps the 512-token ring
-    dead = {2}                     # an all-dead (sentinel) slot
-    qdt = torch.bfloat16 if dtype == torch.int8 else dtype
-    k, v, pos, table, scales, pos_np, table_np = build_pool(
-        torch, b=b, kvh=kvh, d=d, ps=ps, mp=mp, q_pos=q_pos, dead=dead,
-        dtype=dtype, seed=seed)
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    q = torch.randn((b, h, d), generator=g, device="cuda").to(qdt)
-    qp = torch.tensor(q_pos, dtype=torch.int32, device="cuda")
-    ks, vs = scales if scales else (None, None)
-    kw = dict(pos_pages=pos, page_table=table, q_pos=qp, k_scale=ks,
-              v_scale=vs, window=window)
+    x = paged_pool(case, dtype, seed)
+    q, k, v, kw = on_card(x)
     got = pa.paged_decode_attention(q, k, v, **kw)
+    again = pa.paged_decode_attention(q, k, v, **kw)
     want = ref.paged_decode_attention(q, k, v, **kw)
+    y = on_card(paged_pool(case, dtype, seed, nonfinite=True))
+    inf = pa.paged_decode_attention(y[0], y[1], y[2], **y[3])
     torch.cuda.synchronize()
-    name = str(dtype).split(".")[-1]
+    del y
     atol, rtol = ATTN_TOL[str(qdt).split(".")[-1]]
-    err = assert_close(f"paged attention {name} window={window}", got, want,
-                       atol, rtol)
-    if got[2].abs().max().item() != 0.0:
-        raise AssertionError("paged attention: all-dead slot is not zero")
-    row = {"dtype": name, "window": window, "max_abs_err": err,
-           "ms": time_ms(lambda: pa.paged_decode_attention(q, k, v, **kw), 50),
-           "plain_ms": time_ms(lambda: ref.paged_decode_attention(
-               q, k, v, **kw), 10),
-           "library_ms": None}
-    # the bound counts what these inputs need: q and out, the table, the
-    # position rows of allocated pages, and K/V (+ scales) only of pages
-    # with an entry that survives the mask
-    isz_q = q.element_size()
-    isz_kv = k.element_size()
-    nbytes = 2 * b * h * d * isz_q + table.numel() * 4 + b * 4
-    flops = 0.0
-    n_pages = k.shape[0]
+    err = (got.float() - want.float()).abs()
+    finite = bool(torch.isfinite(got.float()).all())
+    need = (float((err - rtol * want.float().abs()).max().clamp_min(0))
+            if finite else math.inf)
+    bits = lambda t: t.view(torch.uint8)  # noqa: E731
+    same = torch.equal(bits(got), bits(again))
+    inf_same = torch.equal(bits(got), bits(inf))
+    dead_zero = all(got[i].abs().max().item() == 0.0 for i in dead)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = pa.plan(b, h, kvh, d, ps, mp, kvdt, sms=sms)
+    row = {"name": name, "dtype": dtype, "b": b, "window": window,
+           "max_abs_err": float(err.max()) if finite else math.inf,
+           "atol_needed": need, "same_bits": same,
+           "inf_dead_same_bits": inf_same, "dead_slots_zero": dead_zero,
+           "ok": finite and need <= atol and same and inf_same and dead_zero,
+           "plan": plan, "plan_text": pa.describe(plan), "ms": None,
+           "device_ms": None, "plain_ms": None, "library_ms": None,
+           "bound_ms": None, "bound_by": None}
+    del got, again, want, inf, err
+    if not timed:
+        return row
+
+    def kernel():
+        return pa.paged_decode_attention(q, k, v, **kw)
+
+    row["ms"] = time_ms(kernel, 50)
+    row["device_ms"] = graph_ms(kernel, 20)
+    row["plain_ms"] = time_ms(lambda: ref.paged_decode_attention(
+        q, k, v, **kw), 10)
+    # the bound counts what these inputs need: q and out, the table and
+    # q_pos, the position rows of the reached pages, and K/V (+ scales) only
+    # of pages with an entry that survives the mask
+    n_pages, live = x["n_pages"], x["live"]
+    nbytes = 2 * b * h * d * q.element_size() + b * mp * 4 + b * 4
+    n_live = 0
     for i in range(b):
         for j in range(mp):
-            page = int(table_np[i, j])
+            page = int(x["table"][i, j])
             if page >= n_pages or j * ps > q_pos[i]:
                 continue
             nbytes += ps * 4
-            kp = pos_np[page]
-            ok = (kp >= 0) & (kp <= q_pos[i])
-            if window:
-                ok &= kp > q_pos[i] - window
-            if ok.any():
-                nbytes += 2 * kvh * ps * d * isz_kv \
-                    + (2 * kvh * ps * 4 if ks is not None else 0)
-                flops += 4.0 * h * d * int(ok.sum())
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, peak)
+            if live[page].any():
+                nbytes += 2 * kvh * ps * (d * k.element_size()
+                                          + (4 if quant else 0))
+                n_live += int(live[page].sum())
+    peak = PEAK_BF16 if dtype == "bfloat16" else PEAK_FP32
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * h * d * n_live,
+                                                peak)
+    row["live_entries"] = n_live
     return row
+
+
+def paged_line(r: dict) -> str:
+    """One log line of a ``paged_case`` row."""
+    out = (f"  paged_attention {r['name'][:34]:34s} {r['dtype']:8s} err="
+           f"{r['max_abs_err']:.2e} atol_needed={r['atol_needed']:.2e}"
+           f"{'' if r['same_bits'] else ' BITS DIFFER'}"
+           f"{'' if r['inf_dead_same_bits'] else ' INF IN DEAD DATA MOVES IT'}"
+           f"{'' if r['dead_slots_zero'] else ' DEAD SLOT NOT ZERO'}"
+           f" [{r['plan_text']}]")
+    if r["ms"] is not None:
+        out += (f" ms={r['ms']:.4f} device={r['device_ms']:.4f} "
+                f"plain={r['plain_ms']:.4f} bound={r['bound_ms']:.5f}")
+    return out
+
+
+def check_paged(label: str, rows: list) -> None:
+    """Raise, after every case has run, if any ``paged_case`` row missed
+    ``ATTN_TOL``, gave other bits on its second run or with Inf in its dead
+    data, or a dead slot that is not exact zeros."""
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        need = max(r["atol_needed"] for r in bad)
+        raise AssertionError(
+            f"{label}: paged_decode_attention fails {len(bad)} of {len(rows)} "
+            f"cases (largest atol needed {need:.3e}): "
+            + "; ".join(f"{r['name']} {r['dtype']} need {r['atol_needed']:.2e}"
+                        f" same_bits={r['same_bits']} inf_dead_same_bits="
+                        f"{r['inf_dead_same_bits']} dead_slots_zero="
+                        f"{r['dead_slots_zero']}" for r in bad[:12]))
 
 
 def phase_kernels(rec: dict, state: dict) -> None:
@@ -635,17 +680,27 @@ def phase_kernels(rec: dict, state: dict) -> None:
         "with an operand TMA refuses), largest atol needed bf16 "
         f"{max(r['atol_needed'] for r in rows if r['dtype'] == 'bfloat16'):.2e} "
         f"f32 {max(r['atol_needed'] for r in rows if r['dtype'] == 'float32'):.2e}")
+    from repro_torch.core.attention_cases import PAGED_CASES
     arows = []
-    for dtype in (torch.bfloat16, torch.float32, torch.int8):
-        for window in (0, 64):
-            r = attn_case(torch, pa, ref, dtype=dtype, window=window)
+    for case in PAGED_CASES:
+        for dtype in case[7]:
+            r = paged_case(torch, pa, ref, case, dtype, seed=len(arows))
             arows.append(r)
-            log(f"  paged_attention {r['dtype']:8s} window={window:<3d} "
-                f"err={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
-                f"plain={r['plain_ms']:.4f} bound={r['bound_ms']:.5f}")
-    log(f"kernels: paged_decode_attention matches plain in {len(arows)} "
-        "cases (live, dead, sentinel, ring-wrap, window, all-dead slot)")
+            log(paged_line(r))
+            torch.cuda.empty_cache()
     rec["attention"] = arows
+    check_paged("kernels", arows)
+    main = next(r for r in arows
+                if r["name"] == "yi-6b 4 slots" and r["dtype"] == "bfloat16")
+    log(f"kernels: paged_decode_attention matches plain in {len(arows)} "
+        "cases, each bit-identical over two runs and with Inf in its dead "
+        f"data ({sum(not r['plan']['tma'] for r in arows)} on the ldg route), "
+        "largest atol needed bf16 "
+        f"{max(r['atol_needed'] for r in arows if r['dtype'] != 'float32'):.2e}"
+        f" f32 {max(r['atol_needed'] for r in arows if r['dtype'] == 'float32'):.2e}"
+        f"; yi-6b 4 slots bf16 [{main['plan_text']}] {main['ms']:.4f} ms a "
+        f"call event-timed, {main['device_ms']:.4f} device-only, plain "
+        f"{main['plain_ms']:.4f}, bound {main['bound_ms']:.5f}")
 
 
 def moe_case(torch, mg, ref, *, e, c, d, f, sizes, dtype, seed=0, fill=99.0,
@@ -894,12 +949,12 @@ def phase_moe_kernels(rec: dict, state: dict) -> None:
             path.append(r)
             log(gemm_line(f"mixtral gemm {name:8s}", r))
     check_gemm_rows("moe_kernels", path)
-    att = attn_case(torch, pa, ref, dtype=torch.bfloat16,
-                    window=MIXTRAL_WINDOW, heads=MIXTRAL_HEADS,
-                    kv_heads=MIXTRAL_KV_HEADS)
-    log(f"  mixtral paged_attention 48/8 heads window={MIXTRAL_WINDOW} "
-        f"err={att['max_abs_err']:.2e} ms={att['ms']:.4f} "
-        f"plain={att['plain_ms']:.4f} bound={att['bound_ms']:.5f}")
+    from repro_torch.core.attention_cases import PAGED_CASES
+    att = paged_case(torch, pa, ref, next(c for c in PAGED_CASES
+                                          if c[0] == MIXTRAL_PAGED),
+                     "bfloat16")
+    log(paged_line(att))
+    check_paged("moe_kernels", [att])
     dec = sum(r["ms"] * c for r, (_, _, _, c) in zip(path, MIXTRAL_GEMMS))
     log(f"moe_kernels: the mixtral path's kraken_gemm and "
         f"paged_decode_attention shapes match plain; kraken_gemm "
@@ -1160,7 +1215,9 @@ def device_trace(run, label: str) -> dict:
         # the wgmma kernel, the split's fixed-order sum, the fp32 kernel
         if "kraken_gemm" in key or "gemm_kernel" in key:
             return "kraken_gemm"
-        if "paged_decode_kernel" in key:
+        # the split kernel and the combine; before decode_attention's test,
+        # which "paged_decode_attention_combine" meets
+        if "paged_decode_attention" in key:
             return "paged_decode_attention"
         if "swa_wgmma" in key or "swa_fma" in key:
             return "swa_attention"
@@ -2625,7 +2682,7 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
         return sum(dec[nm][key] * counts[nm] for nm in counts)
 
     att = next(r for r in rec["attention"]
-               if r["dtype"] == "bfloat16" and r["window"] == 0)
+               if r["name"] == "yi-6b 4 slots" and r["dtype"] == "bfloat16")
     return [
         {"name": "kraken_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/kraken_gemm.cu",
@@ -2645,10 +2702,12 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
          "launches_by_path": by_path("paged_decode_attention"),
          "max_abs_err": max(r["max_abs_err"] for r in rec["attention"]),
          "ms": att["ms"] * LAYERS, "plain_ms": att["plain_ms"] * LAYERS,
+         "device_ms": att["device_ms"] * LAYERS,
          "bound_ms": att["bound_ms"] * LAYERS, "bound_by": att["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "plan": att["plan_text"],
          "shape": "one yi-6b decode step, bf16: 32 layers x (4 slots, "
-                  "32/4 heads, D 128, page 16, q_pos 300/700/dead/17)"},
+                  "32/4 heads, D 128, page 16, q_pos 300/700/dead/17); no "
+                  "single PyTorch call walks a page table"},
     ]
 
 

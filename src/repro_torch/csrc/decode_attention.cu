@@ -42,7 +42,8 @@
 //   * each warp owns whole query rows: lane e scores entry e of the tile and
 //     the row's max and sum are warp shuffles, so the online-softmax update
 //     runs on every lane and needs no barrier of its own;
-//   * the combine (decode_attention_combine) reads the splits in the order
+//   * the combine (decode_attention_combine, whose body flash_decode.cuh
+//     shares with paged_attention.cu) reads the splits in the order
 //     z = 0, 1, ...: M = max m_z, out = sum e^(m_z - M) acc_z / sum
 //     e^(m_z - M) l_z, rounded once, exact zeros where the sum of l is 0.
 //     No atomics and no block waits on another: the same bits on every run.
@@ -53,12 +54,15 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "flash_decode.cuh"
+
 namespace {
+
+using namespace flash_decode;
 
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int TILE = 32;   // entries a tile: one per lane of the scoring warp
-constexpr float NEG = -1e30f;
 constexpr int SMEM_MAX = 227 * 1024;
 
 // Every field an int.  The one list of them: struct Plan and the names
@@ -75,44 +79,6 @@ struct Plan {
 };
 constexpr int PLAN_INTS = 0 DECODE_ATTENTION_PLAN(PLAN_ONE);
 static_assert(sizeof(Plan) == PLAN_INTS * sizeof(int), "Plan is ints only");
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// The 16 / sizeof(T) elements of a 16-byte vector as floats, by shifts (no
-// address taken, so the vector stays in registers).
-__device__ __forceinline__ void unpack(const uint4& w, float (&f)[4]) {
-  f[0] = __uint_as_float(w.x);
-  f[1] = __uint_as_float(w.y);
-  f[2] = __uint_as_float(w.z);
-  f[3] = __uint_as_float(w.w);
-}
-__device__ __forceinline__ void unpack(const uint4& w, float (&f)[8]) {
-  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(x[i] << 16);   // bf16: the high half of a float
-    f[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& w, float (&f)[16]) {
-  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[4 * i + b] = static_cast<float>(static_cast<int8_t>((x[i] >> (8 * b)) & 0xffu));
-}
 
 // Shared-memory geometry, in floats.  Rows are D rounded up to a float4
 // (d4 groups; the padding holds zeros); the K and V tiles' row stride is an
@@ -136,18 +102,6 @@ struct Geometry {
     floats = live + TILE;
   }
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Stage the tile's rows [0, TILE) of K and V as fp32 (dequantized with the
 // entry's scale) into kt / vt; a dead entry, or one past S, is written as
@@ -380,31 +334,7 @@ __global__ void __launch_bounds__(NTHREADS)
 decode_attention_combine(const float* __restrict__ part, TQ* __restrict__ out, int splits,
                          int D) {
   extern __shared__ float cw[];   // [splits] m_z, then e^(m_z - M); [splits] l_z
-  __shared__ float red[NWARPS];
-  const int W = D + 2, tid = threadIdx.x;
-  const float* pr = part + (size_t)blockIdx.x * splits * W;
-  float mx = NEG;
-  for (int z = tid; z < splits; z += NTHREADS) {
-    cw[z] = pr[z * W];
-    cw[splits + z] = pr[z * W + 1];
-    mx = fmaxf(mx, cw[z]);
-  }
-  mx = warp_max(mx);
-  if (tid % 32 == 0) red[tid / 32] = mx;
-  __syncthreads();
-  mx = red[0];
-#pragma unroll
-  for (int w = 1; w < NWARPS; ++w) mx = fmaxf(mx, red[w]);
-  for (int z = tid; z < splits; z += NTHREADS) cw[z] = expf(cw[z] - mx);
-  __syncthreads();
-  float den = 0.f;
-  for (int z = 0; z < splits; ++z) den = fmaf(cw[z], cw[splits + z], den);
-  for (int d = tid; d < D; d += NTHREADS) {
-    float num = 0.f;
-#pragma unroll 8
-    for (int z = 0; z < splits; ++z) num = fmaf(cw[z], pr[z * W + 2 + d], num);
-    out[(size_t)blockIdx.x * D + d] = from_float<TQ>(den == 0.f ? 0.f : num / den);
-  }
+  combine_splits<TQ, NTHREADS>(part, out, splits, D, cw);
 }
 
 bool plan_ok(const Plan& p) {

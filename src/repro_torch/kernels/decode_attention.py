@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core.elastic import ceil_div
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import _DTYPE, _check
+from repro_torch.kernels.paged_attention import _DTYPE, _check, _int32_on
 from repro_torch.kernels.ref import quantize_kv  # noqa: F401  (re-exported)
 
 #: launches of the kernel in this process (one per call, the combine
@@ -132,15 +132,6 @@ def _launch_plan(b, h, kv, s, d, kv_dtype, device):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q = plan(b, h, kv, s, d, kv_dtype, sms=sms)
     return q, (ctypes.c_int * len(PLAN_FIELDS))(*(q[f] for f in PLAN_FIELDS))
-
-
-def _int32_on(x, dev: torch.device) -> torch.Tensor:
-    """``x`` as a contiguous int32 tensor on CUDA device ``dev``: ``x``
-    itself when it already is one."""
-    if (isinstance(x, torch.Tensor) and x.dtype is torch.int32
-            and x.get_device() == dev.index and x.is_contiguous()):
-        return x
-    return torch.as_tensor(x, device=dev).to(torch.int32).contiguous()
 
 
 def decode_attention(q, k, v, *, kv_pos, q_pos, k_scale=None, v_scale=None,

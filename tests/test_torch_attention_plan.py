@@ -27,8 +27,8 @@ and their arithmetic, on the CPU (the kernels themselves have no CPU mode).
   chunk that writes ``m = 0`` and a kv tile skipped at the window's edge
   must each fail.
 * The plans' field order: each ``PLAN_FIELDS`` against the kernel source's
-  list (``DECODE_ATTENTION_PLAN``, ``SWA_ATTENTION_PLAN``), which the
-  libraries also report when loaded.
+  list (``DECODE_ATTENTION_PLAN``, ``SWA_ATTENTION_PLAN``,
+  ``PAGED_ATTENTION_PLAN``), which the libraries also report when loaded.
 """
 
 import math
@@ -48,6 +48,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import attention_cases as ac  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import swa_attention as sw  # noqa: E402
 
@@ -493,6 +494,7 @@ def test_swa_skipped_edge_tile_fails_the_emulation(case):
 @pytest.mark.parametrize("module, source, macro", [
     (dec, "decode_attention.cu", "DECODE_ATTENTION_PLAN"),
     (sw, "swa_attention.cu", "SWA_ATTENTION_PLAN"),
+    (pa, "paged_attention.cu", "PAGED_ATTENTION_PLAN"),
 ])
 def test_plan_fields_match_the_kernel_source(module, source, macro):
     text = (ROOT / "src/repro_torch/csrc" / source).read_text()

@@ -197,6 +197,113 @@ def test_paged_attention_kernel_matches_plain(kv):
         assert not got[2].any()          # the all-dead slot is exact zero
 
 
+# paged_decode_attention: chip_smoke.py's PAGED_CASES, each in its pool
+# dtypes, under ATTN_TOL (atol, rtol) by q dtype
+PAGED_TOL = {torch.float32: ac.ATTN_TOL["float32"],
+             torch.bfloat16: ac.ATTN_TOL["bfloat16"]}
+PAGED_RUNS = [(c, dt) for c in ac.PAGED_CASES for dt in c[7]]
+
+
+def _paged_on(x, dtype, window, dev):
+    """``paged_pool``'s numpy inputs on the card: q, the first n_pages
+    pages of K and V (the trash page stays past them), and the keywords."""
+    quant = dtype == "int8"
+    qdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    kvdt = torch.int8 if quant else qdt
+    n = x["n_pages"]
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    kw = dict(pos_pages=put(x["pos"])[:n], page_table=put(x["table"]),
+              q_pos=put(x["q_pos"]), window=window,
+              k_scale=put(x["k_scale"])[:n] if quant else None,
+              v_scale=put(x["v_scale"])[:n] if quant else None)
+    return (put(x["q"]).to(qdt), put(x["k"]).to(kvdt)[:n],
+            put(x["v"]).to(kvdt)[:n], kw)
+
+
+def _bits(t):
+    return t.view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, dtype", PAGED_RUNS,
+                         ids=[f"{c[0]} {dt}" for c, dt in PAGED_RUNS])
+def test_paged_attention_kernel_plans(case, dtype):
+    """Every PAGED_CASES entry: within ATTN_TOL of the plain version, dead
+    slots exact zeros, two calls bit-identical, and the same bits with Inf
+    in K and NaN in V (int8: in their scales) wherever no slot attends, the
+    trash page included."""
+    from repro_torch.kernels import paged_attention as tpa
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    window, dead = case[8], case[10]
+    q, k, v, kw = _paged_on(ac.paged_pool(case, dtype, 0), dtype, window,
+                            dev)
+    before = tpa.launches
+    got = tpa.paged_decode_attention(q, k, v, **kw)
+    again = tpa.paged_decode_attention(q, k, v, **kw)
+    want = ref.paged_decode_attention(q, k, v, **kw)
+    yq, yk, yv, ykw = _paged_on(ac.paged_pool(case, dtype, 0, nonfinite=True),
+                                dtype, window, dev)
+    inf = tpa.paged_decode_attention(yq, yk, yv, **ykw)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 3
+    atol, rtol = PAGED_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    for i in dead:
+        assert not got[i].any()
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(got), _bits(inf))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, h, kvh, d, ps, mp = case[1:7]
+    plan = tpa.plan(b, h, kvh, d, ps, mp, k.dtype, sms=sms)
+    assert plan["tma"] == (tpa.route(d, ps, k.dtype) == "tma")
+
+
+@pytest.mark.cuda
+def test_paged_attention_replays_from_a_cuda_graph():
+    """yi-6b's decode shape captured in one CUDA graph; the replay is right
+    after q_pos, the positions and the table change in place (another
+    slot dead, another sentinel, other lengths): the same bits as an eager
+    call on the new state, within ATTN_TOL of the plain version."""
+    from repro_torch.kernels import paged_attention as tpa
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    case = next(c for c in ac.PAGED_CASES if c[0] == "yi-6b 4 slots")
+    other = case[:9] + ([301, 12, 511, 160], (), ((0, 5),)) + case[12:]
+    q, k, v, kw = _paged_on(ac.paged_pool(case, "bfloat16", 0), "bfloat16",
+                            0, dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_decode_attention(q, k, v, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tpa.paged_decode_attention(q, k, v, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(captured),
+                       _bits(tpa.paged_decode_attention(q, k, v, **kw)))
+    # the same seed draws the same pools: only positions, table and q_pos
+    # differ, and they change in place
+    q2, k2, v2, kw2 = _paged_on(ac.paged_pool(other, "bfloat16", 0),
+                                "bfloat16", 0, dev)
+    assert torch.equal(_bits(k2), _bits(k)) and torch.equal(_bits(q2), _bits(q))
+    for key in ("pos_pages", "page_table", "q_pos"):
+        kw[key].copy_(kw2[key])
+    graph.replay()
+    eager = tpa.paged_decode_attention(q, k, v, **kw)
+    want = ref.paged_decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(captured), _bits(eager))
+    atol, rtol = PAGED_TOL[torch.bfloat16]
+    torch.testing.assert_close(captured.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert captured[2].any()           # slot 2 is live now
+    del graph
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
 def test_decode_attention_kernel_matches_plain(kv):

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Plant one fault at a time in a copy of ``csrc/swa_attention.cu`` or
-``csrc/decode_attention.cu`` and show that the checks catch it, on a machine
-with one NVIDIA GPU.
+"""Plant one fault at a time in a copy of ``csrc/swa_attention.cu``,
+``csrc/decode_attention.cu``, ``csrc/paged_attention.cu`` or the combine
+they share (``csrc/flash_decode.cuh``) and show that the checks catch it, on
+a machine with one NVIDIA GPU.
 
     python3 tools/plant_attention_faults.py [--out build/faults] [--only NAME]
 
 For each fault of :data:`FAULTS`: copy ``src/``, ``chip_smoke.py``,
 ``pytest.ini`` and the card tests into ``<out>/<fault>/``, replace one piece
-of the kernel's source there, then run the kernel's ``chip_smoke.py`` phase
-(``swa_kernels`` or ``dense_kernels``, which builds the kernel at first use)
-and ``pytest -m cuda tests/test_torch_cuda.py -k <kernel>`` in that copy.
+of a kernel source there, then run the checked kernel's ``chip_smoke.py``
+phase (``swa_kernels``, ``dense_kernels`` or ``kernels``, which builds the
+kernel at first use) and ``pytest -m cuda tests/test_torch_cuda.py -k
+<kernel>`` in that copy.
 Records per fault whether each failed, how many of the phase's cases missed
 their tolerance and the largest atol a missing case needs (from the phase's
 record; a fault that traps the launch leaves none), and how many card tests
@@ -33,43 +35,72 @@ from plant_gemm_faults import plant, slug
 ROOT = Path(__file__).resolve().parents[1]
 SWA = "src/repro_torch/csrc/swa_attention.cu"
 DEC = "src/repro_torch/csrc/decode_attention.cu"
-# kernel source -> (chip_smoke.py phase, its record's keys, card tests' -k)
-CHECKS = {SWA: ("swa_kernels", ("swa_attention",), "swa_attention"),
-          DEC: ("dense_kernels", ("dense_attention", "dense_attention_serve"),
-                "decode_attention")}
+PAGED = "src/repro_torch/csrc/paged_attention.cu"
+COMBINE = "src/repro_torch/csrc/flash_decode.cuh"
+# checked kernel -> (chip_smoke.py phase, its record's keys, card tests' -k)
+CHECKS = {"swa_attention": ("swa_kernels", ("swa_attention",),
+                            "swa_attention"),
+          "decode_attention": ("dense_kernels", ("dense_attention",
+                                                 "dense_attention_serve"),
+                               "decode_attention"),
+          "paged_decode_attention": ("kernels", ("attention",),
+                                     "paged_attention")}
 
-# name -> (kernel source, the source as it is, the source with the fault)
+_DROP_OLD = (
+    "  for (int z = 0; z < splits; ++z) den = fmaf(cw[z], cw[splits + z], den);\n"
+    "  for (int d = tid; d < D; d += NTHREADS) {\n"
+    "    float num = 0.f;\n"
+    "#pragma unroll 8\n"
+    "    for (int z = 0; z < splits; ++z)")
+_DROP_NEW = (
+    "  for (int z = 0; z < splits - 1; ++z) den = fmaf(cw[z], cw[splits + z], den);\n"
+    "  for (int d = tid; d < D; d += NTHREADS) {\n"
+    "    float num = 0.f;\n"
+    "#pragma unroll 8\n"
+    "    for (int z = 0; z < splits - 1; ++z)")
+
+# name -> (checked kernel, the source planted, the source as it is, the
+# source with the fault)
 FAULTS = {
     "mbarrier phase bit flipped (consumers wait on K's other parity)": (
-        SWA,
+        "swa_attention", SWA,
         "    mbar_wait(&kfull[s], ph);\n",
         "    mbar_wait(&kfull[s], ph ^ 1);\n"),
     "last ring stage not drained (consumers stop one kv tile early)": (
-        SWA,
+        "swa_attention", SWA,
         "  for (int kt = kt_lo; kt <= kt_hi; ++kt) {\n"
         "    const uint32_t st = smem_u32(ring + s * STAGE);",
         "  for (int kt = kt_lo; kt < kt_hi; ++kt) {\n"
         "    const uint32_t st = smem_u32(ring + s * STAGE);"),
     "V's swizzle off by one chunk (V read from the next 16 bytes)": (
-        SWA,
+        "swa_attention", SWA,
         "desc_mn128(st + KV_BYTES, KVBOX)",
         "desc_mn128(st + KV_BYTES + 16, KVBOX)"),
     "one split dropped from the combine": (
-        DEC,
-        "  for (int z = 0; z < splits; ++z) den = fmaf(cw[z], cw[splits + z], den);\n"
-        "  for (int d = tid; d < D; d += NTHREADS) {\n"
-        "    float num = 0.f;\n"
-        "#pragma unroll 8\n"
-        "    for (int z = 0; z < splits; ++z)",
-        "  for (int z = 0; z < splits - 1; ++z) den = fmaf(cw[z], cw[splits + z], den);\n"
-        "  for (int d = tid; d < D; d += NTHREADS) {\n"
-        "    float num = 0.f;\n"
-        "#pragma unroll 8\n"
-        "    for (int z = 0; z < splits - 1; ++z)"),
+        "decode_attention", COMBINE, _DROP_OLD, _DROP_NEW),
     "combine without the rescale by e^(m_z - M)": (
-        DEC,
+        "decode_attention", COMBINE,
         "cw[z] = expf(cw[z] - mx);",
         "cw[z] = 1.f;"),
+    "paged: a split with no live page writes m = 0": (
+        "paged_decode_attention", PAGED,
+        "            c == 0 ? NEG : 0.f;",
+        "            0.f;"),
+    "paged: one split dropped from the combine": (
+        "paged_decode_attention", COMBINE, _DROP_OLD, _DROP_NEW),
+    "paged: the window test removed": (
+        "paged_decode_attention", PAGED,
+        "live = kp >= 0 && kp <= qp && (window == 0 || kp > qp - window);",
+        "live = kp >= 0 && kp <= qp;"),
+    "paged: the int8 scale read from the wrong KV head": (
+        "paged_decode_attention", PAGED,
+        "tma_load_2d(st + 2 * g.page, &ksmap, &full[s], 0, row);",
+        "tma_load_2d(st + 2 * g.page, &ksmap, &full[s], 0, row - h + (h + 1) % p.KV);"),
+    "paged: the ring's last page not waited for": (
+        "paged_decode_attention", PAGED,
+        "    for (int t = 0; t < np; ++t) mbar_wait(",
+        "    for (int t = 0; t < np; ++t)\n"
+        "      if (i0 + t < L - 1) mbar_wait("),
 }
 
 
@@ -100,7 +131,7 @@ def run_fault(name: str, kernel: str, dest: Path) -> dict:
         "largest_atol_needed": worst["atol_needed"] if worst else None,
         "worst_case": (None if worst is None else
                        f"{worst.get('name', '')} {worst['dtype']} "
-                       f"S={worst['s']} window={worst['window']}".strip()),
+                       f"S={worst.get('s')} window={worst['window']}".strip()),
         "error_lines": tail,
         "tests_failed": int(failed.group(1)) if failed else 0,
         "tests_passed": int(passed.group(1)) if passed else 0,
@@ -114,11 +145,11 @@ def main(argv=None) -> int:
                    help="run the faults whose name contains this")
     args = p.parse_args(argv)
     results = []
-    for name, (kernel, old, new) in FAULTS.items():
+    for name, (kernel, source, old, new) in FAULTS.items():
         if args.only and args.only not in name:
             continue
         dest = args.out / slug(name)
-        plant(dest, old, new, kernel)
+        plant(dest, old, new, source)
         r = run_fault(name, kernel, dest)
         results.append(r)
         need = r["largest_atol_needed"]
