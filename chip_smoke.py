@@ -16,12 +16,14 @@ default ``build/chip_smoke/``):
    plain version, one library call and the bound; ``kraken_gemm`` also at
    the edge cases of ``repro_torch/core/gemm_cases.py`` (M 1, a split at
    decode, M 65, K 27 and 363 and N 123, which TMA refuses, a ragged K) and
-   every epilogue at ragged shapes.  Each GEMM runs twice and must give the
+   every epilogue at ragged shapes; rwkv6-3b's and zamba2-1.2b's
+   decode-step GEMMs are timed too.  Each GEMM runs twice and must give the
    same bits; its plan, TFLOP/s, GB/s and ratios to ``torch.matmul`` and
    the bound are logged, and every case is checked before a miss fails the
    phase with the largest atol it needs.  ``paged_decode_attention`` runs
    every ``PAGED_CASES`` entry of ``repro_torch/core/attention_cases.py``
-   (yi-6b, its int8 pools and mixtral at 1, 4 and 64 slots; a ring wrap, a
+   (yi-6b, its int8 pools and mixtral at 1, 4 and 64 slots, zamba2's
+   shared block at 4 and 64; a ring wrap, a
    window, dead slots, sentinels mid-table, shapes TMA refuses) in each of
    its pool dtypes: within ``ATTN_TOL``, dead slots exactly zero, two calls
    bit-identical and the same bits with Inf and NaN in every dead entry and
@@ -115,9 +117,36 @@ default ``build/chip_smoke/``):
    version, the peak allocation, and a ``torch.profiler`` trace of VGG-16
    frames at each batch.
 
+16. ``recurrence`` -- one full-width float32 layer of each recurrent
+   mixer (rwkv6-3b's RWKV6 time mix, zamba2-1.2b's Mamba2 block, seeded
+   weights with the reference's init scaling) over 300 tokens, rows of 300
+   and 217: the chunked mix finite and within ``RECUR_TOL`` of max |want|
+   of a token-by-token loop of the same layer's step, outputs and final
+   states; both timed.
+17. ``rwkv_serve`` -- release the earlier models, then serve rwkv6-3b at
+   full width and depth (32 layers, bf16, seeded weights) with the serve
+   phase's engine and traffic: every logit finite, zero new signatures
+   when warm, exactly 289 ``kraken_gemm`` launches a step (the channel
+   mix's ReLU in its epilogue); then the 8 requests one at a time through
+   ``init_caches`` / ``prefill`` / ``decode_step``, counting the requests
+   token-identical to the engine's (reported).  With ``profile``, a traced
+   warm pass whose ``recurrence`` group holds the scans' kernels.
+18. ``rwkv_e2e`` -- one mixed and one decode step of rwkv6-3b, kernels
+   against plain versions: in bf16 on the served weights (reported: the
+   model at this init amplifies a last-ulp difference, see
+   ``recurrent_e2e``) and in float32 at full depth, within ``E2E_TOL``;
+   then in float32 at 2 layers the engine token-identical to the
+   sequential path on the serve workload's 8 requests.
+19. ``zamba_serve``, ``zamba_e2e`` -- the same for zamba2-1.2b (38 Mamba2
+   layers and 6 calls of the weight-shared attention block): 119
+   ``kraken_gemm`` launches a step and 6 ``paged_decode_attention``
+   launches a decode step (32/32 heads of 64); its float32 engine check
+   runs 7 layers (one period and the shared block, one tail layer).
+
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
-swa_kernels, conv_kernels, serve, e2e, profile, dense_serve, dense_e2e,
-moe_serve, moe_e2e, swa_forward, conv_nets``.
+swa_kernels, conv_kernels, recurrence, serve, e2e, profile, dense_serve,
+dense_e2e, moe_serve, moe_e2e, swa_forward, conv_nets, rwkv_serve,
+rwkv_e2e, zamba_serve, zamba_e2e``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -127,6 +156,7 @@ CUDA device the script exits 2 before printing any result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -654,9 +684,32 @@ def phase_kernels(rec: dict, state: dict) -> None:
             f"{step['ms'] / step['bound_ms']:.2f}); device (graph) "
             f"{step['device_ms']:.2f} ms, torch.matmul "
             f"{step['device_library_ms']:.2f}")
+    # the recurrent archs' decode-step GEMMs (M = 4 slots, bf16), summed
+    # per decode step as yi-6b's are
+    from repro_torch.core.gemm_cases import RWKV_GEMMS, ZAMBA_GEMMS
+    for arch, table in (("rwkv6-3b", RWKV_GEMMS),
+                        ("zamba2-1.2b", ZAMBA_GEMMS)):
+        arows = []
+        for name, k, n, act, calls in table:
+            r = gemm_case(torch, kg, ref, SLOTS, k, n, act, torch.bfloat16,
+                          seed=len(rows))
+            r["name"] = f"{arch.split('-')[0]} {name}"
+            r["calls_per_decode_step"] = calls
+            arows.append(r)
+            log(gemm_line(f"gemm {r['name'][:16]:16s}", r))
+        rows += arows
+        step = {key: sum(r[key] * r["calls_per_decode_step"] for r in arows)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "device_ms", "device_library_ms")}
+        rec["gemm_steps"][f"{arch} decode"] = step
+        log(f"kernels: {arch} decode step (M {SLOTS}) bf16 kraken_gemm "
+            f"{step['ms']:.2f} ms ({sum(r['calls_per_decode_step'] for r in arows)} "
+            f"calls), torch.matmul {step['library_ms']:.2f}, bound "
+            f"{step['bound_ms']:.2f}; device (graph) {step['device_ms']:.2f} "
+            f"ms, torch.matmul {step['device_library_ms']:.2f}")
     # the plan's corners (one row, a split at decode, a second row tile, A
-    # and B that TMA refuses, a ragged K) and every epilogue, with and
-    # without bias, at ragged shapes
+    # and B that TMA refuses, a ragged K, the recurrent archs' new shapes)
+    # and every epilogue, with and without bias, at ragged shapes
     for name, m, k, n, act, bias in GEMM_EDGE:
         for dtype in (torch.bfloat16, torch.float32):
             r = gemm_case(torch, kg, ref, m, k, n, act, dtype, bias=bias,
@@ -1177,13 +1230,28 @@ PORTED_GROUPS = ("kraken_conv2d_direct",
                  "swa_attention", "decode_attention")
 
 
-def device_trace(run, label: str) -> dict:
+def _kernels_under(evt):
+    """(kernel name, device us) of every kernel a host event and the host
+    events inside it launched."""
+    for k in getattr(evt, "kernels", []):
+        yield k.name, k.duration
+    for child in getattr(evt, "cpu_children", []):
+        yield from _kernels_under(child)
+
+
+def device_trace(run, label: str, ranges: tuple = ()) -> dict:
     """``torch.profiler`` over ``run()``: device time by kernel group and
-    the device's busy share of the wall time."""
+    the device's busy share of the wall time.  Kernels launched inside a
+    ``record_function`` range named in ``ranges`` (the recurrences'
+    ``"recurrence"``) form a group of that name; finding them needs the host
+    activity too, which is then traced as well."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    # device activity only: host-op rows would count their kernels twice
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # device activity alone unless ranges are grouped: the host-op rows are
+    # left out below either way, so nothing counts twice
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges
+                                      else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1196,10 +1264,20 @@ def device_trace(run, label: str) -> dict:
     rows = []
     for evt in prof.key_averages():
         us = dev_us(evt)
-        if us > 0 and str(getattr(evt, "device_type", "CUDA")).endswith("CUDA"):
+        # the ranges' own device-side spans would count their kernels twice
+        if (us > 0 and evt.key not in ranges
+                and str(getattr(evt, "device_type", "CUDA")).endswith("CUDA")):
             rows.append((us, evt.count, evt.key))
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
+    # device us by kernel name launched inside each named range
+    inside: dict = {}
+    if ranges:
+        for evt in prof.events():
+            if evt.name in ranges and str(evt.device_type).endswith("CPU"):
+                for name, us in _kernels_under(evt):
+                    slot = inside.setdefault(evt.name, {})
+                    slot[name] = slot.get(name, 0.0) + us
 
     def group(key):
         if "kraken_conv_kernel" in key:
@@ -1237,6 +1315,10 @@ def device_trace(run, label: str) -> dict:
 
     groups: dict = {}
     for us, _, key in rows:
+        for rng, by_name in inside.items():
+            part = min(us, by_name.get(key, 0.0))
+            groups[rng] = groups.get(rng, 0.0) + part
+            us -= part
         groups[group(key)] = groups.get(group(key), 0.0) + us
     out = {
         "wall_s": wall, "device_s": total_us / 1e6,
@@ -1262,9 +1344,9 @@ def device_trace(run, label: str) -> dict:
     return out
 
 
-def trace_pass(eng, seed: int) -> dict:
+def trace_pass(eng, seed: int, ranges: tuple = ()) -> dict:
     """``device_trace`` over one more pass of the serve workload through
-    the warm engine ``eng``."""
+    the warm engine ``eng``, with ``ranges`` grouped."""
     import numpy as np
     rng = np.random.default_rng(seed)
     calls0 = (eng._prefill.calls, eng._decode.calls)
@@ -1275,7 +1357,7 @@ def trace_pass(eng, seed: int) -> dict:
                        SERVE_NEW)
         eng.run_until_idle()
 
-    out = device_trace(run, eng.model.cfg.name)
+    out = device_trace(run, eng.model.cfg.name, ranges)
     out["mixed_steps"] = eng._prefill.calls - calls0[0]
     out["decode_steps"] = eng._decode.calls - calls0[1]
     log(f"  profile {eng.model.cfg.name}: {out['mixed_steps']} mixed + "
@@ -1316,9 +1398,10 @@ def phase_moe_serve(rec: dict, state: dict) -> None:
     from repro_torch.kernels import kraken_gemm as kg
     from repro_torch.kernels import kraken_moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
-    _release(state, "engine", "params")
-    log(f"  released yi-6b: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-        "allocated")
+    _release(state, "engine", "params",
+             *(f"{k}_{x}" for k in RECURRENT for x in ("engine", "params")))
+    log(f"  released the earlier models: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     torch.cuda.reset_peak_memory_stats()
     model = _mixtral()
     t0 = time.perf_counter()
@@ -1936,6 +2019,242 @@ def phase_dense_e2e(rec: dict, state: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the recurrent families: rwkv6-3b and zamba2-1.2b
+# ---------------------------------------------------------------------------
+
+# (arch, its kraken_gemm table in repro_torch.core.gemm_cases, calls of the
+# shared attention block per decode step: paged_decode_attention launches)
+RECURRENT = {"rwkv": ("rwkv6-3b", "RWKV_GEMMS", 0),
+             "zamba": ("zamba2-1.2b", "ZAMBA_GEMMS", 6)}
+# the recurrence phase: one full-width layer of each mixer in float32 over
+# RECUR_SEQ tokens (five chunks of the port's 64), rows of RECUR_LENS
+# tokens; the chunked mix against a token-by-token loop of the same layer's
+# step, outputs and final states within RECUR_TOL * max |want| (on the CPU
+# the two agree within 6e-6 of it, and JAX's own chunked mix is NaN there)
+RECUR_SEQ, RECUR_LENS, RECUR_TOL = 300, (300, 217), 1e-4
+# the *_e2e phases' float32 engine-against-sequential check: rwkv6-3b at 2
+# layers, zamba2-1.2b at 7 (one period of 6 Mamba2 layers and the shared
+# block, then one tail layer)
+RECUR_E2E_LAYERS = {"rwkv": 2, "zamba": 7}
+
+
+def _recurrent(arch: str, kernels=None, dtype: str = "bfloat16",
+               layers: int | None = None):
+    """``arch`` at full width, at full depth or ``layers`` deep."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch(arch), dtype=dtype)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return Model(cfg, kernels=kernels)
+
+
+def _check_logits(eng) -> list:
+    """Make ``eng`` check every logit row it samples from on the device
+    (no sync); the returned list's one element is the running flag."""
+    import torch
+    flag = [torch.ones((), dtype=torch.bool, device="cuda")]
+    sample = eng._sample
+
+    def checked(logits):
+        flag[0] = flag[0] & torch.isfinite(logits).all()
+        return sample(logits)
+
+    eng._sample = checked
+    return flag
+
+
+def recurrent_serve(rec: dict, state: dict, key: str) -> None:
+    """Serve ``RECURRENT[key]``'s arch at full width and depth (bf16,
+    seeded weights) through the engine, twice, then the same 8 requests one
+    at a time through ``init_caches`` / ``prefill`` / ``decode_step``."""
+    import torch
+    from repro_torch.core import gemm_cases
+    arch, table, attn_calls = RECURRENT[key]
+    _release(state, "engine", "params",
+             *(f"{k}_{x}" for k in RECURRENT for x in ("engine", "params")))
+    log(f"  released the earlier models: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    model = _recurrent(arch)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    state[f"{key}_params"] = params
+    eng = _engine(model, params)
+    finite = _check_logits(eng)
+    _zero_counts()
+    passes = serve_passes(eng, f"{key}_serve")
+    launches = _read_counts()
+    mixed, dec = eng._prefill.calls, eng._decode.calls
+    per_step = sum(c for *_, c in getattr(gemm_cases, table))
+    want = {name: 0 for name in launches}
+    want["kraken_gemm"] = per_step * (mixed + dec)
+    want["paged_decode_attention"] = attn_calls * dec
+    if launches != want:
+        raise AssertionError(f"{key}_serve: launch counts {launches} do not "
+                             f"match {mixed} mixed + {dec} decode steps: "
+                             f"{want}")
+    if not bool(finite[0]):
+        raise AssertionError(f"{key}_serve: a served logit is not finite")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same requests one at a time through the sequential path
+    prompts = serve_prompts(model.cfg.vocab_size)
+    t0 = time.perf_counter()
+    outs = dense_sequential(model, params, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = sum(len(o) for o in outs)
+    same = sum(a == b for a, b in zip(passes[0]["out"], outs))
+    rec[f"{key}_serve"] = {
+        "arch": arch, "params": n_params, "init_s": init_s,
+        "passes": passes, "report": eng.report(), "launches": launches,
+        "launches_per_decode_step": {"kraken_gemm": per_step,
+                                     "paged_decode_attention": attn_calls},
+        "launches_per_mixed_step": {"kraken_gemm": per_step,
+                                    "paged_decode_attention": 0},
+        "max_memory_allocated_gb": peak / 1e9, "logits_finite": True,
+        "sequential": {"wall_s": wall, "tokens": toks, "tok_s": toks / wall,
+                       "out": outs},
+        "engine_requests_identical_to_sequential": same}
+    state[f"{key}_engine"] = eng
+    log(f"  {eng.report()}")
+    log(f"  {key}_serve sequential: {len(prompts)} requests one at a time, "
+        f"{toks} tokens in {wall:.2f} s = {toks / wall:.1f} tok/s; {same} of "
+        f"{len(prompts)} token-identical to the engine's first pass")
+    log(f"{key}_serve: {arch} {n_params / 1e9:.2f} B params bf16, peak "
+        f"{peak / 1e9:.1f} GB allocated, warm pass "
+        f"{passes[1]['tok_s']:.1f} tok/s, ttft mean "
+        f"{passes[1]['ttft_mean_s'] * 1e3:.0f} ms, every logit finite, zero "
+        f"new signatures; per step {per_step} kraken_gemm and, per decode "
+        f"step, {attn_calls} paged_decode_attention launches")
+    if "profile" in rec["phases"]:
+        rec[f"{key}_profile"] = trace_pass(eng, seed=2,
+                                           ranges=("recurrence",))
+
+
+def recurrent_e2e(rec: dict, state: dict, key: str) -> None:
+    """One mixed and one decode step of ``RECURRENT[key]``'s arch through
+    the hand kernels and through the plain versions, on the served bf16
+    weights (reported) and, gated within E2E_TOL, in float32 at full width
+    and depth.  In bf16 the two differ by the GEMMs' last-ulp rounding,
+    which rwkv6-3b at this init amplifies without bound: with its bonus
+    u = 0, a head's normalized output at the second token is sign(r.k)
+    times a normalized v, and a dot product near 0 flips sign on a
+    one-ulp change.  Then, in float32 at ``RECUR_E2E_LAYERS`` deep, the
+    serve workload's 8 requests through the engine (chunk 64) must be
+    token-identical to the sequential path."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = RECURRENT[key][0]
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        model = _recurrent(arch, dtype=dtype)
+        params = state.get(f"{key}_params") if dtype == "bfloat16" else None
+        if params is None:
+            params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        got = two_steps(model, params)
+        want = two_steps(_recurrent(arch, _plain_kernels(), dtype), params)
+        for i, name in enumerate(("mixed step", "decode step")):
+            res[f"{dtype} {name}"] = compare_logits(
+                f"{arch} {dtype} {name}", got[i], want[i],
+                model.cfg.vocab_size)
+        del params, got, want
+        _release(state, f"{key}_engine", f"{key}_params")
+    bad = {k: v for k, v in res.items()
+           if k.startswith("float32") and not v["ok"]}
+    if bad:
+        raise AssertionError(f"{key}_e2e: float32 kernels against plain "
+                             f"beyond {E2E_TOL} of the largest logit: {bad}")
+    layers = RECUR_E2E_LAYERS[key]
+    m32 = _recurrent(arch, dtype="float32", layers=layers)
+    p32 = m32.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = serve_prompts(m32.cfg.vocab_size)
+    seq = dense_sequential(m32, p32, prompts, SERVE_NEW)
+    eng = _engine(m32, p32)
+    reqs = [eng.submit(p, SERVE_NEW) for p in prompts]
+    eng.run_until_idle()
+    diff = [i for i, (r, o) in enumerate(zip(reqs, seq)) if list(r.out) != o]
+    if diff:
+        raise AssertionError(f"{key}_e2e: float32 {layers} layers: engine "
+                             f"requests {diff} differ from the sequential "
+                             "path")
+    res[f"float32_{layers}_layers"] = {
+        "requests": len(prompts), "tokens": sum(len(o) for o in seq),
+        "token_identical": True}
+    rec[f"{key}_e2e"] = res
+    log(f"  {key}_e2e: float32 {layers} layers: the engine (chunk {CHUNK}) "
+        f"is token-identical to the sequential path on all {len(prompts)} "
+        "requests")
+    log(f"{key}_e2e: float32 kernels agree with the plain versions within "
+        f"{E2E_TOL} of the largest logit (full {arch}); bf16 (reported) "
+        f"{max(v['rel'] for k, v in res.items() if k.startswith('bfloat16')):.4f}")
+
+
+def phase_recurrence(rec: dict, state: dict) -> None:
+    """One full-width float32 layer of each mixer: the chunked mix over
+    RECUR_SEQ tokens, rows of RECUR_LENS, against a loop of the layer's own
+    per-token step (live while t < the row's length)."""
+    import torch
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.layers import init_param
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mixers = {"rwkv": ("rwkv", SSM.rwkv_specs, SSM.rwkv_mix, SSM.rwkv_step,
+                       SSM.rwkv_state_init),
+              "zamba": ("mamba", SSM.mamba_specs, SSM.mamba_mix,
+                        SSM.mamba_step, SSM.mamba_state_init)}
+    lengths = torch.tensor(RECUR_LENS, dtype=torch.int32, device="cuda")
+    res = {}
+    for key, (prefix, specs, mix, step, init) in mixers.items():
+        cfg = _recurrent(RECURRENT[key][0], dtype="float32").cfg
+        g = torch.Generator(device="cuda").manual_seed(0)
+        params = {n: init_param(g, sp, torch.float32, "cuda")
+                  for n, sp in specs(cfg, prefix).items()}
+        x = torch.randn((len(RECUR_LENS), RECUR_SEQ, cfg.d_model),
+                        generator=g, device="cuda")
+        y, st = mix(cfg, params, prefix, x, lengths=lengths)
+        s = init(cfg, len(RECUR_LENS), torch.float32, "cuda")
+        ys = []
+        for t in range(RECUR_SEQ):
+            yt, s = step(cfg, params, prefix, x[:, t:t + 1], s,
+                         lengths=(t < lengths).to(torch.int32))
+            ys.append(yt)
+        want = torch.cat(ys, dim=1)
+        torch.cuda.synchronize()
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"recurrence {prefix}: non-finite output")
+        y_err = max(float((y[b, :n] - want[b, :n]).abs().max()
+                          / want[b, :n].abs().max())
+                    for b, n in enumerate(RECUR_LENS))
+        s_err = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(st, s))
+        mix_ms = time_ms(lambda: mix(cfg, params, prefix, x,
+                                     lengths=lengths), 5)
+        step_ms = time_ms(lambda: step(cfg, params, prefix, x[:, :1], s,
+                                       lengths=lengths), 20)
+        res[RECURRENT[key][0]] = {
+            "mixer": prefix, "seq": RECUR_SEQ, "lengths": list(RECUR_LENS),
+            "rel_err_out": y_err, "rel_err_state": s_err,
+            "mix_ms": mix_ms, "step_ms": step_ms,
+            "ok": y_err <= RECUR_TOL and s_err <= RECUR_TOL}
+        log(f"  recurrence {prefix} (d {cfg.d_model}, S {RECUR_SEQ}, rows "
+            f"{RECUR_LENS}, float32): chunked mix against {RECUR_SEQ} steps "
+            f"out {y_err:.2e} state {s_err:.2e} of max |want|; mix "
+            f"{mix_ms:.3f} ms, one step {step_ms:.3f} ms")
+        del params, x, y, st, s, ys, want
+    rec["recurrence"] = res
+    bad = {k: v for k, v in res.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"recurrence: beyond {RECUR_TOL}: {bad}")
+    log(f"recurrence: both chunked mixers finite at {RECUR_SEQ} tokens and "
+        f"within {RECUR_TOL} of max |want| of their own steps")
+
+
+# ---------------------------------------------------------------------------
 # the cache-less windowed forward: swa_attention
 # ---------------------------------------------------------------------------
 
@@ -2158,7 +2477,8 @@ def phase_swa_forward(rec: dict, state: dict) -> None:
     """gemma3-12b's cache-less windowed forward at full width and depth."""
     import numpy as np
     import torch
-    _release(state, "engine", "params", "moe_engine", "moe_params")
+    _release(state, "engine", "params", "moe_engine", "moe_params",
+             *(f"{k}_{x}" for k in RECURRENT for x in ("engine", "params")))
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"  released the earlier models: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
@@ -2683,6 +3003,8 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
 
     att = next(r for r in rec["attention"]
                if r["name"] == "yi-6b 4 slots" and r["dtype"] == "bfloat16")
+    z = next(r for r in rec["attention"]
+             if r["name"] == "zamba2 4 slots" and r["dtype"] == "bfloat16")
     return [
         {"name": "kraken_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/kraken_gemm.cu",
@@ -2693,8 +3015,12 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
          "ms": step("ms"), "plain_ms": step("plain_ms"),
          "bound_ms": step("bound_ms"), "bound_by": "bytes",
          "library_ms": step("library_ms"),
+         "recurrent_decode_steps": {
+             k: v for k, v in rec.get("gemm_steps", {}).items()
+             if k.endswith("decode")},
          "shape": "one yi-6b decode step, bf16, M=4: 32 x (q,k,v,o,gate,up,"
-                  "down) + unembed"},
+                  "down) + unembed; recurrent_decode_steps: rwkv6-3b's 289 "
+                  "and zamba2-1.2b's 119 GEMMs of one decode step"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:234",
@@ -2705,9 +3031,13 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
          "device_ms": att["device_ms"] * LAYERS,
          "bound_ms": att["bound_ms"] * LAYERS, "bound_by": att["bound_by"],
          "library_ms": None, "plan": att["plan_text"],
+         "zamba2_decode_step": {
+             key: z[key] * RECURRENT["zamba"][2] for key in (
+                 "ms", "device_ms", "plain_ms", "bound_ms")},
          "shape": "one yi-6b decode step, bf16: 32 layers x (4 slots, "
                   "32/4 heads, D 128, page 16, q_pos 300/700/dead/17); no "
-                  "single PyTorch call walks a page table"},
+                  "single PyTorch call walks a page table; zamba2_decode_step: "
+                  "6 calls at 32/32 heads of 64, same slots"},
     ]
 
 
@@ -2733,6 +3063,8 @@ def kernels_line(rec: dict) -> dict:
     def by_path(name):
         return {"yi-6b": launches.get(name),
                 "mixtral-8x22b": moe_launches.get(name),
+                **{RECURRENT[k][0]: rec.get(f"{k}_serve", {}).get(
+                    "launches", {}).get(name) for k in RECURRENT},
                 "yi-6b int8 dense": dense.get("launches", {}).get(name),
                 "yi-6b int8 engine": dense.get("engine_launches",
                                                {}).get(name),
@@ -2828,11 +3160,18 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "moe_kernels": phase_moe_kernels,
           "dense_kernels": phase_dense_kernels,
           "swa_kernels": phase_swa_kernels,
-          "conv_kernels": phase_conv_kernels, "serve": phase_serve,
+          "conv_kernels": phase_conv_kernels,
+          "recurrence": phase_recurrence, "serve": phase_serve,
           "e2e": phase_e2e, "profile": phase_profile,
           "dense_serve": phase_dense_serve, "dense_e2e": phase_dense_e2e,
           "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e,
-          "swa_forward": phase_swa_forward, "conv_nets": phase_conv_nets}
+          "swa_forward": phase_swa_forward, "conv_nets": phase_conv_nets,
+          # last: their traces record host activity too (device_trace's
+          # ranges), and no earlier phase's trace then follows one
+          **{f"{key}_{what}": functools.partial(fn, key=key)
+             for key in RECURRENT
+             for what, fn in (("serve", recurrent_serve),
+                              ("e2e", recurrent_e2e))}}
 
 
 def main(argv=None) -> int:

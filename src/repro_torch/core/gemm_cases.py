@@ -1,4 +1,6 @@
-"""The GEMM shapes ``kraken_gemm`` is checked and timed at.
+"""The GEMM shapes ``kraken_gemm`` is checked and timed at: yi-6b's,
+mixtral-8x22b's, gemma3-12b's, rwkv6-3b's and zamba2-1.2b's, and the edge
+cases.
 
 ``chip_smoke.py`` runs them on the card (phases ``kernels``, ``moe_kernels``
 and ``swa_kernels``) and ``tests/test_torch_gemm_plan.py`` checks the
@@ -43,6 +45,33 @@ GEMMA_GEMMS = [("wq|wo", 3840, 3840, None, 2 * GEMMA_LAYERS),
                ("down", 15360, 3840, None, GEMMA_LAYERS),
                ("unembed", 3840, 262144, None, 1)]
 
+# rwkv6-3b (``RWKV6_3B``): 32 layers, d 2560, d_ff 8960, vocab 65536, the
+# decay LoRA of rank max(32, d / 16) = 160; served at 4 slots x chunk 64.
+# (name, K, N, activation, calls per decode step): per layer the time mix's
+# r, k, v, g, o and the channel mix's r (2560 x 2560), the LoRA's first
+# factor, the channel mix's k (its ReLU in the epilogue) and v; 32 x 9 + the
+# unembed = 289
+RWKV_LAYERS = 32
+RWKV_GEMMS = [("r|k|v|g|o|cmix r", 2560, 2560, None, 6 * RWKV_LAYERS),
+              ("lora a", 2560, 160, None, RWKV_LAYERS),
+              ("cmix k", 2560, 8960, "relu", RWKV_LAYERS),
+              ("cmix v", 8960, 2560, None, RWKV_LAYERS),
+              ("unembed", 2560, 65536, None, 1)]
+
+# zamba2-1.2b (``ZAMBA2_1P2B``): 38 Mamba2 layers (d 2048, inner 4096, 64
+# heads, state 64: in_proj N = 2 * 4096 + 2 * 64 + 64 = 8384) and 6 calls
+# of one shared attention + SwiGLU block (32/32 heads of 64, d_ff 8192),
+# vocab 32000.  Per decode step: 38 x (in, out) + 6 x (q, k, v, o, gate,
+# up, down) + the unembed = 119
+ZAMBA_LAYERS, ZAMBA_SHARED_CALLS = 38, 6
+ZAMBA_GEMMS = [("in_proj", 2048, 8384, None, ZAMBA_LAYERS),
+               ("out_proj", 4096, 2048, None, ZAMBA_LAYERS),
+               ("shared q|k|v|o", 2048, 2048, None, 4 * ZAMBA_SHARED_CALLS),
+               ("shared gate", 2048, 8192, "silu", ZAMBA_SHARED_CALLS),
+               ("shared up", 2048, 8192, None, ZAMBA_SHARED_CALLS),
+               ("shared down", 8192, 2048, None, ZAMBA_SHARED_CALLS),
+               ("unembed", 2048, 32000, None, 1)]
+
 # the row counts the LM paths call kraken_gemm at: one row, decode at 4
 # slots, the mixed step (4 slots x chunk 64), the forward
 LM_ROWS = (1, 4, 256, GEMMA_SEQ)
@@ -59,6 +88,11 @@ GEMM_EDGE = [
      False),
     ("N 123: B refused by TMA, split", 4, 1000, 123, "gelu", True),
     ("ragged K 200, M 300", 300, 200, 4096, None, True),
+    ("rwkv6 cmix k: the ReLU epilogue, M 4", 4, 2560, 8960, "relu", False),
+    ("rwkv6 lora a: N 160, M 4", 4, 2560, 160, None, False),
+    ("rwkv6 lora a: N 160, M 256", 256, 2560, 160, None, False),
+    ("zamba2 in_proj: N 8384, M 4", 4, 2048, 8384, None, False),
+    ("zamba2 in_proj: N 8384, M 256", 256, 2048, 8384, None, False),
 ]
 # (M, K, N) run with every activation, with and without bias: N 123 is
 # refused by TMA (B filled), 136 and 72 are not

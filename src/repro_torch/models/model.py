@@ -3,7 +3,7 @@ loss value, and the serving steps (``decode_step``, ``chunk_step``).
 
 A port of ``repro.models.model``.  Parameters are a plain nested dict of
 tensors with ``repro``'s keys (``embed``, ``final_norm_gamma``,
-``stack/slots[i]/<name>``, ``unembed``), so :mod:`repro_torch.bridge` maps a
+``stack/slots[i]/<name>``, ``stack/shared/<name>``, ``unembed``), so :mod:`repro_torch.bridge` maps a
 JAX parameter tree onto it by copying.  ``Model(cfg, kernels=...)`` selects
 the kernel entry points (default: the hand-written kernels on CUDA tensors,
 their plain versions on CPU tensors).
@@ -111,18 +111,22 @@ class Model:
 
     # ------------------------------------------------------------------ forward
     @torch.no_grad()
-    def forward(self, params: Params, batch: dict, *, caches=None):
+    def forward(self, params: Params, batch: dict, *, mode: str = "train",
+                caches=None):
         """Returns (logits [B, S, V], caches, aux); caches are updated in
         place.  ``aux`` is the MoE auxiliary loss summed over the layers
-        (0 without MoE layers)."""
+        (0 without MoE layers).  ``mode`` ('train', 'prefill', 'decode' or
+        'chunk') picks the recurrences' per-token step in decode mode and
+        their chunked mix otherwise."""
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device)
         x = self._embed(params, tokens)
-        ctx = Ctx(positions=positions, lengths=batch.get("lengths"),
-                  kernels=self.kernels)
+        ctx = Ctx(mode=mode, positions=positions,
+                  shared_params=params["stack"].get("shared"),
+                  lengths=batch.get("lengths"), kernels=self.kernels)
         x, caches, aux = self.stack.apply(params["stack"], x, ctx,
                                           caches=caches)
         x = L.apply_norm(self.cfg, params, "final_norm", x)
@@ -150,9 +154,10 @@ class Model:
 
     # ------------------------------------------------------------------ serve
     def init_caches(self, batch: int, cache_len: int, *, device=None):
-        """Empty dense caches for :meth:`prefill` and :meth:`decode_step`
-        (the sequential path) on ``device`` (default ``cuda``), one per
-        layer; see ``LayerStack.cache_tree``."""
+        """Empty caches for :meth:`prefill` and :meth:`decode_step` (the
+        sequential path) on ``device`` (default ``cuda``), one per layer: a
+        dense KV cache per attention layer and shared-block call, zeroed
+        state rows per recurrent layer; see ``LayerStack.cache_tree``."""
         return self.stack.cache_tree(
             batch, cache_len, getattr(torch, self.cfg.dtype),
             device=_device.resolve(device))
@@ -161,7 +166,8 @@ class Model:
         """Run a prompt (``batch["tokens"]`` [B, S], shared ``positions``
         [S]) and store its K/V in the dense ``caches`` (in place).  Returns
         (logits of the last position [B, 1, V], caches)."""
-        logits, caches, _ = self.forward(params, batch, caches=caches)
+        logits, caches, _ = self.forward(params, batch, mode="prefill",
+                                         caches=caches)
         return logits[:, -1:], caches
 
     def decode_step(self, params: Params, caches, tokens: torch.Tensor,
@@ -169,8 +175,8 @@ class Model:
         """tokens [B, 1]; pos [B] int32 per-slot absolute positions;
         ``caches`` are the engine's page pools or dense caches from
         :meth:`init_caches`.  ``lengths`` ([B] 0/1) is the live mask of the
-        paged path: rows at 0 write nothing (the dense path, like JAX's,
-        ignores it).  Returns (logits [B, V], caches)."""
+        paged path and of the recurrent layers: rows at 0 write nothing
+        and keep their state (dense attention, like JAX's, ignores it).  Returns (logits [B, V], caches)."""
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         if pos.dim() != 1:
             raise ValueError("decode_step needs per-slot positions pos: [B] "
@@ -179,7 +185,8 @@ class Model:
         if lengths is not None:
             batch["lengths"] = torch.as_tensor(lengths, dtype=torch.int32,
                                                device=tokens.device)
-        logits, caches, _ = self.forward(params, batch, caches=caches)
+        logits, caches, _ = self.forward(params, batch, mode="decode",
+                                         caches=caches)
         return logits[:, -1], caches
 
     def chunk_step(self, params: Params, caches, tokens: torch.Tensor,
@@ -198,7 +205,8 @@ class Model:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=tokens.device)
         batch = {"tokens": tokens, "positions": positions, "lengths": lengths}
-        logits, caches, _ = self.forward(params, batch, caches=caches)
+        logits, caches, _ = self.forward(params, batch, mode="chunk",
+                                         caches=caches)
         idx = (lengths.long() - 1).clamp(min=0)
         last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
         if return_greedy:

@@ -1,12 +1,13 @@
 """Layer-stack assembly: the repeating slot pattern of an architecture,
 evaluated as a plain loop over layers.
 
-A port of ``repro.models.transformer`` for ``Slot("attn", "mlp")`` and
-``Slot("attn", "moe")`` stacks.
-The JAX version scans stacked parameters with ``lax.scan``; the port needs
-no scan and runs the flat, unrolled layout of its serving path: one step per
-layer, each with its own cache.  Parameters keep the JAX key structure --
-``stack/slots[i]/<name>`` with a leading ``n_periods`` dim -- so bridging
+A port of ``repro.models.transformer`` for attention (MLP or MoE), RWKV
+and Mamba slots and zamba2's weight-shared attention block, called after
+each period and not after the tail.  The JAX version scans stacked
+parameters with ``lax.scan``; the port needs no scan and runs the flat,
+unrolled layout of its serving path: one step per layer, each with its own
+cache.  Parameters keep the JAX key structure -- ``stack/slots[i]/<name>``
+with a leading ``n_periods`` dim, ``stack/shared/<name>`` -- so bridging
 JAX parameters is a copy; layer ``p`` of slot ``i`` reads index ``p`` of
 that dim (a contiguous view).
 """
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import Spec
 
 Params = dict
@@ -53,52 +55,111 @@ def build_pattern(cfg) -> tuple[list[Slot], bool]:
 
 
 def slot_is_ported(cfg, slot: Slot) -> bool:
-    """Whether this slot runs in the port yet: a RoPE attention block with
-    RMSNorm, a SwiGLU MLP or MoE, and no modality frontend (ROADMAP Queue 1
-    items 5-8 bring the others)."""
-    return (slot.kind == "attn" and slot.ffn in ("mlp", "moe")
+    """Whether this slot runs in the port yet: every slot but cross
+    attention, under RMSNorm, a SwiGLU MLP and no sinusoidal positions or
+    modality frontend (ROADMAP Queue 1 item 8 brings the others)."""
+    return (slot.kind in ("attn", "rwkv", "mamba")
             and cfg.norm == "rmsnorm" and cfg.mlp == "swiglu"
-            and cfg.positional == "rope" and not cfg.frontend)
+            and cfg.positional != "sinusoidal" and not cfg.frontend)
 
 
 def _check_ported(cfg, slot: Slot) -> None:
     if not slot_is_ported(cfg, slot):
         raise NotImplementedError(
-            f"{cfg.name}'s slot {slot} is not ported yet: only RoPE "
-            "attention + SwiGLU or MoE blocks with RMSNorm run (ROADMAP "
-            "Queue 1 items 5-8)")
+            f"{cfg.name}'s slot {slot} is not ported yet: cross attention, "
+            "layernorm, the gelu MLP, sinusoidal positions and frontends "
+            "come with ROADMAP Queue 1 item 8")
 
 
 def slot_specs(cfg, slot: Slot) -> dict[str, Spec]:
     _check_ported(cfg, slot)
     s: dict[str, Spec] = {}
     s.update(L.norm_specs(cfg, "attn_norm"))
-    s.update(L.attention_specs(cfg, "attn"))
+    if slot.kind == "attn":
+        s.update(L.attention_specs(cfg, "attn"))
+    elif slot.kind == "rwkv":
+        s.update(SSM.rwkv_specs(cfg, "rwkv"))
+    else:
+        s.update(SSM.mamba_specs(cfg, "mamba"))
+    if slot.ffn == "none":
+        return s
     s.update(L.norm_specs(cfg, "mlp_norm"))
     if slot.ffn == "moe":
         s.update(MOE.moe_specs(cfg, "moe"))
+    elif slot.ffn == "cmix":
+        s.update(SSM.rwkv_channel_specs(cfg, "cmix"))
     else:
         s.update(L.mlp_specs(cfg, "mlp"))
     return s
 
 
+def shared_attn_specs(cfg) -> dict[str, Spec]:
+    """zamba2's weight-shared attention + MLP block."""
+    s = {}
+    s.update(L.norm_specs(cfg, "shared_attn_norm"))
+    s.update(L.attention_specs(cfg, "shared_attn"))
+    s.update(L.norm_specs(cfg, "shared_mlp_norm"))
+    s.update(L.mlp_specs(cfg, "shared_mlp"))
+    return s
+
+
 # ---------------------------------------------------------------------------
-# Per-slot dense caches (the sequential decode path)
+# Per-slot caches (the sequential decode path; the engine's row states)
 # ---------------------------------------------------------------------------
 
 def slot_cache(cfg, slot: Slot, batch: int, cache_len: int, dtype, *,
-               device) -> L.KVCache:
-    """One layer's dense cache.  A sliding-window layer keeps a ring of
-    ``min(window, cache_len)`` slots."""
+               device):
+    """One layer's cache: a dense KV cache for attention (a sliding-window
+    layer keeps a ring of ``min(window, cache_len)`` slots), or the
+    recurrent state rows of an RWKV (with the channel mix's token shift)
+    or Mamba layer."""
     _check_ported(cfg, slot)
+    if slot.kind == "rwkv":
+        return {"rwkv": SSM.rwkv_state_init(cfg, batch, dtype, device),
+                "cmix_x_prev": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                           device=device)}
+    if slot.kind == "mamba":
+        return SSM.mamba_state_init(cfg, batch, dtype, device)
     s_cache = min(slot.window, cache_len) if slot.window else cache_len
     return L.KVCache.init(cfg, batch, s_cache, dtype, device)
 
 
 class Ctx(NamedTuple):
+    mode: str                          # 'train' | 'prefill' | 'decode' | 'chunk'
     positions: torch.Tensor            # [S] shared or [B, S] per slot
+    shared_params: Params | None = None   # zamba2's shared block
     lengths: torch.Tensor | None = None   # [B] real tokens per row
     kernels: L.Kernels = L.DEFAULT_KERNELS
+
+
+def _store(cache, new) -> None:
+    """Copy a recurrent state's new tensors into its cache, in place."""
+    for dst, src in zip(cache, new):
+        dst.copy_(src)
+
+
+def _mixer(cfg, slot: Slot, params: Params, h: torch.Tensor, cache,
+           ctx: Ctx):
+    """The slot's sequence mixer on the normed input: (y, new cache).  The
+    recurrences take their per-token step only in decode mode, as in the
+    reference; every other mode runs the length-masked chunked mix.  Row
+    states are updated in place."""
+    kw = dict(lengths=ctx.lengths, kernels=ctx.kernels)
+    if slot.kind == "attn":
+        return L.attention(cfg, params, "attn", h, positions=ctx.positions,
+                           window=slot.window, cache=cache, **kw)
+    if slot.kind == "rwkv":
+        fn = SSM.rwkv_step if ctx.mode == "decode" else SSM.rwkv_mix
+        st = cache["rwkv"] if cache is not None else None
+        y, new = fn(cfg, params, "rwkv", h, st, **kw)
+        if cache is not None:
+            _store(st, new)
+        return y, cache
+    fn = SSM.mamba_step if ctx.mode == "decode" else SSM.mamba_mix
+    y, new = fn(cfg, params, "mamba", h, cache, **kw)
+    if cache is not None:
+        _store(cache, new)
+    return y, cache
 
 
 def apply_slot(cfg, slot: Slot, params: Params, x: torch.Tensor, cache,
@@ -106,16 +167,40 @@ def apply_slot(cfg, slot: Slot, params: Params, x: torch.Tensor, cache,
     """Returns (x, new_cache, aux_loss); aux_loss is None for a slot
     without MoE."""
     h = L.apply_norm(cfg, params, "attn_norm", x)
-    y, new_cache = L.attention(cfg, params, "attn", h, positions=ctx.positions,
-                               window=slot.window, cache=cache,
-                               lengths=ctx.lengths, kernels=ctx.kernels)
+    y, new_cache = _mixer(cfg, slot, params, h, cache, ctx)
     x = x + y
+    if slot.ffn == "none":
+        return x, new_cache, None
     h = L.apply_norm(cfg, params, "mlp_norm", x)
     if slot.ffn == "moe":
         out = MOE.moe_block(cfg, params, "moe", h, kernels=ctx.kernels)
         return x + out.y, new_cache, out.aux_loss
+    if slot.ffn == "cmix":
+        xp = (cache["cmix_x_prev"] if cache is not None else
+              torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
+                          device=x.device))
+        y, xp_new = SSM.rwkv_channel_mix(cfg, params, "cmix", h, xp,
+                                         lengths=ctx.lengths,
+                                         kernels=ctx.kernels)
+        if cache is not None:
+            xp.copy_(xp_new)
+        return x + y, new_cache, None
     x = x + L.mlp(cfg, params, "mlp", h, kernels=ctx.kernels)
     return x, new_cache, None
+
+
+def apply_shared_attn(cfg, params: Params, x: torch.Tensor, cache,
+                      ctx: Ctx):
+    """zamba2's shared block: attention over its own cache of this call,
+    then the SwiGLU MLP.  Returns (x, new_cache)."""
+    h = L.apply_norm(cfg, params, "shared_attn_norm", x)
+    y, new_cache = L.attention(cfg, params, "shared_attn", h,
+                               positions=ctx.positions, cache=cache,
+                               lengths=ctx.lengths, kernels=ctx.kernels)
+    x = x + y
+    h = L.apply_norm(cfg, params, "shared_mlp_norm", x)
+    return x + L.mlp(cfg, params, "shared_mlp", h, kernels=ctx.kernels), \
+        new_cache
 
 
 class LayerStack:
@@ -127,10 +212,6 @@ class LayerStack:
         self.n_tail = cfg.num_layers % p
 
     def param_specs_dict(self) -> dict[str, Any]:
-        if self.has_shared:
-            raise NotImplementedError(
-                "weight-shared attention blocks are not ported yet (ROADMAP "
-                "Queue 1 item 7)")
         cfg = self.cfg
         out: dict[str, Any] = {"slots": [], "tail": []}
         for slot in self.pattern:
@@ -140,23 +221,31 @@ class LayerStack:
                 for k, s in specs.items()})
         for i in range(self.n_tail):
             out["tail"].append(slot_specs(cfg, self.pattern[i]))
+        if self.has_shared:
+            out["shared"] = shared_attn_specs(cfg)
         return out
 
     def cache_tree(self, batch: int, cache_len: int, dtype, *, device):
-        """Dense caches for every layer, in the serving layout:
-        ``{"slots": [[cache per period] per pattern slot], "tail": [...]}``."""
+        """Caches for every layer, in the serving layout: ``{"slots":
+        [[cache per period] per pattern slot], "tail": [...]}`` and, with a
+        shared block, ``"shared": [cache per period]`` (each call of the
+        block attends over its own cache)."""
         def one(slot):
             return slot_cache(self.cfg, slot, batch, cache_len, dtype,
                               device=device)
-        return {"slots": [[one(s) for _ in range(self.n_periods)]
+        tree = {"slots": [[one(s) for _ in range(self.n_periods)]
                           for s in self.pattern],
                 "tail": [one(self.pattern[i]) for i in range(self.n_tail)]}
+        if self.has_shared:
+            tree["shared"] = [one(Slot("attn", "none"))
+                              for _ in range(self.n_periods)]
+        return tree
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Ctx, caches=None):
-        """Every layer in order.  ``caches`` is a :meth:`cache_tree` or the
-        engine's pools, in the same layout and updated in place, or None.
-        Returns (x, caches, aux_loss), the MoE auxiliary losses summed over
-        the layers."""
+        """Every layer in order, the shared block after each period.
+        ``caches`` is a :meth:`cache_tree` or the engine's pools, in the
+        same layout and updated in place, or None.  Returns (x, caches,
+        aux_loss), the MoE auxiliary losses summed over the layers."""
         use_cache = caches is not None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_periods):
@@ -168,6 +257,12 @@ class LayerStack:
                     aux = aux + a
                 if use_cache:
                     caches["slots"][s][i] = c_new
+            if self.has_shared:
+                c = caches["shared"][i] if use_cache else None
+                x, c_new = apply_shared_attn(self.cfg, ctx.shared_params, x,
+                                             c, ctx)
+                if use_cache:
+                    caches["shared"][i] = c_new
         for i in range(self.n_tail):
             c = caches["tail"][i] if use_cache else None
             x, c_new, a = apply_slot(self.cfg, self.pattern[i],

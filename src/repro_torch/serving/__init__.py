@@ -11,7 +11,7 @@ from repro_torch.serving.paged_kv import (COPY_NONE, PageAllocator, ceil_pages,
 from repro_torch.serving.scheduler import (DONE, FAILED, PREFILLING, QUEUED,
                                            REJECTED, RUNNING, FIFOScheduler,
                                            ServeRequest, summarize)
-from repro_torch.serving.state import (PagedKVState, StateTree,
+from repro_torch.serving.state import (PagedKVState, SlotRowState, StateTree,
                                        build_state_tree, stack_is_stateable)
 
 __all__ = [
@@ -20,5 +20,6 @@ __all__ = [
     "PageAllocator", "ceil_pages", "copy_page", "make_pool", "reset_pages",
     "scatter_prefill", "FIFOScheduler", "ServeRequest", "summarize",
     "QUEUED", "PREFILLING", "RUNNING", "DONE", "REJECTED", "FAILED",
-    "PagedKVState", "StateTree", "build_state_tree", "stack_is_stateable",
+    "PagedKVState", "SlotRowState", "StateTree", "build_state_tree",
+    "stack_is_stateable",
 ]

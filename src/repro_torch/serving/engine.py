@@ -3,10 +3,13 @@ pools.
 
 A port of ``repro.serving.engine`` for the attention families with a dense
 or MoE feed-forward, over float or int8 (``cfg.kv_cache_dtype == "int8"``)
-KV pools.  One engine instance owns
+KV pools, and for the recurrent families (rwkv6, and zamba2's Mamba2
+blocks with their weight-shared attention).  One engine instance owns
 
 * a **state tree** (:mod:`repro_torch.serving.state`): one page pool per
-  attention layer, sharing a page allocator per ring length;
+  attention layer (and per call of zamba2's shared block), sharing a page
+  allocator per ring length, and one row per slot of each recurrent
+  layer's state, zeroed when the slot is refilled;
 * a **priority scheduler** with admission control and per-request metrics
   (:mod:`repro_torch.serving.scheduler`): ``QUEUED -> PREFILLING(k/K
   chunks) -> RUNNING -> DONE``, pages claimed at the first chunk;
@@ -39,21 +42,8 @@ from repro_torch.serving.paged_kv import COPY_NONE
 from repro_torch.serving.scheduler import (FAILED, PREFILLING, RUNNING,
                                            FIFOScheduler, ServeRequest,
                                            slo_summary, summarize)
-from repro_torch.serving.state import build_state_tree, stack_is_stateable
-
-
-def _tensor_leaves(obj):
-    if isinstance(obj, torch.Tensor):
-        yield obj
-    elif isinstance(obj, dict):
-        for v in obj.values():
-            yield from _tensor_leaves(v)
-    elif isinstance(obj, (list, tuple)):
-        for v in obj:
-            yield from _tensor_leaves(v)
-    elif dataclasses.is_dataclass(obj):
-        for f in dataclasses.fields(obj):
-            yield from _tensor_leaves(getattr(obj, f.name))
+from repro_torch.serving.state import (build_state_tree, stack_is_stateable,
+                                       tensor_leaves)
 
 
 class ShapeCounter:
@@ -69,7 +59,7 @@ class ShapeCounter:
 
     def __call__(self, *args):
         self.signatures.add(tuple((tuple(t.shape), str(t.dtype))
-                                  for t in _tensor_leaves(args)))
+                                  for t in tensor_leaves(args)))
         self.calls += 1
         with torch.no_grad():
             return self.fn(*args)
@@ -197,7 +187,7 @@ class PagedEngine:
         if not self.supports(model):
             raise NotImplementedError(
                 "a stack slot of this model has no ported state "
-                "(repro_torch.serving.state); ROADMAP Queue 1 items 5-9")
+                "(repro_torch.serving.state); ROADMAP Queue 1 item 8")
         self.model, self.params, self.cfg = model, params, model.cfg
         self.device = params["embed"].device
         slots, max_len = config.slots, config.cache.max_len

@@ -1,20 +1,21 @@
-"""The per-layer decode-state protocol, for paged KV pools.
+"""The per-layer decode-state protocol: paged KV pools and recurrent rows.
 
-A port of ``repro.serving.state`` restricted to attention layers: a
+A port of ``repro.serving.state`` for attention, RWKV and Mamba layers: a
 :class:`PagedKVState` is the host-side handle of one layer's page pool
-(allocator hooks and the device transforms), and a
-:class:`StateTree` zips the handles with the model's flat cache layout
-``{"slots": [[state per period] per pattern slot], "tail": [...]}`` and
-owns admission over the shared allocators and the table pushes.  Device
-transforms update the pools in place and return them.  Recurrent and
-frozen slot-row states (``SlotRowState``) come with the recurrent families
-(ROADMAP Queue 1 item 9a).
+(allocator hooks and the device transforms), a :class:`SlotRowState` that
+of one recurrent layer's fixed-size row per slot, and a :class:`StateTree`
+zips the handles with the model's flat cache layout ``{"slots": [[state per
+period] per pattern slot], "tail": [...], "shared": [...]}`` and owns
+admission over the shared allocators and the table pushes.  Device
+transforms update the states in place and return them.  Frozen
+cross-attention rows come with cross attention (ROADMAP Queue 1 item 8);
+swap-out and speculation's snapshots with items 9c and 9e.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -24,6 +25,33 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import PagedKVCache
 from repro_torch.serving.paged_kv import (PageAllocator, ceil_pages, copy_page,
                                           make_pool, reset_pages)
+
+
+def tensor_leaves(obj):
+    """Every tensor of a state tree: dicts, lists, tuples (the recurrent
+    NamedTuples) and dataclasses (the caches)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from tensor_leaves(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from tensor_leaves(v)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from tensor_leaves(getattr(obj, f.name))
+
+
+class StateGeometry(NamedTuple):
+    """One layer's state described on the host, without its tensors (the
+    reference's ``StateGeometry``)."""
+    kind: str               # 'paged_kv' | 'slot_rows'
+    slots: int
+    ring_len: int = 0       # paged_kv: logical ring length (pages * size)
+    head_dim: int = 0       # paged_kv
+    window: int = 0         # paged_kv: masking protocol (0 = full)
+    pages_per_slot: int = 0
 
 
 class PagedKVState:
@@ -87,12 +115,73 @@ class PagedKVState:
         leaf.page_table.copy_(torch.from_numpy(np.ascontiguousarray(table)))
         return leaf
 
+    def geometry(self) -> StateGeometry:
+        return StateGeometry(
+            kind=self.kind, slots=self.alloc_.n_slots,
+            ring_len=self.alloc_.pages_per_slot * self.page_size,
+            head_dim=self.cfg.head_dim, window=self.window,
+            pages_per_slot=self.alloc_.pages_per_slot)
+
+
+class SlotRowState:
+    """The state of one recurrent layer: RWKV's wkv state and token shifts,
+    or Mamba's SSM state and conv window.  Each is a fixed-size row per
+    slot, so the ``[n_slots, ...]`` tensors *are* the pool: no page
+    indirection, no allocator, and admission is gated by the KV pools
+    alone.  The mixed step advances a slot's rows in place through the
+    length-masked recurrence (a row with no token keeps its state), the
+    decode step through the live-masked per-token step, and :meth:`reset`
+    zeroes a refilled slot's rows."""
+
+    kind = "slot_rows"
+
+    def __init__(self, cfg, slot: T.Slot, *, n_slots: int, device):
+        self.cfg = cfg
+        self.slot = slot
+        self.n_slots = n_slots
+        self.device = device
+
+    # ---- host admission (no per-layer capacity to claim) --------------------
+    def can_alloc(self, *, shared: int = 0) -> bool:
+        return True
+
+    def alloc(self, slot: int, shared=()) -> None:
+        pass
+
+    def free(self, slot: int) -> None:
+        pass
+
+    # ---- device ------------------------------------------------------------
+    def init_device(self):
+        return T.slot_cache(self.cfg, self.slot, self.n_slots, 1,
+                            getattr(torch, self.cfg.dtype),
+                            device=self.device)
+
+    def decode_view(self, leaf, pos):
+        return leaf
+
+    def reset(self, leaf, slot_ids):
+        """Zero the rows of the given slots, in place; ids < 0 are
+        padding.  One fixed-shape mask, so nothing syncs with the host."""
+        hit = (slot_ids.long()[:, None] == torch.arange(
+            self.n_slots, device=slot_ids.device)[None, :]).any(0)
+        for t in tensor_leaves(leaf):
+            t.masked_fill_(hit.reshape(-1, *[1] * (t.dim() - 1)), 0)
+        return leaf
+
+    def copy_page(self, leaf, src, dst, resume):
+        return leaf   # no page identity: copy-on-write is a pool concern
+
+    def push_table(self, leaf, private_only_slot: int | None = None):
+        return leaf
+
+    def geometry(self) -> StateGeometry:
+        return StateGeometry(kind=self.kind, slots=self.n_slots)
+
 
 def stack_is_stateable(model) -> bool:
-    """True when every stack slot has a ported state and layer kind."""
-    return (not model.stack.has_shared
-            and all(T.slot_is_ported(model.cfg, s)
-                    for s in model.stack.pattern))
+    """True when every stack slot has a ported layer and state kind."""
+    return all(T.slot_is_ported(model.cfg, s) for s in model.stack.pattern)
 
 
 @dataclasses.dataclass
@@ -109,7 +198,7 @@ class StateTree:
                 node = node[i]
             return node
 
-        return {
+        out = {
             "slots": [
                 [fn(st, *(at(t, "slots", s, i) for t in trees))
                  for i, st in enumerate(col)]
@@ -117,11 +206,21 @@ class StateTree:
             "tail": [fn(st, *(at(t, "tail", i) for t in trees))
                      for i, st in enumerate(self.states["tail"])],
         }
+        if "shared" in self.states:
+            out["shared"] = [fn(st, *(at(t, "shared", i) for t in trees))
+                             for i, st in enumerate(self.states["shared"])]
+        return out
 
     def leaves(self):
         for col in self.states["slots"]:
             yield from col
         yield from self.states["tail"]
+        yield from self.states.get("shared", [])
+
+    @property
+    def has_rows(self) -> bool:
+        """Whether any layer's state is a recurrent row."""
+        return any(isinstance(st, SlotRowState) for st in self.leaves())
 
     # ---- engine touchpoints --------------------------------------------------
     def init_device(self):
@@ -176,20 +275,24 @@ def _ring_len(window: int, max_len: int) -> int:
 def build_state_tree(model, *, slots: int, page_size: int, max_len: int,
                      overcommit: float = 1.0, pool_pages: int | None = None,
                      device=None) -> StateTree:
-    """One PagedKVState per layer of the flat stack, sharing a
-    :class:`PageAllocator` per distinct ring length, with pools on
-    ``device`` (default ``cuda``).  ``pool_pages`` hard-caps every
-    allocator's pool size."""
+    """One state per layer of the flat stack (a PagedKVState per
+    attention layer and shared-block call, a SlotRowState per recurrent
+    layer), the paged ones sharing a :class:`PageAllocator` per distinct
+    ring length, on ``device`` (default ``cuda``).  ``pool_pages``
+    hard-caps every allocator's pool size."""
     cfg = model.cfg
     stack = model.stack
     device = _device.resolve(device)
     if not stack_is_stateable(model):
         raise NotImplementedError(
-            f"no ported state for the slots {stack.pattern}: recurrent and "
-            "frozen slot-row states (SlotRowState) are ROADMAP Queue 1 item "
-            "9a")
-    group_pps = sorted({ceil_pages(_ring_len(s.window, max_len), page_size)
-                        for s in stack.pattern})
+            f"no ported state for the slots {stack.pattern} of {cfg.name}: "
+            "cross attention, layernorm, gelu, sinusoidal positions and "
+            "frontends come with ROADMAP Queue 1 item 8")
+    attn_windows = [s.window for s in stack.pattern if s.kind == "attn"]
+    if stack.has_shared:
+        attn_windows.append(0)   # zamba2's shared block: full attention
+    group_pps = sorted({ceil_pages(_ring_len(w, max_len), page_size)
+                        for w in attn_windows})
 
     def _pool_size(pps: int) -> int:
         n = max(pps, int(np.ceil(slots * pps * overcommit)))
@@ -200,6 +303,8 @@ def build_state_tree(model, *, slots: int, page_size: int, max_len: int,
                   for pps in group_pps}
 
     def state_for(slot: T.Slot):
+        if slot.kind != "attn":
+            return SlotRowState(cfg, slot, n_slots=slots, device=device)
         ring = _ring_len(slot.window, max_len)
         return PagedKVState(cfg, allocators[ceil_pages(ring, page_size)],
                             page_size=page_size, ring_len=ring,
@@ -210,4 +315,7 @@ def build_state_tree(model, *, slots: int, page_size: int, max_len: int,
                   for s in stack.pattern],
         "tail": [state_for(stack.pattern[i]) for i in range(stack.n_tail)],
     }
+    if stack.has_shared:
+        states["shared"] = [state_for(T.Slot("attn", "none"))
+                            for _ in range(stack.n_periods)]
     return StateTree(states=states, allocators=allocators)

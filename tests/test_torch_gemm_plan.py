@@ -48,7 +48,11 @@ def _lm_cases():
               + [("gemma3 " + n, k, nn)
                  for n, k, nn, _, _ in gemm_cases.GEMMA_GEMMS]
               + [("mixtral " + n, k, nn)
-                 for n, k, nn, _ in gemm_cases.MIXTRAL_GEMMS])
+                 for n, k, nn, _ in gemm_cases.MIXTRAL_GEMMS]
+              + [("rwkv6 " + n, k, nn)
+                 for n, k, nn, _, _ in gemm_cases.RWKV_GEMMS]
+              + [("zamba2 " + n, k, nn)
+                 for n, k, nn, _, _ in gemm_cases.ZAMBA_GEMMS])
     return [(f"{name} M{m}", m, k, n, 16, 16)
             for m in gemm_cases.LM_ROWS for name, k, n in shapes]
 
@@ -192,6 +196,24 @@ def test_gemm_tables_match_the_configs():
         assert layers == cfg.num_layers
         # q, k, v, o, gate, up, down per layer and the unembed
         assert sum(c for *_, c in table) == 7 * layers + 1
+    rwkv, zamba = get_arch("rwkv6-3b"), get_arch("zamba2-1.2b")
+    d, f = rwkv.d_model, rwkv.d_ff
+    assert {n: (k, nn) for n, k, nn, _, _ in gemm_cases.RWKV_GEMMS} == {
+        "r|k|v|g|o|cmix r": (d, d), "lora a": (d, max(32, d // 16)),
+        "cmix k": (d, f), "cmix v": (f, d), "unembed": (d, rwkv.vocab_size)}
+    assert gemm_cases.RWKV_LAYERS == rwkv.num_layers
+    assert sum(c for *_, c in gemm_cases.RWKV_GEMMS) == 9 * rwkv.num_layers + 1
+    d, n, h = zamba.d_model, zamba.ssm_state, zamba.ssm_heads
+    assert {nm: (k, nn) for nm, k, nn, _, _ in gemm_cases.ZAMBA_GEMMS} == {
+        "in_proj": (d, 4 * d + 2 * n + h), "out_proj": (2 * d, d),
+        "shared q|k|v|o": (d, zamba.num_heads * zamba.head_dim),
+        "shared gate": (d, zamba.d_ff), "shared up": (d, zamba.d_ff),
+        "shared down": (zamba.d_ff, d), "unembed": (d, zamba.vocab_size)}
+    calls = zamba.num_layers // zamba.mamba_per_shared_attn
+    assert (gemm_cases.ZAMBA_LAYERS, gemm_cases.ZAMBA_SHARED_CALLS) == (
+        zamba.num_layers, calls)
+    assert sum(c for *_, c in gemm_cases.ZAMBA_GEMMS) == \
+        2 * zamba.num_layers + 7 * calls + 1
     d = mix.d_model
     assert {n: (k, nn) for n, k, nn, _ in gemm_cases.MIXTRAL_GEMMS} == {
         "wq|wo": (d, mix.num_heads * mix.head_dim),

@@ -168,8 +168,7 @@ def test_chunk_and_decode_steps_match():
     _assert_pools_match(jpools, tpools)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "llama-3.2-vision-11b",
-                                  "musicgen-large", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
 def test_unported_architectures_refuse(arch):
     model = Model(smoke_config(get_arch(arch)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
