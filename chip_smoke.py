@@ -44,6 +44,23 @@ default ``build/chip_smoke/``):
    weights) through ``repro_torch``'s PagedEngine: 4 slots, page 16,
    max_len 512, chunk 64, 8 requests of 17-300 prompt tokens, 16 new tokens,
    twice through one engine; every kernel of the path must have launched.
+   ``serve_features`` -- the serving features on the serve phase's weights
+   and engine geometry, one fresh engine per workload: a 128-token prefix
+   shared by 8 requests with the prefix cache (hit rate above 0); 6
+   class-1 requests and, 8 steps later, 2 class-0 ones with preemption (at
+   least one); prompts repeating a 32-token segment with ``--speculate 4``
+   (the n-gram drafter; decode rides the mixed program, so the paged
+   kernel does not launch); the serve workload under a seeded fault plan
+   with the watchdog (its at-drain sweep green); the serve workload sampled
+   at T 0.8, twice from one seed (the same tokens).  Each serves every
+   request the faults did not fail, leaks no page, adds no signature on a
+   warm second pass and launches ``kraken_gemm`` and
+   ``paged_decode_attention`` exactly as its steps require; tok/s,
+   preemptions, hit and accept rates are reported, and token identity with
+   the feature-off engine in bf16.  Then the gate: the four feature
+   workloads in float32, yi-6b at full width cut to 4 layers and
+   zamba2-1.2b at full width and depth, token-identical to the feature-off
+   engine.
 5. ``e2e``      -- one mixed step's and one decode step's logits through the
    kernels and again through the plain versions, on the card.
 6. ``profile``  -- ``torch.profiler`` over one more pass of the serve
@@ -135,8 +152,12 @@ default ``build/chip_smoke/``):
    against plain versions: in bf16 on the served weights (reported: the
    model at this init amplifies a last-ulp difference, see
    ``recurrent_e2e``) and in float32 at full depth, within ``E2E_TOL``;
-   then in float32 at 2 layers the engine token-identical to the
-   sequential path on the serve workload's 8 requests.
+   in bf16 every recurrent layer of both steps at shared inputs, kernels
+   against plain versions, within ``RECUR_LAYER_TOL`` (and a planted fault
+   in one layer must fail that gate), and the whole-model gap again with a
+   seeded nonzero RWKV bonus (reported); then in float32 at 2 layers the
+   engine token-identical to the sequential path on the serve workload's 8
+   requests.
 19. ``zamba_serve``, ``zamba_e2e`` -- the same for zamba2-1.2b (38 Mamba2
    layers and 6 calls of the weight-shared attention block): 119
    ``kraken_gemm`` launches a step and 6 ``paged_decode_attention``
@@ -144,9 +165,9 @@ default ``build/chip_smoke/``):
    runs 7 layers (one period and the shared block, one tail layer).
 
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
-swa_kernels, conv_kernels, recurrence, serve, e2e, profile, dense_serve,
-dense_e2e, moe_serve, moe_e2e, swa_forward, conv_nets, rwkv_serve,
-rwkv_e2e, zamba_serve, zamba_e2e``.
+swa_kernels, conv_kernels, recurrence, serve, serve_features, e2e,
+profile, dense_serve, dense_e2e, moe_serve, moe_e2e, swa_forward,
+conv_nets, rwkv_serve, rwkv_e2e, zamba_serve, zamba_e2e``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -1222,6 +1243,271 @@ def phase_e2e(rec: dict, state: dict) -> None:
         "the largest logit (bf16, full yi-6b)")
 
 
+# ---------------------------------------------------------------------------
+# the serving features: prefix cache, preemption, speculation, faults and
+# seeded sampling, on the serve phase's engine geometry
+# ---------------------------------------------------------------------------
+
+# the workloads: a FEAT_PREFIX-token prefix shared by 8 requests (prefix
+# cache); 6 class-1 requests, then 2 class-0 ones FEAT_URGENT_AFTER steps
+# later (preemption); 8 prompts repeating one FEAT_SEGMENT-token segment
+# (speculation, FEAT_SPECULATE drafts a slot from the n-gram drafter); the
+# serve workload under the seeded fault plan FEAT_FAULTS with the watchdog;
+# the serve workload sampled at FEAT_T, twice from one seed
+FEAT_PREFIX, FEAT_URGENT_AFTER, FEAT_SEGMENT, FEAT_SPECULATE = 128, 8, 32, 4
+FEAT_FAULTS = "seed=0,n=8,ticks=48,kinds=step_exc+alloc_exhaust+swap_corrupt"
+FEAT_T = 0.8
+# the float32 identity gates: yi-6b at full width cut to FEAT_F32_LAYERS
+# layers, zamba2-1.2b at full width and depth
+FEAT_F32_LAYERS = 4
+FEATURES = ("prefix_cache", "preempt", "speculate", "faults")
+
+
+def feature_workloads(vocab: int) -> dict:
+    """name -> (engine options, submissions ``(step, prompt, max_new,
+    priority)``, each submitted once the engine has run ``step`` steps)."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, vocab, (FEAT_PREFIX,))
+    plain = [(0, p, SERVE_NEW, 0) for p in serve_prompts(vocab)]
+    return {
+        "prefix_cache": (dict(prefix_cache=True), [
+            (0, np.concatenate([shared, rng.integers(0, vocab, (17 + 13 * i,))]),
+             SERVE_NEW, 0) for i in range(8)]),
+        "preempt": (dict(preempt=True), [
+            (0, rng.integers(0, vocab, (40 + 20 * i,)), SERVE_NEW, 1)
+            for i in range(6)] + [
+            (FEAT_URGENT_AFTER, rng.integers(0, vocab, (30 + 10 * i,)),
+             SERVE_NEW, 0) for i in range(2)]),
+        "speculate": (dict(speculate=FEAT_SPECULATE), [
+            (0, np.tile(rng.integers(0, vocab, (FEAT_SEGMENT,)), 4)[
+                :3 * FEAT_SEGMENT + 7 * i], SERVE_NEW, 0) for i in range(8)]),
+        "faults": (dict(faults=FEAT_FAULTS, watchdog=True), plain),
+        "sampled": (dict(temperature=FEAT_T, seed=1), plain),
+    }
+
+
+def _feature_engine(model, params, *, prefix_cache=False, preempt=False,
+                    speculate=0, faults=None, watchdog=False,
+                    temperature=0.0, seed=0):
+    from repro_torch.serving import (CacheConfig, EngineConfig, FaultConfig,
+                                     FaultPlan, PagedEngine, SchedulerConfig,
+                                     SpecConfig)
+    return PagedEngine(model, params, config=EngineConfig(
+        slots=SLOTS, chunk=CHUNK, temperature=temperature, seed=seed,
+        sched=SchedulerConfig(preempt=preempt),
+        cache=CacheConfig(page_size=PAGE, max_len=MAX_LEN,
+                          prefix_cache=prefix_cache),
+        spec=SpecConfig(speculate=speculate),
+        fault=FaultConfig(watchdog=watchdog or None,
+                          plan=FaultPlan.from_spec(faults) if faults
+                          else None)))
+
+
+def drive(eng, subs) -> tuple[list, float]:
+    """Submit ``subs`` (``(step, prompt, max_new, priority)``) as the engine
+    reaches each step, run to idle (the fault plan drained and the
+    watchdog's at-drain sweep run), and return the requests and the wall
+    seconds."""
+    import torch
+    start, i, reqs = eng.ticks, 0, []
+    t0 = time.perf_counter()
+    while i < len(subs) or not eng.sched.idle:
+        while i < len(subs) and subs[i][0] <= eng.ticks - start:
+            _, p, max_new, prio = subs[i]
+            reqs.append(eng.submit(p, max_new, priority=prio))
+            i += 1
+        eng.step()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def check_drained(eng, reqs, label: str, faulted_ok: bool = False) -> None:
+    """Every request served in full (or, under faults, failed with a
+    reason), every page back but the prefix cache's own."""
+    vocab = eng.model.cfg.vocab_size
+    for r in reqs:
+        if faulted_ok and r.state == "failed" and r.error:
+            continue
+        if r.state != "done" or len(r.out) != r.max_new or \
+                not all(0 <= t < vocab for t in r.out):
+            raise AssertionError(f"{label}: request {r.rid} ended {r.state} "
+                                 f"with {len(r.out)} tokens ({r.error})")
+    cached = eng.prefix_cache.cached_pages if eng.prefix_cache else 0
+    for alloc in eng.allocators.values():
+        alloc.check()
+        if alloc.free_pages != alloc.n_pages - cached:
+            raise AssertionError(f"{label}: pages leaked")
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.check()
+    if eng.faults is not None and eng.faults.stats()["held_hostage_groups"]:
+        raise AssertionError(f"{label}: the fault plan kept pages")
+
+
+def reference_outputs(model, params, workloads: dict) -> dict:
+    """Every workload's submissions at once through one engine with every
+    feature off: ``name -> [tokens per request]``."""
+    eng = _feature_engine(model, params)
+    reqs = {name: [eng.submit(p, n, priority=prio) for _, p, n, prio in subs]
+            for name, (_, subs) in workloads.items()}
+    eng.run_until_idle()
+    return {name: [list(r.out) for r in rs] for name, rs in reqs.items()}
+
+
+def feature_identity(model, params, label: str) -> dict:
+    """Each feature's workload through its engine, held token for token to
+    the feature-off engine on the same submissions (the replay of
+    ``EngineConfig.verify_reference()``, and the cache-off engine for the
+    prefix cache)."""
+    import torch
+    workloads = {k: v for k, v in feature_workloads(
+        model.cfg.vocab_size).items() if k in FEATURES}
+    ref = reference_outputs(model, params, workloads)
+    res = {}
+    for name, (opts, subs) in workloads.items():
+        eng = _feature_engine(model, params, **opts)
+        reqs, wall = drive(eng, subs)
+        check_drained(eng, reqs, f"{label} {name}", faulted_ok=name == "faults")
+        served = [i for i, r in enumerate(reqs) if r.state == "done"]
+        diff = [i for i in served if list(reqs[i].out) != ref[name][i]]
+        s = eng.stats()
+        res[name] = {"requests": len(reqs), "served": len(served),
+                     "differ": diff, "wall_s": wall,
+                     **{k: s[k] for k in ("prefix_hit_rate", "preemptions",
+                                          "spec_accept_rate", "recovered",
+                                          "swap_rejects")}}
+        log(f"  {label} {name}: {len(served)}/{len(reqs)} served, "
+            f"{len(served) - len(diff)} token-identical to the feature-off "
+            f"engine ({wall:.1f} s)")
+        del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_features(rec: dict, state: dict) -> None:
+    """The serving features on the serve phase's bf16 yi-6b (its weights,
+    its engine geometry), each workload on a fresh engine: served in full,
+    no page leaked, zero new signatures on a warm second pass, the kernels'
+    launches counted against the steps.  Token identity with the
+    feature-off engine is reported in bf16 and gated in float32 on yi-6b
+    at FEAT_F32_LAYERS layers and zamba2-1.2b at full depth."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    params = state.get("params")
+    model = _yi6b()
+    if params is None:
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    workloads = feature_workloads(model.cfg.vocab_size)
+    ref = reference_outputs(model, params, {
+        k: v for k, v in workloads.items() if k != "sampled"})
+    per_step = LAYERS * 7 + 1
+    runs, launches = {}, {name: 0 for name in _read_counts()}
+    sampled = []
+    for name, (opts, subs) in workloads.items():
+        eng = _feature_engine(model, params, **opts)
+        _zero_counts()
+        reqs, wall = drive(eng, subs)
+        counts = _read_counts()
+        mixed, dec = eng._prefill.calls, eng._decode.calls
+        want = {k: 0 for k in counts}
+        want["kraken_gemm"] = per_step * (mixed + dec)
+        want["paged_decode_attention"] = LAYERS * dec
+        if counts != want:
+            raise AssertionError(f"serve_features {name}: launch counts "
+                                 f"{counts} do not match {mixed} mixed + "
+                                 f"{dec} decode steps: {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        check_drained(eng, reqs, f"serve_features {name}",
+                      faulted_ok=name == "faults")
+        s, report = eng.stats(), eng.report()
+        sigs = (eng._prefill.retraces, eng._decode.retraces,
+                eng._reset.retraces)
+        warm, _ = drive(eng, [(0, p, 4, prio) for _, p, _, prio in subs[:2]])
+        check_drained(eng, warm, f"serve_features {name} warm",
+                      faulted_ok=name == "faults")
+        new_sigs = sum(a - b for a, b in zip(
+            (eng._prefill.retraces, eng._decode.retraces,
+             eng._reset.retraces), sigs))
+        if new_sigs:
+            raise AssertionError(f"serve_features {name}: the warm pass "
+                                 f"added {new_sigs} program signatures")
+        served = [i for i, r in enumerate(reqs) if r.state == "done"]
+        toks = sum(len(reqs[i].out) for i in served)
+        run = {"requests": len(reqs), "served": len(served), "tokens": toks,
+               "wall_s": wall, "tok_s": toks / wall, "mixed_steps": mixed,
+               "decode_steps": dec, "launches": counts,
+               "new_signatures_warm": new_sigs, "report": report,
+               **{k: s[k] for k in (
+                   "prefix_hit_rate", "cached_prefill_tokens", "cow_forks",
+                   "preemptions", "resumes", "spec_drafted", "spec_accepted",
+                   "spec_accept_rate", "spec_accepted_per_step", "recovered",
+                   "swap_rejects", "failed_total", "watchdog", "faults")}}
+        if name in ref:
+            # reported: the schedule decides which program (mixed or
+            # decode) computes a token, and in bf16 they round apart
+            run["identical_bf16"] = sum(list(reqs[i].out) == ref[name][i]
+                                        for i in served)
+        else:
+            sampled.append([list(r.out) for r in reqs])
+        runs[name] = run
+        log(f"  serve_features {name}: {report}")
+        del eng
+    # the sampled workload again, from the same seed on a fresh engine
+    eng = _feature_engine(model, params, **workloads["sampled"][0])
+    again, _ = drive(eng, workloads["sampled"][1])
+    del eng
+    if [list(r.out) for r in again] != sampled[0]:
+        raise AssertionError("serve_features sampled: the same seed gave "
+                             "other tokens")
+    greedy = rec.get("serve", {}).get("passes", [{}])[0].get("out")
+    runs["sampled"]["same_seed_identical"] = True
+    if greedy:
+        runs["sampled"]["identical_to_greedy"] = sum(
+            a == b for a, b in zip(sampled[0], greedy))
+    checks = {"prefix_cache": ("prefix_hit_rate", 0.0),
+              "preempt": ("preemptions", 0)}
+    for name, (key, floor) in checks.items():
+        if not runs[name][key] > floor:
+            raise AssertionError(f"serve_features {name}: {key} "
+                                 f"{runs[name][key]}")
+
+    # float32 identity gates
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gates = {}
+    for arch, layers in (("yi-6b", FEAT_F32_LAYERS), ("zamba2-1.2b", None)):
+        cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        m32 = Model(cfg)
+        p32 = m32.init(torch.Generator(device="cuda").manual_seed(0))
+        gates[arch] = feature_identity(m32, p32, f"{arch} float32")
+        del m32, p32
+        _release(state)
+    bad = {f"{a} {n}": r["differ"] for a, g in gates.items()
+           for n, r in g.items() if r["differ"]}
+    if bad:
+        raise AssertionError(f"serve_features: float32 requests that differ "
+                             f"from the feature-off engine: {bad}")
+    if gates["zamba2-1.2b"]["prefix_cache"]["prefix_hit_rate"] != 0.0:
+        raise AssertionError("zamba2-1.2b hit the prefix cache")
+    rec["serve_features"] = {"runs": runs, "launches": launches,
+                             "float32_identity": gates}
+    log("serve_features: bf16 yi-6b " + ", ".join(
+        f"{n} {r['tok_s']:.1f} tok/s"
+        + (f" ({r['identical_bf16']}/{r['served']} as feature-off)"
+           if "identical_bf16" in r else "") for n, r in runs.items())
+        + f"; prefix hit rate {runs['prefix_cache']['prefix_hit_rate']}, "
+        f"{runs['preempt']['preemptions']} preemptions, accept rate "
+        f"{runs['speculate']['spec_accept_rate']}, "
+        f"{runs['faults']['recovered']} recovered; float32 yi-6b "
+        f"({FEAT_F32_LAYERS} layers) and zamba2-1.2b token-identical to the "
+        "feature-off engine under every feature")
+
+
 # device_trace's groups of the port's own kernels
 PORTED_GROUPS = ("kraken_conv2d_direct",
                  "kraken_conv2d_direct: the weights' K-major copy",
@@ -2037,6 +2323,120 @@ RECUR_SEQ, RECUR_LENS, RECUR_TOL = 300, (300, 217), 1e-4
 # block, then one tail layer)
 RECUR_E2E_LAYERS = {"rwkv": 2, "zamba": 7}
 
+# the *_e2e phases' bf16 gate, one recurrent layer at a time at shared
+# inputs: the layer's increment (output - input) and its new state rows,
+# kernels against plain versions, within RECUR_LAYER_TOL in relative L2.
+# Emulated on the CPU at full width (one layer, random inputs), a last-ulp
+# GEMM difference moves them by 1.8e-3 (RWKV6) and 2.4e-4 (Mamba2); a GEMM
+# that drops its first 64 of K moves them by 0.32-0.40
+RECUR_LAYER_TOL = 0.02
+
+
+def _capture_recurrent_inputs(fn):
+    """Run ``fn()`` while recording every recurrent layer's (slot, params,
+    input, state before the layer, context)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.state import map_tensors
+    seen = []
+    orig = T.apply_slot
+
+    def recording(cfg, slot, params, x, cache, ctx):
+        if slot.kind in ("rwkv", "mamba"):
+            seen.append((slot, params, x.clone(),
+                         map_tensors(torch.clone, cache), ctx))
+        return orig(cfg, slot, params, x, cache, ctx)
+
+    T.apply_slot = recording
+    try:
+        out = fn()
+    finally:
+        T.apply_slot = orig
+    return out, seen
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _recurrent_layer_errs(cfg, rec, kernels, plain) -> tuple[float, float]:
+    """One recorded layer through ``kernels`` and through ``plain`` from the
+    same input and state: the relative L2 error of its increment and the
+    largest of its new state rows'."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.state import map_tensors, tensor_leaves
+    slot, params, x, st, ctx = rec
+    outs = []
+    for k in (kernels, plain):
+        c = map_tensors(torch.clone, st)
+        y, c, _ = T.apply_slot(cfg, slot, params, x, c,
+                               ctx._replace(kernels=k))
+        outs.append((y - x, c))
+    (dk, ck), (dp, cp) = outs
+    if not (torch.isfinite(dk).all() and torch.isfinite(dp).all()):
+        raise AssertionError("a recurrent layer's output is not finite")
+    return _rel_l2(dk, dp), max(_rel_l2(a, b) for a, b in zip(
+        tensor_leaves(ck), tensor_leaves(cp)))
+
+
+def recurrent_layer_gate(cfg, seen, plain) -> dict:
+    """Every recorded recurrent layer (a mixed step's, then a decode
+    step's) at shared inputs, kernels against plain versions, within
+    RECUR_LAYER_TOL; then the first layer again with a planted fault (its
+    GEMMs drop the first 64 of K), which the gate must catch."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import DEFAULT_KERNELS
+
+    def dropping(a, b, **kw):
+        return ops.kraken_matmul(a[..., 64:].contiguous(),
+                                 b[64:].contiguous(), **kw)
+
+    errs = [_recurrent_layer_errs(cfg, r, DEFAULT_KERNELS, plain)
+            for r in seen]
+    worst = max(range(len(errs)), key=lambda i: max(errs[i]))
+    planted = _recurrent_layer_errs(
+        cfg, seen[0], DEFAULT_KERNELS._replace(matmul=dropping), plain)
+    res = {"layers": len(seen), "tol": RECUR_LAYER_TOL,
+           "max_rel_l2_out": max(e[0] for e in errs),
+           "max_rel_l2_state": max(e[1] for e in errs),
+           "worst_layer": worst, "planted_fault": planted,
+           "ok": max(max(e) for e in errs) <= RECUR_LAYER_TOL,
+           "planted_caught": max(planted) > RECUR_LAYER_TOL}
+    log(f"  {cfg.name} bf16 per-layer gate: {len(seen)} layer calls, "
+        f"increment {res['max_rel_l2_out']:.2e} state "
+        f"{res['max_rel_l2_state']:.2e} relative L2 (worst call {worst}); "
+        f"planted fault {planted[0]:.2e} / {planted[1]:.2e}")
+    return res
+
+
+def rwkv_bonus_gap(model, params, plain) -> dict:
+    """The bf16 whole-model gap (kernels against plain versions) again with
+    every RWKV bonus ``u`` drawn from a seeded normal instead of the init's
+    zeros, reported: with u = 0 a head's output at its second token is
+    sign(r . k) times a normalized v, so a last-ulp change of a near-zero
+    r . k flips it; a nonzero u adds the current token's own term."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(7)
+    saved = []
+    for layer in params["stack"]["slots"] + params["stack"]["tail"]:
+        if "rwkv_bonus" in layer:
+            saved.append((layer, layer["rwkv_bonus"].clone()))
+            layer["rwkv_bonus"].copy_(torch.randn(
+                layer["rwkv_bonus"].shape, generator=g, device="cuda"))
+    try:
+        got = two_steps(model, params)
+        want = two_steps(type(model)(model.cfg, kernels=plain), params)
+        out = {name: compare_logits(f"{model.cfg.name} bf16 seeded bonus "
+                                    f"{name}", got[i], want[i],
+                                    model.cfg.vocab_size)
+               for i, name in enumerate(("mixed step", "decode step"))}
+    finally:
+        for layer, u in saved:
+            layer["rwkv_bonus"].copy_(u)
+    return out
+
 
 def _recurrent(arch: str, kernels=None, dtype: str = "bfloat16",
                layers: int | None = None):
@@ -2151,20 +2551,31 @@ def recurrent_e2e(rec: dict, state: dict, key: str) -> None:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     arch = RECURRENT[key][0]
+    plain = _plain_kernels()
     res = {}
     for dtype in ("bfloat16", "float32"):
         model = _recurrent(arch, dtype=dtype)
         params = state.get(f"{key}_params") if dtype == "bfloat16" else None
         if params is None:
             params = model.init(torch.Generator(device="cuda").manual_seed(0))
-        got = two_steps(model, params)
-        want = two_steps(_recurrent(arch, _plain_kernels(), dtype), params)
+        got, seen = _capture_recurrent_inputs(lambda: two_steps(model,
+                                                                params))
+        want = two_steps(_recurrent(arch, plain, dtype), params)
         for i, name in enumerate(("mixed step", "decode step")):
             res[f"{dtype} {name}"] = compare_logits(
                 f"{arch} {dtype} {name}", got[i], want[i],
                 model.cfg.vocab_size)
-        del params, got, want
+        if dtype == "bfloat16":
+            res["bfloat16 layer gate"] = recurrent_layer_gate(model.cfg,
+                                                              seen, plain)
+            if key == "rwkv":
+                res["bfloat16 seeded bonus"] = rwkv_bonus_gap(
+                    model, params, plain)
+        del params, got, want, seen
         _release(state, f"{key}_engine", f"{key}_params")
+    gate = res["bfloat16 layer gate"]
+    if not (gate["ok"] and gate["planted_caught"]):
+        raise AssertionError(f"{key}_e2e: bf16 per-layer gate {gate}")
     bad = {k: v for k, v in res.items()
            if k.startswith("float32") and not v["ok"]}
     if bad:
@@ -2191,8 +2602,9 @@ def recurrent_e2e(rec: dict, state: dict, key: str) -> None:
         f"is token-identical to the sequential path on all {len(prompts)} "
         "requests")
     log(f"{key}_e2e: float32 kernels agree with the plain versions within "
-        f"{E2E_TOL} of the largest logit (full {arch}); bf16 (reported) "
-        f"{max(v['rel'] for k, v in res.items() if k.startswith('bfloat16')):.4f}")
+        f"{E2E_TOL} of the largest logit (full {arch}); bf16 every recurrent "
+        f"layer within {RECUR_LAYER_TOL} at shared inputs, whole model "
+        f"(reported) {max(res[f'bfloat16 {n}']['rel'] for n in ('mixed step', 'decode step')):.4f}")
 
 
 def phase_recurrence(rec: dict, state: dict) -> None:
@@ -3065,6 +3477,8 @@ def kernels_line(rec: dict) -> dict:
                 "mixtral-8x22b": moe_launches.get(name),
                 **{RECURRENT[k][0]: rec.get(f"{k}_serve", {}).get(
                     "launches", {}).get(name) for k in RECURRENT},
+                "yi-6b serve_features": rec.get("serve_features", {}).get(
+                    "launches", {}).get(name),
                 "yi-6b int8 dense": dense.get("launches", {}).get(name),
                 "yi-6b int8 engine": dense.get("engine_launches",
                                                {}).get(name),
@@ -3162,7 +3576,7 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "swa_kernels": phase_swa_kernels,
           "conv_kernels": phase_conv_kernels,
           "recurrence": phase_recurrence, "serve": phase_serve,
-          "e2e": phase_e2e, "profile": phase_profile,
+          "serve_features": phase_serve_features, "e2e": phase_e2e, "profile": phase_profile,
           "dense_serve": phase_dense_serve, "dense_e2e": phase_dense_e2e,
           "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e,
           "swa_forward": phase_swa_forward, "conv_nets": phase_conv_nets,

@@ -8,8 +8,12 @@ cache type (:class:`~repro_torch.models.layers.PagedKVCache`) lives in
   refcounted pages, per-slot page tables, admission control, ``check()``;
 * :func:`make_pool` -- a fresh pool with its trash page and an
   all-sentinel table;
-* :func:`scatter_prefill`, :func:`reset_pages`, :func:`copy_page` -- the
-  device writes, **in place**.
+* :func:`scatter_prefill`, :func:`reset_pages`, :func:`copy_page`,
+  :func:`truncate_pages` -- the device writes, **in place**;
+* :func:`swap_out_pages` / :func:`swap_in_pages` -- the preempt-to-host
+  round trip of a slot's pages (values, positions, int8 scales), with
+  :func:`snapshot_digest` to reject a damaged snapshot before any write;
+* :func:`gather_pages` -- a per-slot contiguous view of a pool (tests).
 
 Out-of-range page ids (the sentinel ``n_pages``, ``COPY_NONE``) are the
 writes JAX drops: here they land in the trash page at index ``n_pages``,
@@ -20,6 +24,8 @@ Ring semantics: token position ``p`` of a slot lives at logical index
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -309,3 +315,108 @@ def copy_page(pool: PagedKVCache, src: torch.Tensor, dst: torch.Tensor,
         pool.v_scale[d] = pool.v_scale[s]
     pool.pos[d] = prow
     return pool
+
+
+def truncate_pages(pool: PagedKVCache, pages, n: int) -> PagedKVCache:
+    """Rewind ``pages`` (a slot's pages, any order) to logical length ``n``,
+    in place: every entry holding a position ``>= n`` is re-masked to
+    ``POS_EMPTY`` -- speculative decoding's rollback of rejected drafts.
+    The position mask already hides such an entry until it is rewritten,
+    so this is hygiene: it keeps swap digests and :func:`gather_pages`
+    views functions of the committed stream.  Idempotent."""
+    if len(pages) == 0:
+        return pool
+    idx = _trash_out_of_range(
+        torch.as_tensor(np.asarray(pages, np.int64), device=pool.pos.device),
+        pool.n_pages)
+    rows = pool.pos[idx]
+    pool.pos[idx] = torch.where(rows >= n, torch.full_like(rows, POS_EMPTY),
+                                rows)
+    return pool
+
+
+def _pool_fields(pool: PagedKVCache) -> tuple[str, ...]:
+    return ("k", "v", "pos") + (("k_scale", "v_scale") if pool.quantized
+                                else ())
+
+
+def swap_out_pages(pool: PagedKVCache, pages) -> dict:
+    """Host snapshot of physical ``pages`` (a slot's table row in logical
+    order): k/v values, positions and, for int8 pools, the scales -- the
+    preempt-to-host payload.  Each field is one blocking device-to-host
+    copy, so the snapshot is complete before the caller releases the
+    pages to the next admission.  bf16 and int8 leaves stay torch tensors:
+    their bits are kept as they are."""
+    idx = _trash_out_of_range(
+        torch.as_tensor(np.asarray(pages, np.int64), device=pool.pos.device),
+        pool.n_pages)
+    return {name: getattr(pool, name)[idx].to("cpu", copy=True)
+            for name in _pool_fields(pool)}
+
+
+def swap_in_pages(pool: PagedKVCache, pages, blob: dict) -> PagedKVCache:
+    """Restore a :func:`swap_out_pages` snapshot into ``pages`` (the
+    resumed slot's freshly claimed row, logical order), in place.
+    Physical ids may differ from the swap-out row: position ``p`` maps to
+    logical index ``p % logical_len`` either way."""
+    idx = _trash_out_of_range(
+        torch.as_tensor(np.asarray(pages, np.int64), device=pool.pos.device),
+        pool.n_pages)
+    for name in _pool_fields(pool):
+        dst = getattr(pool, name)
+        dst[idx] = blob[name].to(dst.device)
+    return pool
+
+
+class SwapIntegrityError(RuntimeError):
+    """A preempt-to-host snapshot failed validation at swap-in: its
+    content digest does not match what swap-out recorded (bit corruption,
+    truncation, or a structurally different snapshot).  Raised before any
+    device write, so the pools and the allocators are as they were."""
+
+
+def snapshot_leaves(tree):
+    """The leaves of a host snapshot tree in order: dicts by insertion,
+    lists and tuples (the recurrent NamedTuples) by position."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from snapshot_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from snapshot_leaves(v)
+    else:
+        yield tree
+
+
+def snapshot_digest(blobs) -> bytes:
+    """Content digest of a swap snapshot tree: blake2b over every leaf's
+    shape, dtype name and raw bytes, in tree order.  A flipped byte, a
+    truncated tensor or a missing or extra leaf changes it.  Leaves are
+    torch tensors (bf16 hashed as its bits) or numpy arrays."""
+    h = hashlib.blake2b(digest_size=16)
+    for leaf in snapshot_leaves(blobs):
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach().to("cpu").contiguous()
+            shape, dtype = tuple(t.shape), str(t.dtype)
+            raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        else:
+            a = np.ascontiguousarray(np.asarray(leaf))
+            shape, dtype, raw = a.shape, str(a.dtype), a.tobytes()
+        h.update(repr((shape, dtype)).encode())
+        h.update(raw)
+    return h.digest()
+
+
+def gather_pages(pool: PagedKVCache):
+    """Contiguous per-slot view: (k [N, KV, L, D], v likewise, pos [N, L]).
+    A slot with no live page reads the trash page under an all-empty
+    position row."""
+    n_slots, mp = pool.page_table.shape
+    _, kvh, ps, hd = pool.k.shape
+    table = _trash_out_of_range(pool.page_table, pool.n_pages)
+    k = pool.k[table].transpose(1, 2).reshape(n_slots, kvh, mp * ps, hd)
+    v = pool.v[table].transpose(1, 2).reshape(n_slots, kvh, mp * ps, hd)
+    pos = pool.pos[table].reshape(n_slots, mp * ps)
+    live = (pool.page_table < pool.n_pages).any(dim=1)
+    pos = torch.where(live[:, None], pos, torch.full_like(pos, POS_EMPTY))
+    return k, v, pos

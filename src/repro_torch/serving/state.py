@@ -6,10 +6,12 @@ A port of ``repro.serving.state`` for attention, RWKV and Mamba layers: a
 of one recurrent layer's fixed-size row per slot, and a :class:`StateTree`
 zips the handles with the model's flat cache layout ``{"slots": [[state per
 period] per pattern slot], "tail": [...], "shared": [...]}`` and owns
-admission over the shared allocators and the table pushes.  Device
+admission over the shared allocators, the table pushes, prefix-cache
+eligibility and the engine's eager round trips: preempt-to-host
+(``swap_out`` / ``swap_in``, digest-checked before any write) and
+speculation's rollback (``spec_snapshot`` / ``truncate``).  Device
 transforms update the states in place and return them.  Frozen
-cross-attention rows come with cross attention (ROADMAP Queue 1 item 8);
-swap-out and speculation's snapshots with items 9c and 9e.
+cross-attention rows come with cross attention (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -23,8 +25,11 @@ import torch
 from repro_torch import device as _device
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import PagedKVCache
-from repro_torch.serving.paged_kv import (PageAllocator, ceil_pages, copy_page,
-                                          make_pool, reset_pages)
+from repro_torch.serving.paged_kv import (PageAllocator, SwapIntegrityError,
+                                          ceil_pages, copy_page, make_pool,
+                                          reset_pages, snapshot_digest,
+                                          swap_in_pages, swap_out_pages,
+                                          truncate_pages)
 
 
 def tensor_leaves(obj):
@@ -41,6 +46,20 @@ def tensor_leaves(obj):
     elif dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
             yield from tensor_leaves(getattr(obj, f.name))
+
+
+def map_tensors(fn, obj):
+    """``obj`` with ``fn`` applied to every tensor, its structure kept:
+    dicts, lists, tuples and the recurrent NamedTuples."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(fn, v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map_tensors(fn, v) for v in obj)
+    raise TypeError(f"no tensors to map in {type(obj).__name__}")
 
 
 class StateGeometry(NamedTuple):
@@ -69,6 +88,13 @@ class PagedKVState:
         self.ring_len = ring_len
         self.window = window
         self.device = device
+
+    @property
+    def cacheable(self) -> bool:
+        """Whether this layer's pages may enter the prefix cache: full
+        attention only -- a windowed ring wraps inside a long prompt, so a
+        shared page could be overwritten by its reader."""
+        return self.window == 0
 
     # ---- host admission ----------------------------------------------------
     def can_alloc(self, *, shared: int = 0) -> bool:
@@ -109,6 +135,38 @@ class PagedKVState:
     def copy_page(self, leaf: PagedKVCache, src, dst, resume) -> PagedKVCache:
         return copy_page(leaf, src, dst, resume)
 
+    # ---- preempt-to-host ---------------------------------------------------
+    def swap_out(self, leaf: PagedKVCache, slot: int) -> dict:
+        """Host snapshot of the slot's logical KV ring; the slot must still
+        hold its pages (swap out *before* release).  Shared prefix-cache
+        pages snapshot like private ones: the restored slot owns a private
+        copy, the cache keeps the original."""
+        pages = self.alloc_.slot_pages(slot)
+        if not pages:
+            raise ValueError(f"slot {slot} holds no pages to swap out")
+        return swap_out_pages(leaf, pages)
+
+    def swap_in(self, leaf: PagedKVCache, slot: int, blob: dict) -> PagedKVCache:
+        """Restore a snapshot into the slot's freshly claimed row (swap in
+        *after* alloc; the physical ids may differ)."""
+        return swap_in_pages(leaf, self.alloc_.slot_pages(slot), blob)
+
+    # ---- speculative accept/rollback ---------------------------------------
+    def spec_snapshot(self, leaf: PagedKVCache, slot: int):
+        """Paged pools rewind by position masking alone, so the pre-verify
+        snapshot is free (None)."""
+        return None
+
+    def truncate(self, leaf: PagedKVCache, slot: int, n: int,
+                 snap=None) -> PagedKVCache:
+        """Rewind the slot to ``n`` committed tokens: entries at positions
+        ``>= n`` on its *private* pages are re-masked empty.  Shared
+        prefix-cache pages hold only committed prompt positions and may be
+        mapped by other slots or the cache, so they are left alone."""
+        shared = self.alloc_.shared_pages(slot)
+        pages = [p for p in self.alloc_.slot_pages(slot) if p not in shared]
+        return truncate_pages(leaf, pages, n)
+
     def push_table(self, leaf: PagedKVCache,
                    private_only_slot: int | None = None) -> PagedKVCache:
         table = self.alloc_.device_table(private_only_slot)
@@ -134,6 +192,10 @@ class SlotRowState:
     zeroes a refilled slot's rows."""
 
     kind = "slot_rows"
+
+    #: a row is the whole state of a slot: there is no per-chunk page to
+    #: share, so recurrent layers are never prefix-cacheable
+    cacheable = False
 
     def __init__(self, cfg, slot: T.Slot, *, n_slots: int, device):
         self.cfg = cfg
@@ -171,6 +233,35 @@ class SlotRowState:
 
     def copy_page(self, leaf, src, dst, resume):
         return leaf   # no page identity: copy-on-write is a pool concern
+
+    # ---- preempt-to-host: a row *is* the whole state -----------------------
+    def swap_out(self, leaf, slot: int):
+        """Host copy of the slot's rows (one blocking copy per tensor): the
+        row holds the exact state after the slot's tokens, so copying it
+        out and back in is the whole round trip."""
+        return map_tensors(lambda a: a[slot].to("cpu", copy=True), leaf)
+
+    def swap_in(self, leaf, slot: int, blob):
+        for a, b in zip(tensor_leaves(leaf), tensor_leaves(blob)):
+            a[slot].copy_(b)
+        return leaf
+
+    # ---- speculative accept/rollback ---------------------------------------
+    def spec_snapshot(self, leaf, slot: int):
+        """A device copy of the slot's rows *before* a verify chunk runs.
+        The programs advance the rows in place, so a rejected draft can
+        only be undone by restoring this copy."""
+        return map_tensors(lambda a: a[slot].clone(), leaf)
+
+    def truncate(self, leaf, slot: int, n: int, snap=None):
+        """Rewind by restoring the pre-verify snapshot; a row has no
+        per-position identity to mask, so ``n`` is implied by it."""
+        if snap is None:
+            raise ValueError(
+                "recurrent rows cannot rewind without a pre-verify "
+                "snapshot (spec_snapshot) -- rows hold only the state "
+                "after every token fed, including rejected drafts")
+        return self.swap_in(leaf, slot, snap)
 
     def push_table(self, leaf, private_only_slot: int | None = None):
         return leaf
@@ -243,6 +334,45 @@ class StateTree:
             lambda st, pl: st.push_table(
                 pl, private_only_slot=private_only_slot), pools)
 
+    # ---- preempt-to-host: one geometry for every state kind -----------------
+    def swap_out(self, pools, slot: int):
+        """Host snapshot of ``slot`` across every layer state (zamba2's
+        ``"shared"`` pools included), structured like the device tree, with
+        a content digest.  Call *before* releasing the slot."""
+        blobs = self.map_device(lambda st, pl: st.swap_out(pl, slot), pools)
+        return {"blobs": blobs, "digest": snapshot_digest(blobs)}
+
+    def swap_in(self, pools, slot: int, snap):
+        """Restore a :meth:`swap_out` snapshot into ``slot``'s freshly
+        claimed pages and rows (call *after* ``admit``).  The digest is
+        checked before any device write: a mismatch raises
+        :class:`SwapIntegrityError` with the pools untouched."""
+        if not isinstance(snap, dict) or "blobs" not in snap:
+            raise SwapIntegrityError(
+                "swap snapshot is structurally invalid (no blobs)")
+        if snap.get("digest") != snapshot_digest(snap["blobs"]):
+            raise SwapIntegrityError(
+                "swap snapshot digest mismatch -- the snapshot was "
+                "corrupted or truncated while parked on the host")
+        return self.map_device(
+            lambda st, pl, b: st.swap_in(pl, slot, b), pools, snap["blobs"])
+
+    # ---- speculative accept/rollback -----------------------------------------
+    def spec_snapshot(self, pools, slot: int):
+        """Pre-verify snapshot of ``slot``: device row copies for recurrent
+        states, None for paged pools (they rewind by position masking)."""
+        return self.map_device(
+            lambda st, pl: st.spec_snapshot(pl, slot), pools)
+
+    def truncate(self, pools, slot: int, n: int, snap=None):
+        """Rewind ``slot`` to ``n`` committed tokens after a rejected verify
+        chunk: paged leaves re-mask positions ``>= n`` (shared pages
+        untouched), recurrent rows restore ``snap``."""
+        if snap is None:
+            snap = self.map_device(lambda st: None)
+        return self.map_device(
+            lambda st, pl, b: st.truncate(pl, slot, n, snap=b), pools, snap)
+
     # ---- admission -----------------------------------------------------------
     def can_admit(self, *, shared: int = 0) -> bool:
         return all(st.can_alloc(shared=shared) for st in self.leaves())
@@ -264,6 +394,26 @@ class StateTree:
     @property
     def free_pages(self) -> dict[int, int]:
         return {g: a.free_pages for g, a in self.allocators.items()}
+
+    def cacheable_group(self) -> int | None:
+        """The pool group (pages_per_slot) the prefix cache may serve, or
+        None unless every layer is a full-attention paged pool (a
+        recurrent row or a windowed ring anywhere opts the model out)."""
+        groups = set()
+        for st in self.leaves():
+            if not getattr(st, "cacheable", False):
+                return None
+            groups.add(st.alloc_.pages_per_slot)
+        return groups.pop() if len(groups) == 1 else None
+
+    def paged_geoms(self) -> list[tuple[int, int, int, int]]:
+        """The distinct ``(slots, logical_len, head_dim, window)`` of the
+        paged pools, zamba2's shared-block pools included."""
+        geoms = {
+            (g.slots, g.ring_len, g.head_dim, g.window)
+            for st in self.leaves()
+            for g in [st.geometry()] if g.kind == "paged_kv"}
+        return sorted(geoms)
 
 
 def _ring_len(window: int, max_len: int) -> int:

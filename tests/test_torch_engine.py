@@ -6,8 +6,9 @@ to JAX's (whose CPU default decode mode is its dense-gather reference), for
 whole-prompt and chunked prefill.  Two slots for four requests, so slots
 are freed and refilled mid-run.  Also: every page comes back and the
 allocator's ``check()`` passes, the engine runs exactly three programs and a
-warm engine sees no new argument signature, unported features are refused
-by name, and the serve CLI runs end to end on the CPU.
+warm engine sees no new argument signature, and the serve CLI runs end to
+end on the CPU.  The serving features (prefix cache, preemption, faults,
+speculation, sampling) have their own suites, ``tests/test_torch_*.py``.
 
 int8 KV pools: the port's engine is token-identical to the JAX int8
 sequential oracle and to the port's own (``tests/test_serving_engine.py``'s
@@ -33,8 +34,7 @@ from repro.serving import PagedEngine as JPagedEngine  # noqa: E402
 
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving import (FAILED, REJECTED, CacheConfig,  # noqa: E402
-                                 EngineConfig, FaultConfig, PagedEngine,
-                                 SchedulerConfig, SpecConfig)
+                                 EngineConfig, PagedEngine)
 
 from test_serving_engine import sequential_greedy as jax_sequential  # noqa: E402
 from test_torch_dense_cache import sequential_greedy, setup_pair  # noqa: E402
@@ -158,19 +158,6 @@ def test_int8_engine_chunked_matches_jax():
         else:
             np.testing.assert_allclose(got_leaf[live], want_leaf[live],
                                        rtol=1e-4, atol=1e-6)
-
-
-@pytest.mark.parametrize("config, item", [
-    (EngineConfig(cache=CacheConfig(prefix_cache=True)), "9b"),
-    (EngineConfig(sched=SchedulerConfig(preempt=True)), "9c"),
-    (EngineConfig(fault=FaultConfig(deadline_s=1.0)), "9d"),
-    (EngineConfig(fault=FaultConfig(watchdog=True)), "9d"),
-    (EngineConfig(spec=SpecConfig(speculate=2)), "9e"),
-    (EngineConfig(temperature=0.7), "9f"),
-])
-def test_unported_features_are_refused(config, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        config.validate()
 
 
 def test_config_invariants_are_checked():
