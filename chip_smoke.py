@@ -16,14 +16,17 @@ default ``build/chip_smoke/``):
    plain version, one library call and the bound; ``kraken_gemm`` also at
    the edge cases of ``repro_torch/core/gemm_cases.py`` (M 1, a split at
    decode, M 65, K 27 and 363 and N 123, which TMA refuses, a ragged K) and
-   every epilogue at ragged shapes; rwkv6-3b's and zamba2-1.2b's
-   decode-step GEMMs are timed too.  Each GEMM runs twice and must give the
+   every epilogue at ragged shapes (and llama-3.2-vision-11b's cross K/V
+   projection of 1601 patches, musicgen-large's bias + gelu MLP); the
+   decode-step GEMMs of rwkv6-3b, zamba2-1.2b, llama-3.2-vision-11b and
+   musicgen-large are timed too.  Each GEMM runs twice and must give the
    same bits; its plan, TFLOP/s, GB/s and ratios to ``torch.matmul`` and
    the bound are logged, and every case is checked before a miss fails the
    phase with the largest atol it needs.  ``paged_decode_attention`` runs
    every ``PAGED_CASES`` entry of ``repro_torch/core/attention_cases.py``
    (yi-6b, its int8 pools and mixtral at 1, 4 and 64 slots, zamba2's
-   shared block at 4 and 64; a ring wrap, a
+   shared block, which is musicgen-large's geometry, and
+   llama-3.2-vision-11b at 4 and 64; a ring wrap, a
    window, dead slots, sentinels mid-table, shapes TMA refuses) in each of
    its pool dtypes: within ``ATTN_TOL``, dead slots exactly zero, two calls
    bit-identical and the same bits with Inf and NaN in every dead entry and
@@ -45,7 +48,8 @@ default ``build/chip_smoke/``):
    max_len 512, chunk 64, 8 requests of 17-300 prompt tokens, 16 new tokens,
    twice through one engine; every kernel of the path must have launched.
    ``serve_features`` -- the serving features on the serve phase's weights
-   and engine geometry, one fresh engine per workload: a 128-token prefix
+   (their first 8 layers, to keep the whole script near 780 s) and engine
+   geometry, one fresh engine per workload: a 128-token prefix
    shared by 8 requests with the prefix cache (hit rate above 0); 6
    class-1 requests and, 8 steps later, 2 class-0 ones with preemption (at
    least one); prompts repeating a 32-token segment with ``--speculate 4``
@@ -163,11 +167,36 @@ default ``build/chip_smoke/``):
    ``kraken_gemm`` launches a step and 6 ``paged_decode_attention``
    launches a decode step (32/32 heads of 64); its float32 engine check
    runs 7 layers (one period and the shared block, one tail layer).
+20. ``vlm_serve`` -- release the earlier models, then serve
+   llama-3.2-vision-11b at full width and depth (40 layers, 8 of them
+   cross attention; 9.78 B parameters, bf16, seeded weights) with the
+   serve phase's engine and traffic, text-only as the reference's engine
+   serves: every logit finite, zero new signatures when warm, exactly 265
+   ``kraken_gemm`` launches a step and 32 ``paged_decode_attention``
+   launches a decode step, and every cross row still exactly zero; then
+   the first 2 requests one at a time through ``init_caches`` /
+   ``prefill`` / ``decode_step`` with seeded image patches [1, 1601, 4096]
+   (the cross rows filled, each prefill's 8 cross K/V projections counted)
+   and again without: tok/s of both, and the patches must move the first
+   token's logits.  With ``profile``, a traced warm engine pass.
+21. ``vlm_e2e`` -- bf16 on the served weights, kernels against plain
+   versions within ``E2E_TOL``: one mixed and one decode step, and one
+   prefill with the patches; then in float32 at 5 layers (one period, its
+   cross layer included) the engine token-identical to the sequential
+   path on the serve workload's 8 requests.
+22. ``audio_serve``, ``audio_e2e`` -- the same for musicgen-large (48
+   layers, d 2048, 32/32 heads of 64, LayerNorm, sinusoidal positions, the
+   gelu MLP with biases in ``kraken_gemm``'s epilogue; 2.43 B parameters):
+   289 ``kraken_gemm`` launches a step, 48 ``paged_decode_attention`` a
+   decode step; on the dense path seeded audio frames [1, S, 2048] are
+   added in the prefill and [1, 1, 2048] at each decode step; its float32
+   gate runs 2 layers.
 
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
 swa_kernels, conv_kernels, recurrence, serve, serve_features, e2e,
 profile, dense_serve, dense_e2e, moe_serve, moe_e2e, swa_forward,
-conv_nets, rwkv_serve, rwkv_e2e, zamba_serve, zamba_e2e``.
+conv_nets, rwkv_serve, rwkv_e2e, zamba_serve, zamba_e2e, vlm_serve,
+vlm_e2e, audio_serve, audio_e2e``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -705,15 +734,18 @@ def phase_kernels(rec: dict, state: dict) -> None:
             f"{step['ms'] / step['bound_ms']:.2f}); device (graph) "
             f"{step['device_ms']:.2f} ms, torch.matmul "
             f"{step['device_library_ms']:.2f}")
-    # the recurrent archs' decode-step GEMMs (M = 4 slots, bf16), summed
-    # per decode step as yi-6b's are
-    from repro_torch.core.gemm_cases import RWKV_GEMMS, ZAMBA_GEMMS
+    # the other archs' decode-step GEMMs (M = 4 slots, bf16; musicgen's
+    # MLP with its biases), summed per decode step as yi-6b's are
+    from repro_torch.core.gemm_cases import (MUSICGEN_GEMMS, RWKV_GEMMS,
+                                             VLM_GEMMS, ZAMBA_GEMMS)
     for arch, table in (("rwkv6-3b", RWKV_GEMMS),
-                        ("zamba2-1.2b", ZAMBA_GEMMS)):
+                        ("zamba2-1.2b", ZAMBA_GEMMS),
+                        ("llama-3.2-vision-11b", VLM_GEMMS),
+                        ("musicgen-large", MUSICGEN_GEMMS)):
         arows = []
-        for name, k, n, act, calls in table:
+        for name, k, n, act, *bias, calls in table:
             r = gemm_case(torch, kg, ref, SLOTS, k, n, act, torch.bfloat16,
-                          seed=len(rows))
+                          bias=any(bias), seed=len(rows))
             r["name"] = f"{arch.split('-')[0]} {name}"
             r["calls_per_decode_step"] = calls
             arows.append(r)
@@ -1258,8 +1290,10 @@ FEAT_PREFIX, FEAT_URGENT_AFTER, FEAT_SEGMENT, FEAT_SPECULATE = 128, 8, 32, 4
 FEAT_FAULTS = "seed=0,n=8,ticks=48,kinds=step_exc+alloc_exhaust+swap_corrupt"
 FEAT_T = 0.8
 # the float32 identity gates: yi-6b at full width cut to FEAT_F32_LAYERS
-# layers, zamba2-1.2b at full width and depth
-FEAT_F32_LAYERS = 4
+# layers, zamba2-1.2b at full width and depth.  The bf16 runs serve the
+# serve phase's weights cut to their first FEAT_BF16_LAYERS layers (views,
+# nothing copied), to keep the whole script near 780 s
+FEAT_F32_LAYERS, FEAT_BF16_LAYERS = 4, 8
 FEATURES = ("prefix_cache", "preempt", "speculate", "faults")
 
 
@@ -1386,8 +1420,9 @@ def feature_identity(model, params, label: str) -> dict:
 
 
 def phase_serve_features(rec: dict, state: dict) -> None:
-    """The serving features on the serve phase's bf16 yi-6b (its weights,
-    its engine geometry), each workload on a fresh engine: served in full,
+    """The serving features on the serve phase's bf16 yi-6b (its weights'
+    first FEAT_BF16_LAYERS layers, its engine geometry), each workload on
+    a fresh engine: served in full,
     no page leaked, zero new signatures on a warm second pass, the kernels'
     launches counted against the steps.  Token identity with the
     feature-off engine is reported in bf16 and gated in float32 on yi-6b
@@ -1397,13 +1432,17 @@ def phase_serve_features(rec: dict, state: dict) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
     params = state.get("params")
-    model = _yi6b()
     if params is None:
-        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        params = _yi6b().init(torch.Generator(device="cuda").manual_seed(0))
+    model = Model(dataclasses.replace(get_arch("yi-6b"),
+                                      num_layers=FEAT_BF16_LAYERS))
+    params = {**params, "stack": {**params["stack"], "slots": [
+        {k: w[:FEAT_BF16_LAYERS] for k, w in slot.items()}
+        for slot in params["stack"]["slots"]]}}
     workloads = feature_workloads(model.cfg.vocab_size)
     ref = reference_outputs(model, params, {
         k: v for k, v in workloads.items() if k != "sampled"})
-    per_step = LAYERS * 7 + 1
+    per_step = FEAT_BF16_LAYERS * 7 + 1
     runs, launches = {}, {name: 0 for name in _read_counts()}
     sampled = []
     for name, (opts, subs) in workloads.items():
@@ -1414,7 +1453,7 @@ def phase_serve_features(rec: dict, state: dict) -> None:
         mixed, dec = eng._prefill.calls, eng._decode.calls
         want = {k: 0 for k in counts}
         want["kraken_gemm"] = per_step * (mixed + dec)
-        want["paged_decode_attention"] = LAYERS * dec
+        want["paged_decode_attention"] = FEAT_BF16_LAYERS * dec
         if counts != want:
             raise AssertionError(f"serve_features {name}: launch counts "
                                  f"{counts} do not match {mixed} mixed + "
@@ -1463,11 +1502,7 @@ def phase_serve_features(rec: dict, state: dict) -> None:
     if [list(r.out) for r in again] != sampled[0]:
         raise AssertionError("serve_features sampled: the same seed gave "
                              "other tokens")
-    greedy = rec.get("serve", {}).get("passes", [{}])[0].get("out")
     runs["sampled"]["same_seed_identical"] = True
-    if greedy:
-        runs["sampled"]["identical_to_greedy"] = sum(
-            a == b for a, b in zip(sampled[0], greedy))
     checks = {"prefix_cache": ("prefix_hit_rate", 0.0),
               "preempt": ("preemptions", 0)}
     for name, (key, floor) in checks.items():
@@ -1496,7 +1531,7 @@ def phase_serve_features(rec: dict, state: dict) -> None:
         raise AssertionError("zamba2-1.2b hit the prefix cache")
     rec["serve_features"] = {"runs": runs, "launches": launches,
                              "float32_identity": gates}
-    log("serve_features: bf16 yi-6b " + ", ".join(
+    log(f"serve_features: bf16 yi-6b ({FEAT_BF16_LAYERS} layers) " + ", ".join(
         f"{n} {r['tok_s']:.1f} tok/s"
         + (f" ({r['identical_bf16']}/{r['served']} as feature-off)"
            if "identical_bf16" in r else "") for n, r in runs.items())
@@ -2126,24 +2161,35 @@ def dense_sequential(model, params, prompts, max_new: int) -> list:
     """Each prompt alone through the dense-cache path: ``init_caches`` (one
     slot, ``MAX_LEN`` entries), ``prefill``, then greedy ``decode_step`` at
     its own position.  Returns the generated tokens per prompt."""
+    return sequential_requests(model, params, prompts, max_new)[0]
+
+
+def sequential_requests(model, params, prompts, max_new: int, feeds=None):
+    """``dense_sequential`` with, when ``feeds`` is given, each prompt's
+    frontend (``frontend_feeds``: the prefill's, then one a decode step or
+    None).  Returns (tokens per prompt, each prefill's last logits [V] in
+    f32, the last prompt's caches)."""
     import torch
-    outs = []
-    for prompt in prompts:
+    outs, first, caches = [], [], None
+    for i, prompt in enumerate(prompts):
+        pre, steps = feeds[i] if feeds else (None, None)
         caches = model.init_caches(1, MAX_LEN)
         n = len(prompt)
         logits, caches = model.prefill(params, {
             "tokens": torch.as_tensor(prompt[None], device="cuda"),
-            "positions": torch.arange(n, dtype=torch.int32, device="cuda")},
-            caches)
+            "positions": torch.arange(n, dtype=torch.int32, device="cuda"),
+            "frontend": pre}, caches)
+        first.append(logits[0, -1].float())
         seq = [int(torch.argmax(logits[0, -1]))]
         while len(seq) < max_new:
             pos = torch.full((1,), n + len(seq) - 1, dtype=torch.int32,
                              device="cuda")
             logits, caches = model.decode_step(
-                params, caches, torch.tensor([[seq[-1]]], device="cuda"), pos)
+                params, caches, torch.tensor([[seq[-1]]], device="cuda"), pos,
+                frontend=steps[len(seq) - 1] if steps else None)
             seq.append(int(torch.argmax(logits[0])))
         outs.append(seq)
-    return outs
+    return outs, first, caches
 
 
 def _counters():
@@ -2438,8 +2484,8 @@ def rwkv_bonus_gap(model, params, plain) -> dict:
     return out
 
 
-def _recurrent(arch: str, kernels=None, dtype: str = "bfloat16",
-               layers: int | None = None):
+def _full_width(arch: str, kernels=None, dtype: str = "bfloat16",
+                layers: int | None = None):
     """``arch`` at full width, at full depth or ``layers`` deep."""
     import dataclasses
     from repro_torch.configs import get_arch
@@ -2465,19 +2511,21 @@ def _check_logits(eng) -> list:
     return flag
 
 
-def recurrent_serve(rec: dict, state: dict, key: str) -> None:
-    """Serve ``RECURRENT[key]``'s arch at full width and depth (bf16,
-    seeded weights) through the engine, twice, then the same 8 requests one
-    at a time through ``init_caches`` / ``prefill`` / ``decode_step``."""
+def serve_full_width(state: dict, key: str, arch: str, table: str,
+                     attn_calls: int):
+    """Serve ``arch`` at full width and depth (bf16, seeded weights)
+    through the engine, twice (``serve_passes``: no new signature when
+    warm): every logit finite and the launches exactly ``table``'s
+    ``kraken_gemm`` count a step and ``attn_calls``
+    ``paged_decode_attention`` a decode step.  The caller releases the
+    earlier models first.  Returns (model, params, engine, the phase's
+    record so far)."""
     import torch
     from repro_torch.core import gemm_cases
-    arch, table, attn_calls = RECURRENT[key]
-    _release(state, "engine", "params",
-             *(f"{k}_{x}" for k in RECURRENT for x in ("engine", "params")))
     log(f"  released the earlier models: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     torch.cuda.reset_peak_memory_stats()
-    model = _recurrent(arch)
+    model = _full_width(arch)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -2485,6 +2533,7 @@ def recurrent_serve(rec: dict, state: dict, key: str) -> None:
     n_params = sum(t.numel() for t in _leaves(params))
     state[f"{key}_params"] = params
     eng = _engine(model, params)
+    state[f"{key}_engine"] = eng
     finite = _check_logits(eng)
     _zero_counts()
     passes = serve_passes(eng, f"{key}_serve")
@@ -2501,6 +2550,57 @@ def recurrent_serve(rec: dict, state: dict, key: str) -> None:
     if not bool(finite[0]):
         raise AssertionError(f"{key}_serve: a served logit is not finite")
     peak = torch.cuda.max_memory_allocated()
+    log(f"  {eng.report()}")
+    log(f"{key}_serve: {arch} {n_params / 1e9:.2f} B params bf16, peak "
+        f"{peak / 1e9:.1f} GB allocated, warm pass "
+        f"{passes[1]['tok_s']:.1f} tok/s, ttft mean "
+        f"{passes[1]['ttft_mean_s'] * 1e3:.0f} ms, every logit finite, zero "
+        f"new signatures; per step {per_step} kraken_gemm and, per decode "
+        f"step, {attn_calls} paged_decode_attention launches")
+    return model, params, eng, {
+        "arch": arch, "params": n_params, "init_s": init_s,
+        "passes": passes, "report": eng.report(), "launches": launches,
+        "launches_per_decode_step": {"kraken_gemm": per_step,
+                                     "paged_decode_attention": attn_calls},
+        "launches_per_mixed_step": {"kraken_gemm": per_step,
+                                    "paged_decode_attention": 0},
+        "max_memory_allocated_gb": peak / 1e9, "logits_finite": True}
+
+
+def f32_engine_gate(key: str, arch: str, layers: int) -> dict:
+    """``arch`` in float32 at full width cut to ``layers`` deep: the serve
+    workload's 8 requests through the engine (chunk 64) must be
+    token-identical to the sequential path."""
+    import torch
+    m32 = _full_width(arch, dtype="float32", layers=layers)
+    p32 = m32.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = serve_prompts(m32.cfg.vocab_size)
+    seq = dense_sequential(m32, p32, prompts, SERVE_NEW)
+    eng = _engine(m32, p32)
+    reqs = [eng.submit(p, SERVE_NEW) for p in prompts]
+    eng.run_until_idle()
+    diff = [i for i, (r, o) in enumerate(zip(reqs, seq)) if list(r.out) != o]
+    if diff:
+        raise AssertionError(f"{key}_e2e: float32 {layers} layers: engine "
+                             f"requests {diff} differ from the sequential "
+                             "path")
+    log(f"  {key}_e2e: float32 {layers} layers: the engine (chunk {CHUNK}) "
+        f"is token-identical to the sequential path on all {len(prompts)} "
+        "requests")
+    return {"requests": len(prompts), "tokens": sum(len(o) for o in seq),
+            "token_identical": True}
+
+
+def recurrent_serve(rec: dict, state: dict, key: str) -> None:
+    """Serve ``RECURRENT[key]``'s arch through ``serve_full_width``, then
+    the same 8 requests one at a time through ``init_caches`` /
+    ``prefill`` / ``decode_step``."""
+    import torch
+    arch, table, attn_calls = RECURRENT[key]
+    _release(state, "engine", "params",
+             *(f"{k}_{x}" for k in RECURRENT for x in ("engine", "params")))
+    model, params, eng, out = serve_full_width(state, key, arch, table,
+                                               attn_calls)
 
     # the same requests one at a time through the sequential path
     prompts = serve_prompts(model.cfg.vocab_size)
@@ -2509,29 +2609,14 @@ def recurrent_serve(rec: dict, state: dict, key: str) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     toks = sum(len(o) for o in outs)
-    same = sum(a == b for a, b in zip(passes[0]["out"], outs))
-    rec[f"{key}_serve"] = {
-        "arch": arch, "params": n_params, "init_s": init_s,
-        "passes": passes, "report": eng.report(), "launches": launches,
-        "launches_per_decode_step": {"kraken_gemm": per_step,
-                                     "paged_decode_attention": attn_calls},
-        "launches_per_mixed_step": {"kraken_gemm": per_step,
-                                    "paged_decode_attention": 0},
-        "max_memory_allocated_gb": peak / 1e9, "logits_finite": True,
-        "sequential": {"wall_s": wall, "tokens": toks, "tok_s": toks / wall,
-                       "out": outs},
-        "engine_requests_identical_to_sequential": same}
-    state[f"{key}_engine"] = eng
-    log(f"  {eng.report()}")
+    same = sum(a == b for a, b in zip(out["passes"][0]["out"], outs))
+    rec[f"{key}_serve"] = dict(
+        out, sequential={"wall_s": wall, "tokens": toks,
+                         "tok_s": toks / wall, "out": outs},
+        engine_requests_identical_to_sequential=same)
     log(f"  {key}_serve sequential: {len(prompts)} requests one at a time, "
         f"{toks} tokens in {wall:.2f} s = {toks / wall:.1f} tok/s; {same} of "
         f"{len(prompts)} token-identical to the engine's first pass")
-    log(f"{key}_serve: {arch} {n_params / 1e9:.2f} B params bf16, peak "
-        f"{peak / 1e9:.1f} GB allocated, warm pass "
-        f"{passes[1]['tok_s']:.1f} tok/s, ttft mean "
-        f"{passes[1]['ttft_mean_s'] * 1e3:.0f} ms, every logit finite, zero "
-        f"new signatures; per step {per_step} kraken_gemm and, per decode "
-        f"step, {attn_calls} paged_decode_attention launches")
     if "profile" in rec["phases"]:
         rec[f"{key}_profile"] = trace_pass(eng, seed=2,
                                            ranges=("recurrence",))
@@ -2554,13 +2639,13 @@ def recurrent_e2e(rec: dict, state: dict, key: str) -> None:
     plain = _plain_kernels()
     res = {}
     for dtype in ("bfloat16", "float32"):
-        model = _recurrent(arch, dtype=dtype)
+        model = _full_width(arch, dtype=dtype)
         params = state.get(f"{key}_params") if dtype == "bfloat16" else None
         if params is None:
             params = model.init(torch.Generator(device="cuda").manual_seed(0))
         got, seen = _capture_recurrent_inputs(lambda: two_steps(model,
                                                                 params))
-        want = two_steps(_recurrent(arch, plain, dtype), params)
+        want = two_steps(_full_width(arch, plain, dtype), params)
         for i, name in enumerate(("mixed step", "decode step")):
             res[f"{dtype} {name}"] = compare_logits(
                 f"{arch} {dtype} {name}", got[i], want[i],
@@ -2582,25 +2667,8 @@ def recurrent_e2e(rec: dict, state: dict, key: str) -> None:
         raise AssertionError(f"{key}_e2e: float32 kernels against plain "
                              f"beyond {E2E_TOL} of the largest logit: {bad}")
     layers = RECUR_E2E_LAYERS[key]
-    m32 = _recurrent(arch, dtype="float32", layers=layers)
-    p32 = m32.init(torch.Generator(device="cuda").manual_seed(0))
-    prompts = serve_prompts(m32.cfg.vocab_size)
-    seq = dense_sequential(m32, p32, prompts, SERVE_NEW)
-    eng = _engine(m32, p32)
-    reqs = [eng.submit(p, SERVE_NEW) for p in prompts]
-    eng.run_until_idle()
-    diff = [i for i, (r, o) in enumerate(zip(reqs, seq)) if list(r.out) != o]
-    if diff:
-        raise AssertionError(f"{key}_e2e: float32 {layers} layers: engine "
-                             f"requests {diff} differ from the sequential "
-                             "path")
-    res[f"float32_{layers}_layers"] = {
-        "requests": len(prompts), "tokens": sum(len(o) for o in seq),
-        "token_identical": True}
+    res[f"float32_{layers}_layers"] = f32_engine_gate(key, arch, layers)
     rec[f"{key}_e2e"] = res
-    log(f"  {key}_e2e: float32 {layers} layers: the engine (chunk {CHUNK}) "
-        f"is token-identical to the sequential path on all {len(prompts)} "
-        "requests")
     log(f"{key}_e2e: float32 kernels agree with the plain versions within "
         f"{E2E_TOL} of the largest logit (full {arch}); bf16 every recurrent "
         f"layer within {RECUR_LAYER_TOL} at shared inputs, whole model "
@@ -2622,7 +2690,7 @@ def phase_recurrence(rec: dict, state: dict) -> None:
     lengths = torch.tensor(RECUR_LENS, dtype=torch.int32, device="cuda")
     res = {}
     for key, (prefix, specs, mix, step, init) in mixers.items():
-        cfg = _recurrent(RECURRENT[key][0], dtype="float32").cfg
+        cfg = _full_width(RECURRENT[key][0], dtype="float32").cfg
         g = torch.Generator(device="cuda").manual_seed(0)
         params = {n: init_param(g, sp, torch.float32, "cuda")
                   for n, sp in specs(cfg, prefix).items()}
@@ -3380,6 +3448,194 @@ def phase_conv_nets(rec: dict, state: dict) -> None:
         "within CONV_TOL of the plain version")
 
 
+# ---------------------------------------------------------------------------
+# cross attention and audio: llama-3.2-vision-11b and musicgen-large
+# ---------------------------------------------------------------------------
+
+# (arch, its kraken_gemm table in repro_torch.core.gemm_cases,
+# paged_decode_attention launches a decode step, the float32 gate's depth):
+# the VLM's 32 self-attention layers (its 8 cross layers attend over their
+# frozen rows in torch ops) and musicgen's 48; the gate runs one VLM period
+# (4 self-attention layers and the cross layer) and 2 musicgen layers
+FRONTEND = {"vlm": ("llama-3.2-vision-11b", "VLM_GEMMS", 32, 5),
+            "audio": ("musicgen-large", "MUSICGEN_GEMMS", 48, 2)}
+# the dense path with the frontend: the serve workload's first
+# FRONTEND_REQUESTS prompts one at a time; the *_e2e phases' prefill with
+# the frontend: 2 rows of FRONTEND_E2E_SEQ tokens
+FRONTEND_REQUESTS, FRONTEND_E2E_SEQ = 2, 64
+
+
+def _cross_rows(model, caches) -> list:
+    """Every cross-attention layer's K and V rows in ``caches`` (the
+    engine's pools and ``init_caches``'s share one layout)."""
+    return [c[name] for s, slot in enumerate(model.stack.pattern)
+            if slot.kind == "cross" for c in caches["slots"][s]
+            for name in ("k", "v")]
+
+
+def frontend_feeds(cfg, lens, seed: int) -> list:
+    """Seeded frontends drawn on the card, one per prompt length: (the
+    prefill's, the decode steps' or None).  The VLM's image patches [1,
+    1601, d] feed the prefill's cross layers, which keep their K/V;
+    musicgen's audio frames [1, S, d] are added to the prefill's
+    embeddings and [1, 1, d] to each decode step's."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(n):
+        return torch.randn((1, n, cfg.d_model), generator=g,
+                           device="cuda").to(getattr(torch, cfg.dtype))
+
+    if cfg.frontend == "image_patches":
+        return [(draw(cfg.num_frontend_tokens), None) for _ in lens]
+    return [(draw(n), [draw(1) for _ in range(SERVE_NEW - 1)])
+            for n in lens]
+
+
+def frontend_dense(model, params, per_step: int) -> dict:
+    """The serve workload's first FRONTEND_REQUESTS prompts one at a time
+    through ``init_caches`` / ``prefill`` / ``decode_step``, with seeded
+    frontends and again without: tok/s of each, ``kraken_gemm`` exactly
+    ``per_step`` a step (and, with the VLM's patches, the cross layers'
+    K/V projections in each prefill), no other kernel; the cross rows
+    filled by the patches and zero without; the first token's logits
+    finite and moved by the frontend in every request."""
+    import torch
+    from repro_torch.core.gemm_cases import VLM_CROSS
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)[:FRONTEND_REQUESTS]
+    feeds = frontend_feeds(cfg, [len(p) for p in prompts], seed=1)
+    sequential_requests(model, params, prompts[:1], 2, feeds)  # warm-up
+    out = {}
+    for label, fd in (("frontend", feeds), ("text", None)):
+        _zero_counts()
+        t0 = time.perf_counter()
+        outs, first, caches = sequential_requests(model, params, prompts,
+                                                  SERVE_NEW, fd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        patches = fd is not None and cfg.frontend == "image_patches"
+        prefill = per_step + (2 * VLM_CROSS if patches else 0)
+        want = {name: 0 for name in launches}
+        want["kraken_gemm"] = len(prompts) * (prefill
+                                              + per_step * (SERVE_NEW - 1))
+        if launches != want:
+            raise AssertionError(f"dense {label}: launch counts {launches} "
+                                 f"do not match {want}")
+        rows = _cross_rows(model, caches)
+        if any(bool(t.any()) != patches for t in rows):
+            raise AssertionError(f"dense {label}: cross rows "
+                                 f"{'zero' if patches else 'not zero'}")
+        toks = sum(len(o) for o in outs)
+        out[label] = {"wall_s": wall, "tokens": toks, "tok_s": toks / wall,
+                      "launches": launches, "out": outs,
+                      "first_logits": first}
+        log(f"  dense {label}: {len(prompts)} requests, {toks} tokens in "
+            f"{wall:.2f} s = {toks / wall:.1f} tok/s, launches {launches}")
+    moved = []
+    for a, b in zip(out["frontend"].pop("first_logits"),
+                    out["text"].pop("first_logits")):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("dense path: non-finite logits")
+        moved.append((a - b).abs().max().item() / b.abs().max().item())
+    if min(moved) <= 0:
+        raise AssertionError(f"the frontend does not reach the logits: "
+                             f"{moved}")
+    out["frontend_moves_first_logits_rel"] = moved
+    log(f"  dense: the frontend moves the first token's logits by "
+        f"{', '.join(f'{m:.3f}' for m in moved)} of the largest; "
+        f"{sum(a == b for a, b in zip(out['frontend']['out'], out['text']['out']))}"
+        f" of {len(prompts)} requests emit the same tokens with and without")
+    return out
+
+
+def frontend_serve(rec: dict, state: dict, key: str) -> None:
+    """Serve ``FRONTEND[key]``'s arch through ``serve_full_width``,
+    text-only as the reference's engine serves, and check every cross row
+    still zero; then the dense path with and without the frontend
+    (``frontend_dense``)."""
+    arch, table, attn_calls, _ = FRONTEND[key]
+    _release(state, *list(state))
+    model, params, eng, out = serve_full_width(state, key, arch, table,
+                                               attn_calls)
+    rows = _cross_rows(model, eng.pools)
+    if any(t.any() for t in rows):
+        raise AssertionError(f"{key}_serve: a cross row is not zero after "
+                             "text-only serving")
+    per_step = out["launches_per_decode_step"]["kraken_gemm"]
+    dense = frontend_dense(model, params, per_step)
+    rec[f"{key}_serve"] = dict(out, cross_rows=len(rows) // 2,
+                               cross_rows_zero=True, dense=dense)
+    log(f"{key}_serve: every cross row zero after text-only serving "
+        f"({len(rows) // 2} layers); dense path "
+        f"{dense['frontend']['tok_s']:.1f} tok/s with the frontend, "
+        f"{dense['text']['tok_s']:.1f} without")
+    if "profile" in rec["phases"]:
+        rec[f"{key}_profile"] = trace_pass(eng, seed=2)
+
+
+def frontend_prefill_logits(model, params, seed: int = 3):
+    """One prefill of 2 rows of FRONTEND_E2E_SEQ tokens into a dense cache
+    with seeded frontends (the VLM's patches or musicgen's frames); the
+    last position's logits [2, V]."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    n = cfg.num_frontend_tokens or FRONTEND_E2E_SEQ
+    fe = torch.cat([f for f, _ in frontend_feeds(cfg, [n, n], seed)])
+    caches = model.init_caches(2, MAX_LEN)
+    logits, _ = model.prefill(params, {
+        "tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                               (2, FRONTEND_E2E_SEQ)),
+                                  device="cuda"),
+        "positions": torch.arange(FRONTEND_E2E_SEQ, dtype=torch.int32,
+                                  device="cuda"),
+        "frontend": fe}, caches)
+    return logits[:, -1]
+
+
+def frontend_e2e(rec: dict, state: dict, key: str) -> None:
+    """``FRONTEND[key]``'s arch on the served bf16 weights, kernels against
+    plain versions within E2E_TOL: one mixed and one decode step of the
+    engine's programs, and one prefill with the frontend; then, in float32
+    at full width cut to the gate's depth, the serve workload's 8 requests
+    through the engine (chunk 64) token-identical to the sequential
+    path."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch, _, _, layers = FRONTEND[key]
+    plain = _plain_kernels()
+    model = _full_width(arch)
+    params = state.get(f"{key}_params")
+    if params is None:
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    vocab = model.cfg.vocab_size
+    res = {}
+    got = two_steps(model, params)
+    want = two_steps(_full_width(arch, plain), params)
+    for i, name in enumerate(("mixed step", "decode step")):
+        res[name] = compare_logits(f"{arch} {name}", got[i], want[i], vocab)
+    res["prefill with the frontend"] = compare_logits(
+        f"{arch} prefill with the frontend",
+        frontend_prefill_logits(model, params),
+        frontend_prefill_logits(_full_width(arch, plain), params), vocab,
+        rows=2)
+    del params, got, want
+    _release(state, f"{key}_engine", f"{key}_params")
+    bad = {k: v for k, v in res.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"{key}_e2e: kernels against plain beyond "
+                             f"{E2E_TOL} of the largest logit: {bad}")
+    res[f"float32_{layers}_layers"] = f32_engine_gate(key, arch, layers)
+    rec[f"{key}_e2e"] = res
+    log(f"{key}_e2e: bf16 kernels agree with the plain versions within "
+        f"{E2E_TOL} of the largest logit (full {arch}: a mixed step, a "
+        "decode step and a prefill with the frontend); float32 "
+        f"{layers} layers token-identical")
+
+
 def conv_entry(rec: dict, by_path) -> dict:
     """The kernels line's ``kraken_conv2d_direct`` entry: one VGG-16 frame
     at batch 1 in bf16 as ``conv_nets`` timed it (its 13 layers back to
@@ -3417,6 +3673,13 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
                if r["name"] == "yi-6b 4 slots" and r["dtype"] == "bfloat16")
     z = next(r for r in rec["attention"]
              if r["name"] == "zamba2 4 slots" and r["dtype"] == "bfloat16")
+    vlm = next(r for r in rec["attention"]
+               if r["name"] == "llama-3.2-vision 4 slots"
+               and r["dtype"] == "bfloat16")
+
+    def calls(r, n):   # n calls of a timed case: one decode step
+        return {key: r[key] * n for key in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms")}
     return [
         {"name": "kraken_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/kraken_gemm.cu",
@@ -3427,12 +3690,13 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
          "ms": step("ms"), "plain_ms": step("plain_ms"),
          "bound_ms": step("bound_ms"), "bound_by": "bytes",
          "library_ms": step("library_ms"),
-         "recurrent_decode_steps": {
+         "decode_steps_by_arch": {
              k: v for k, v in rec.get("gemm_steps", {}).items()
              if k.endswith("decode")},
          "shape": "one yi-6b decode step, bf16, M=4: 32 x (q,k,v,o,gate,up,"
-                  "down) + unembed; recurrent_decode_steps: rwkv6-3b's 289 "
-                  "and zamba2-1.2b's 119 GEMMs of one decode step"},
+                  "down) + unembed; decode_steps_by_arch: rwkv6-3b's 289, "
+                  "zamba2-1.2b's 119, llama-3.2-vision-11b's 265 and "
+                  "musicgen-large's 289 GEMMs of one decode step"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:234",
@@ -3443,13 +3707,15 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
          "device_ms": att["device_ms"] * LAYERS,
          "bound_ms": att["bound_ms"] * LAYERS, "bound_by": att["bound_by"],
          "library_ms": None, "plan": att["plan_text"],
-         "zamba2_decode_step": {
-             key: z[key] * RECURRENT["zamba"][2] for key in (
-                 "ms", "device_ms", "plain_ms", "bound_ms")},
+         "zamba2_decode_step": calls(z, RECURRENT["zamba"][2]),
+         "musicgen_decode_step": calls(z, FRONTEND["audio"][2]),
+         "llama_vision_decode_step": calls(vlm, FRONTEND["vlm"][2]),
          "shape": "one yi-6b decode step, bf16: 32 layers x (4 slots, "
                   "32/4 heads, D 128, page 16, q_pos 300/700/dead/17); no "
                   "single PyTorch call walks a page table; zamba2_decode_step: "
-                  "6 calls at 32/32 heads of 64, same slots"},
+                  "6 calls at 32/32 heads of 64, same slots; "
+                  "musicgen_decode_step: 48 calls at that geometry; "
+                  "llama_vision_decode_step: 32 calls at 32/8 heads of 128"},
     ]
 
 
@@ -3477,6 +3743,12 @@ def kernels_line(rec: dict) -> dict:
                 "mixtral-8x22b": moe_launches.get(name),
                 **{RECURRENT[k][0]: rec.get(f"{k}_serve", {}).get(
                     "launches", {}).get(name) for k in RECURRENT},
+                **{FRONTEND[k][0]: rec.get(f"{k}_serve", {}).get(
+                    "launches", {}).get(name) for k in FRONTEND},
+                **{f"{FRONTEND[k][0]} dense {lab}": rec.get(
+                    f"{k}_serve", {}).get("dense", {}).get(lab, {}).get(
+                    "launches", {}).get(name)
+                   for k in FRONTEND for lab in ("frontend", "text")},
                 "yi-6b serve_features": rec.get("serve_features", {}).get(
                     "launches", {}).get(name),
                 "yi-6b int8 dense": dense.get("launches", {}).get(name),
@@ -3585,7 +3857,11 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           **{f"{key}_{what}": functools.partial(fn, key=key)
              for key in RECURRENT
              for what, fn in (("serve", recurrent_serve),
-                              ("e2e", recurrent_e2e))}}
+                              ("e2e", recurrent_e2e))},
+          **{f"{key}_{what}": functools.partial(fn, key=key)
+             for key in FRONTEND
+             for what, fn in (("serve", frontend_serve),
+                              ("e2e", frontend_e2e))}}
 
 
 def main(argv=None) -> int:

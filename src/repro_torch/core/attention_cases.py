@@ -26,8 +26,10 @@ POS_EMPTY = -(2 ** 30)
 ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 # the serve engines' pools: pages of 16 over a 512-token ring (32 pages a
 # slot); yi-6b (``YI_6B``: 32/4 heads of 128, bf16 or the int8 engine's
-# int8 pools), mixtral-8x22b (48/8 heads of 128 under its 4096 window) and
-# zamba2-1.2b's shared block (32/32 heads of 64: one query row a KV head)
+# int8 pools), mixtral-8x22b (48/8 heads of 128 under its 4096 window),
+# zamba2-1.2b's shared block and musicgen-large (both 32/32 heads of 64:
+# one query row a KV head; the zamba2 entries serve for both) and
+# llama-3.2-vision-11b's self-attention layers (32/8 heads of 128, G = 4)
 PAGE, MAX_PAGES = 16, 32
 # 64 slots' positions: every length from one token to past the ring
 Q_POS_64 = [(37 * i * i + 11 * i) % 900 for i in range(64)]
@@ -60,6 +62,10 @@ PAGED_CASES = [
      0.0),
     ("zamba2 64 slots", 64, 32, 32, 64, PAGE, MAX_PAGES, ("bfloat16",), 0,
      Q_POS_64, (5,), ((7, 3),), True, 0.0),
+    ("llama-3.2-vision 4 slots", 4, 32, 8, 128, PAGE, MAX_PAGES,
+     ("bfloat16", "int8"), 0, [300, 700, 40, 17], (2,), ((3, 0),), True, 0.0),
+    ("llama-3.2-vision 64 slots", 64, 32, 8, 128, PAGE, MAX_PAGES,
+     ("bfloat16",), 0, Q_POS_64, (5,), ((7, 3),), True, 0.0),
     ("ring wrap in every slot", 3, 8, 2, 64, 16, 8, ALL, 0, [200, 129, 500],
      (), (), False, 0.0),
     ("window 5 across page edges", 3, 8, 2, 64, 4, 16, ALL, 5, [63, 30, 2],

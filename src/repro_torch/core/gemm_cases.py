@@ -1,6 +1,6 @@
 """The GEMM shapes ``kraken_gemm`` is checked and timed at: yi-6b's,
-mixtral-8x22b's, gemma3-12b's, rwkv6-3b's and zamba2-1.2b's, and the edge
-cases.
+mixtral-8x22b's, gemma3-12b's, rwkv6-3b's, zamba2-1.2b's,
+llama-3.2-vision-11b's and musicgen-large's, and the edge cases.
 
 ``chip_smoke.py`` runs them on the card (phases ``kernels``, ``moe_kernels``
 and ``swa_kernels``) and ``tests/test_torch_gemm_plan.py`` checks the
@@ -72,6 +72,30 @@ ZAMBA_GEMMS = [("in_proj", 2048, 8384, None, ZAMBA_LAYERS),
                ("shared down", 8192, 2048, None, ZAMBA_SHARED_CALLS),
                ("unembed", 2048, 32000, None, 1)]
 
+# llama-3.2-vision-11b (``LLAMA32_VISION_11B``): 40 layers = 8 periods of
+# 4 self-attention layers and 1 cross-attention layer, d 4096, 32/8 heads
+# of 128, d_ff 14336, vocab 128256 (untied).  The engine serves text only:
+# a cross layer projects q and o (its K/V rows are frozen), so per step
+# 32 x (q, k, v, o) + 8 x (q, o) + 40 x (gate, up, down) + the unembed =
+# 265.  (name, K, N, activation, bias, calls per decode step)
+VLM_LAYERS, VLM_CROSS, VLM_PATCHES = 40, 8, 1601
+VLM_GEMMS = [("wq|wo", 4096, 4096, None, False, 2 * VLM_LAYERS),
+             ("wk|wv", 4096, 1024, None, False, 2 * (VLM_LAYERS - VLM_CROSS)),
+             ("gate", 4096, 14336, "silu", False, VLM_LAYERS),
+             ("up", 4096, 14336, None, False, VLM_LAYERS),
+             ("down", 14336, 4096, None, False, VLM_LAYERS),
+             ("unembed", 4096, 128256, None, False, 1)]
+
+# musicgen-large (``MUSICGEN_LARGE``): 48 layers, d 2048, 32/32 heads of
+# 64, the gelu MLP 2048 -> 8192 -> 2048 with biases (bias and gelu in the
+# first GEMM's epilogue, bias in the second's), vocab 2048 (untied).  Per
+# step 48 x (q, k, v, o, wi, wo) + the unembed = 289
+MUSICGEN_LAYERS = 48
+MUSICGEN_GEMMS = [("q|k|v|o", 2048, 2048, None, False, 4 * MUSICGEN_LAYERS),
+                  ("wi", 2048, 8192, "gelu", True, MUSICGEN_LAYERS),
+                  ("wo", 8192, 2048, None, True, MUSICGEN_LAYERS),
+                  ("unembed", 2048, 2048, None, False, 1)]
+
 # the row counts the LM paths call kraken_gemm at: one row, decode at 4
 # slots, the mixed step (4 slots x chunk 64), the forward
 LM_ROWS = (1, 4, 256, GEMMA_SEQ)
@@ -93,6 +117,11 @@ GEMM_EDGE = [
     ("rwkv6 lora a: N 160, M 256", 256, 2560, 160, None, False),
     ("zamba2 in_proj: N 8384, M 4", 4, 2048, 8384, None, False),
     ("zamba2 in_proj: N 8384, M 256", 256, 2048, 8384, None, False),
+    ("llama-3.2-vision cross K/V of 1601 patches", VLM_PATCHES, 4096, 1024,
+     None, False),
+    ("musicgen wi: bias + gelu, M 4", 4, 2048, 8192, "gelu", True),
+    ("musicgen wi: bias + gelu, M 256", 256, 2048, 8192, "gelu", True),
+    ("musicgen wo: bias, M 4", 4, 8192, 2048, None, True),
 ]
 # (M, K, N) run with every activation, with and without bias: N 123 is
 # refused by TMA (B filled), 136 and 72 are not

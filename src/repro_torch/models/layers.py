@@ -1,11 +1,10 @@
-"""Model building blocks on the serving main path: RMSNorm, RoPE, the
-uniform-GEMM dense layer, GQA attention over paged KV pools and dense KV
-caches, and the SwiGLU MLP.
+"""Model building blocks on the serving main path: RMSNorm and LayerNorm,
+RoPE and sinusoidal positions, the uniform-GEMM dense layer, GQA attention
+(causal over paged KV pools and dense KV caches, and the unmasked form
+that cross attention uses), and the SwiGLU and gelu MLPs.
 
-A port of ``repro.models.layers`` for the dense GQA decoder (layernorm,
-sinusoidal positions and the gelu MLP come with musicgen, ROADMAP Queue 1
-item 8).  Every matmul
-goes through :func:`dense`, which calls ``kernels.matmul`` -- by default
+A port of ``repro.models.layers``.  Every matmul goes through
+:func:`dense`, which calls ``kernels.matmul`` -- by default
 :func:`repro_torch.kernels.ops.kraken_matmul`, the hand-written
 ``kraken_gemm`` on CUDA tensors -- with the activation fused in its
 epilogue.  Decode attention reads the page pools through
@@ -95,12 +94,29 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * gamma.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in fp32 (the biased variance, as ``jnp.var``), cast back."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.to(torch.float32)
+            + beta.to(torch.float32)).to(x.dtype)
+
+
 def apply_norm(cfg, params: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, params[f"{prefix}_gamma"],
+                          params[f"{prefix}_beta"], cfg.norm_eps)
     return rms_norm(x, params[f"{prefix}_gamma"], cfg.norm_eps)
 
 
 def norm_specs(cfg, prefix: str) -> dict[str, Spec]:
-    return {f"{prefix}_gamma": Spec((cfg.d_model,), ("embed",), -1.0)}
+    s = {f"{prefix}_gamma": Spec((cfg.d_model,), ("embed",), -1.0)}
+    if cfg.norm == "layernorm":
+        s[f"{prefix}_beta"] = Spec((cfg.d_model,), ("embed",), 0.0)
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +139,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def sinusoidal_pos_emb(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """[sin | cos] position embedding in fp32: [S] -> [S, d_model], or
+    [B, S] per slot -> [B, S, d_model]."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # The uniform-GEMM dense layer
 # ---------------------------------------------------------------------------
@@ -139,7 +165,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA; causal self-attention and paged-cache serving)
+# Attention (GQA; causal and unmasked, paged-cache serving)
 # ---------------------------------------------------------------------------
 
 def attention_specs(cfg, prefix: str = "attn") -> dict[str, Spec]:
@@ -167,10 +193,12 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
-    """Causal attention by position: q [B,H,Sq,D], k/v [B,KV,Sk,D], fp32
-    scores; key ``j`` is visible to query ``i`` when ``0 <= kv_pos[j] <=
-    q_pos[i]`` (and inside ``window`` when one is set).
+def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos,
+                     mask_mode: str = "causal") -> torch.Tensor:
+    """Attention by position: q [B,H,Sq,D], k/v [B,KV,Sk,D], fp32 scores.
+    With ``mask_mode="causal"`` key ``j`` is visible to query ``i`` when
+    ``0 <= kv_pos[j] <= q_pos[i]`` (and inside ``window`` when one is set);
+    with ``"none"`` every key is (cross attention).
 
     Masked scores are -1e30, not -inf, so a row with nothing to attend to
     (an idle slot) stays finite, as in the JAX version.  The probabilities
@@ -182,13 +210,14 @@ def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
     qg = q.reshape(b, kvh, group, sq, d)
     logits = torch.einsum("bkgqd,bksd->bkgqs", qg.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(d)
-    # positions may be shared ([Sq]/[Sk]) or per slot ([B, Sq]/[B, Sk])
-    qp = q_pos[None, :, None] if q_pos.dim() == 1 else q_pos[:, :, None]
-    kp = kv_pos[None, None, :] if kv_pos.dim() == 1 else kv_pos[:, None, :]
-    mask = (kp <= qp) & (kp >= 0)   # kp >= 0 excludes empty entries
-    if window:
-        mask = mask & (kp > qp - window)
-    logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    if mask_mode != "none":
+        # positions may be shared ([Sq]/[Sk]) or per slot ([B, Sq]/[B, Sk])
+        qp = q_pos[None, :, None] if q_pos.dim() == 1 else q_pos[:, :, None]
+        kp = kv_pos[None, None, :] if kv_pos.dim() == 1 else kv_pos[:, None, :]
+        mask = (kp <= qp) & (kp >= 0)   # kp >= 0 excludes empty entries
+        if window:
+            mask = mask & (kp > qp - window)
+        logits = logits.masked_fill(~mask[:, None, None], -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd",
                        probs.to(v.dtype).to(torch.float32), v.to(torch.float32))
@@ -267,17 +296,18 @@ def _gqa_sdpa_chunked(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
     return out[:, :, :sq]
 
 
-def _gqa_sdpa(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
-    """Causal GQA attention as JAX ``_gqa_sdpa`` dispatches it: the chunked
-    form for 2048 queries or more (it takes shared [S] positions), the
-    direct form below.  (JAX's unmasked mode comes with cross attention,
-    ROADMAP Queue 1 item 8; its context-parallel branch with the
-    multi-device code, item 14.)"""
-    if q.shape[2] >= 2048:
+def _gqa_sdpa(q, k, v, *, window: int, q_pos, kv_pos,
+              mask_mode: str = "causal") -> torch.Tensor:
+    """GQA attention as JAX ``_gqa_sdpa`` dispatches it: the chunked form
+    for a masked mode at 2048 queries or more (it takes shared [S]
+    positions), the direct form otherwise, so an unmasked (cross) prefill
+    of any length stays direct.  (JAX's context-parallel branch comes with
+    the multi-device code, ROADMAP Queue 1 item 14.)"""
+    if q.shape[2] >= 2048 and mask_mode != "none":
         return _gqa_sdpa_chunked(q, k, v, window=window, q_pos=q_pos,
                                  kv_pos=kv_pos)
     return _gqa_sdpa_direct(q, k, v, window=window, q_pos=q_pos,
-                            kv_pos=kv_pos)
+                            kv_pos=kv_pos, mask_mode=mask_mode)
 
 
 @dataclasses.dataclass
@@ -546,12 +576,14 @@ def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
     """One attention layer through the uniform-GEMM projections.
 
     Modes: causal self-attention over x (no cache; a window layer at
-    ``S % 128 == 0`` through ``kernels.swa_attention``); dense prefill (a
-    ``KVCache``, shared [S] positions: attend over the raw K/V, store the
-    last rows); dense decode (a ``KVCache``, per-slot [B, 1] positions);
-    paged decode (a ``PagedKVCache``, one token per slot, per-slot [B, 1]
-    positions); paged chunk prefill (a ``PagedKVCache``, S > 1, per-slot
-    [B, S] positions, ``lengths`` real tokens per row).  Returns (y, cache).
+    ``S % 128 == 0`` through ``kernels.swa_attention``); dense prefill (a ``KVCache``, shared
+    [S] positions: attend over the raw K/V, store the last rows); dense
+    decode (a ``KVCache``, per-slot [B, 1] positions); paged decode (a
+    ``PagedKVCache``, one token per slot, per-slot [B, 1] positions); paged
+    chunk prefill (a ``PagedKVCache``, S > 1, per-slot [B, S] positions,
+    ``lengths`` real tokens per row).  RoPE applies only under
+    ``cfg.positional == "rope"``.  Cross attention is
+    ``transformer._cross``.  Returns (y, cache).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(x, params[f"{prefix}_wq"], bias=params.get(f"{prefix}_bq"),
@@ -563,8 +595,9 @@ def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
     q = _split_heads(q, h, hd)
     k = _split_heads(k, kv, hd)
     v = _split_heads(v, kv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.positional == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if isinstance(cache, PagedKVCache):
         if k.shape[2] == 1:
@@ -603,17 +636,31 @@ def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
 
 def mlp_specs(cfg, prefix: str = "mlp") -> dict[str, Spec]:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {
+            f"{prefix}_wi_gate": Spec((d, f), ("embed", "mlp")),
+            f"{prefix}_wi_up": Spec((d, f), ("embed", "mlp")),
+            f"{prefix}_wo": Spec((f, d), ("mlp", "embed")),
+        }
     return {
-        f"{prefix}_wi_gate": Spec((d, f), ("embed", "mlp")),
-        f"{prefix}_wi_up": Spec((d, f), ("embed", "mlp")),
+        f"{prefix}_wi": Spec((d, f), ("embed", "mlp")),
+        f"{prefix}_bi": Spec((f,), ("mlp",), 0.0),
         f"{prefix}_wo": Spec((f, d), ("mlp", "embed")),
+        f"{prefix}_bo": Spec((d,), ("embed",), 0.0),
     }
 
 
 def mlp(cfg, params: Params, prefix: str, x: torch.Tensor, *,
         kernels: Kernels = DEFAULT_KERNELS) -> torch.Tensor:
-    """SwiGLU: the gate's silu runs in its GEMM's epilogue."""
-    gate = dense(x, params[f"{prefix}_wi_gate"], activation="silu",
+    """SwiGLU (the gate's silu in its GEMM's epilogue), or the gelu MLP
+    (bias and the tanh gelu in the first GEMM's epilogue, bias in the
+    second's)."""
+    if cfg.mlp == "swiglu":
+        gate = dense(x, params[f"{prefix}_wi_gate"], activation="silu",
+                     kernels=kernels)
+        up = dense(x, params[f"{prefix}_wi_up"], kernels=kernels)
+        return dense(gate * up, params[f"{prefix}_wo"], kernels=kernels)
+    h = dense(x, params[f"{prefix}_wi"], bias=params[f"{prefix}_bi"],
+              activation="gelu", kernels=kernels)
+    return dense(h, params[f"{prefix}_wo"], bias=params[f"{prefix}_bo"],
                  kernels=kernels)
-    up = dense(x, params[f"{prefix}_wi_up"], kernels=kernels)
-    return dense(gate * up, params[f"{prefix}_wo"], kernels=kernels)

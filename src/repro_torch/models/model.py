@@ -88,8 +88,24 @@ class Model:
             generator, s, dt, generator.device))
 
     # ------------------------------------------------------------------ embed
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               positions: torch.Tensor,
+               frontend: torch.Tensor | None) -> torch.Tensor:
+        """Token embeddings; plus the sinusoidal position embedding (fp32,
+        cast to the activation dtype before the add, broadcast over the
+        batch for shared [S] positions) and then, for the audio frontend,
+        the frame embeddings, in JAX's order (in bf16 another order rounds
+        apart)."""
+        cfg = self.cfg
+        x = params["embed"][tokens.long()]
+        if cfg.positional == "sinusoidal":
+            pos = L.sinusoidal_pos_emb(positions, cfg.d_model)
+            if positions.dim() == 1:   # shared [S] -> broadcast over batch
+                pos = pos[None]
+            x = x + pos.to(x.dtype)
+        if cfg.frontend == "audio_frames" and frontend is not None:
+            x = x + frontend.to(x.dtype)
+        return x
 
     def tied_unembed(self, embed: torch.Tensor) -> torch.Tensor:
         """``embed.T`` as the contiguous [d_model, vocab] operand of the
@@ -117,14 +133,18 @@ class Model:
         place.  ``aux`` is the MoE auxiliary loss summed over the layers
         (0 without MoE layers).  ``mode`` ('train', 'prefill', 'decode' or
         'chunk') picks the recurrences' per-token step in decode mode and
-        their chunked mix otherwise."""
+        their chunked mix otherwise.  ``batch["frontend"]`` ([B, P,
+        d_model], optional) holds the precomputed image patches the cross
+        layers attend over, or the audio frames added to the embeddings.
+        """
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device)
-        x = self._embed(params, tokens)
-        ctx = Ctx(mode=mode, positions=positions,
+        frontend = batch.get("frontend")
+        x = self._embed(params, tokens, positions, frontend)
+        ctx = Ctx(mode=mode, positions=positions, frontend=frontend,
                   shared_params=params["stack"].get("shared"),
                   lengths=batch.get("lengths"), kernels=self.kernels)
         x, caches, aux = self.stack.apply(params["stack"], x, ctx,
@@ -157,31 +177,39 @@ class Model:
         """Empty caches for :meth:`prefill` and :meth:`decode_step` (the
         sequential path) on ``device`` (default ``cuda``), one per layer: a
         dense KV cache per attention layer and shared-block call, zeroed
-        state rows per recurrent layer; see ``LayerStack.cache_tree``."""
+        state rows per recurrent layer and zeroed K/V rows of
+        ``cfg.num_frontend_tokens`` per cross-attention layer; see
+        ``LayerStack.cache_tree``."""
         return self.stack.cache_tree(
             batch, cache_len, getattr(torch, self.cfg.dtype),
             device=_device.resolve(device))
 
     def prefill(self, params: Params, batch: dict, caches):
         """Run a prompt (``batch["tokens"]`` [B, S], shared ``positions``
-        [S]) and store its K/V in the dense ``caches`` (in place).  Returns
-        (logits of the last position [B, 1, V], caches)."""
+        [S], an optional ``frontend``) and store its K/V in the dense
+        ``caches`` (in place; the cross layers' rows hold the frontend's
+        K/V).  Returns (logits of the last position [B, 1, V], caches)."""
         logits, caches, _ = self.forward(params, batch, mode="prefill",
                                          caches=caches)
         return logits[:, -1:], caches
 
     def decode_step(self, params: Params, caches, tokens: torch.Tensor,
-                    pos: torch.Tensor, lengths: torch.Tensor | None = None):
+                    pos: torch.Tensor, frontend: torch.Tensor | None = None,
+                    lengths: torch.Tensor | None = None):
         """tokens [B, 1]; pos [B] int32 per-slot absolute positions;
         ``caches`` are the engine's page pools or dense caches from
-        :meth:`init_caches`.  ``lengths`` ([B] 0/1) is the live mask of the
-        paged path and of the recurrent layers: rows at 0 write nothing
-        and keep their state (dense attention, like JAX's, ignores it).  Returns (logits [B, V], caches)."""
+        :meth:`init_caches`; ``frontend`` ([B, 1, d_model]) the audio
+        frames of this step (the cross layers read their frozen rows and
+        ignore it).  ``lengths`` ([B] 0/1) is the live mask of the paged
+        path and of the recurrent layers: rows at 0 write nothing and keep
+        their state (dense attention, like JAX's, ignores it).  Returns
+        (logits [B, V], caches)."""
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         if pos.dim() != 1:
             raise ValueError("decode_step needs per-slot positions pos: [B] "
                              "int32")
-        batch = {"tokens": tokens, "positions": pos.reshape(-1, 1)}
+        batch = {"tokens": tokens, "positions": pos.reshape(-1, 1),
+                 "frontend": frontend}
         if lengths is not None:
             batch["lengths"] = torch.as_tensor(lengths, dtype=torch.int32,
                                                device=tokens.device)
@@ -191,6 +219,7 @@ class Model:
 
     def chunk_step(self, params: Params, caches, tokens: torch.Tensor,
                    positions: torch.Tensor, lengths: torch.Tensor,
+                   frontend: torch.Tensor | None = None,
                    return_greedy: bool = False):
         """One mixed continuous-batching step: tokens [B, S], positions
         [B, S] absolute per slot (row ``b`` holds ``start_b + arange(S)``),
@@ -204,7 +233,8 @@ class Model:
             raise ValueError("chunk_step needs per-slot [B, S] positions")
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=tokens.device)
-        batch = {"tokens": tokens, "positions": positions, "lengths": lengths}
+        batch = {"tokens": tokens, "positions": positions, "lengths": lengths,
+                 "frontend": frontend}
         logits, caches, _ = self.forward(params, batch, mode="chunk",
                                          caches=caches)
         idx = (lengths.long() - 1).clamp(min=0)

@@ -1,15 +1,15 @@
 """Layer-stack assembly: the repeating slot pattern of an architecture,
 evaluated as a plain loop over layers.
 
-A port of ``repro.models.transformer`` for attention (MLP or MoE), RWKV
-and Mamba slots and zamba2's weight-shared attention block, called after
-each period and not after the tail.  The JAX version scans stacked
-parameters with ``lax.scan``; the port needs no scan and runs the flat,
-unrolled layout of its serving path: one step per layer, each with its own
-cache.  Parameters keep the JAX key structure -- ``stack/slots[i]/<name>``
-with a leading ``n_periods`` dim, ``stack/shared/<name>`` -- so bridging
-JAX parameters is a copy; layer ``p`` of slot ``i`` reads index ``p`` of
-that dim (a contiguous view).
+A port of ``repro.models.transformer`` for attention (MLP or MoE), cross
+attention, RWKV and Mamba slots and zamba2's weight-shared attention
+block, called after each period and not after the tail.  The JAX version
+scans stacked parameters with ``lax.scan``; the port needs no scan and runs
+the flat, unrolled layout of its serving path: one step per layer, each
+with its own cache.  Parameters keep the JAX key structure --
+``stack/slots[i]/<name>`` with a leading ``n_periods`` dim,
+``stack/shared/<name>`` -- so bridging JAX parameters is a copy; layer
+``p`` of slot ``i`` reads index ``p`` of that dim (a contiguous view).
 """
 
 from __future__ import annotations
@@ -27,9 +27,13 @@ from repro_torch.models.layers import Spec
 Params = dict
 
 
+#: Every kind ``build_pattern`` emits; ``slot_cache`` has a cache for each.
+SLOT_KINDS = ("attn", "cross", "rwkv", "mamba")
+
+
 @dataclasses.dataclass(frozen=True)
 class Slot:
-    kind: str          # 'attn' | 'cross' | 'rwkv' | 'mamba'
+    kind: str          # one of SLOT_KINDS
     ffn: str           # 'mlp' | 'moe' | 'cmix' | 'none'
     window: int = 0    # sliding window for 'attn' (0 = full)
 
@@ -54,29 +58,13 @@ def build_pattern(cfg) -> tuple[list[Slot], bool]:
     return [Slot("attn", ffn_all, window=cfg.sliding_window)], False
 
 
-def slot_is_ported(cfg, slot: Slot) -> bool:
-    """Whether this slot runs in the port yet: every slot but cross
-    attention, under RMSNorm, a SwiGLU MLP and no sinusoidal positions or
-    modality frontend (ROADMAP Queue 1 item 8 brings the others)."""
-    return (slot.kind in ("attn", "rwkv", "mamba")
-            and cfg.norm == "rmsnorm" and cfg.mlp == "swiglu"
-            and cfg.positional != "sinusoidal" and not cfg.frontend)
-
-
-def _check_ported(cfg, slot: Slot) -> None:
-    if not slot_is_ported(cfg, slot):
-        raise NotImplementedError(
-            f"{cfg.name}'s slot {slot} is not ported yet: cross attention, "
-            "layernorm, the gelu MLP, sinusoidal positions and frontends "
-            "come with ROADMAP Queue 1 item 8")
-
-
 def slot_specs(cfg, slot: Slot) -> dict[str, Spec]:
-    _check_ported(cfg, slot)
     s: dict[str, Spec] = {}
     s.update(L.norm_specs(cfg, "attn_norm"))
-    if slot.kind == "attn":
+    if slot.kind in ("attn", "cross"):
         s.update(L.attention_specs(cfg, "attn"))
+        if slot.kind == "cross":
+            s.update(L.norm_specs(cfg, "cross_kv_norm"))
     elif slot.kind == "rwkv":
         s.update(SSM.rwkv_specs(cfg, "rwkv"))
     else:
@@ -110,10 +98,16 @@ def shared_attn_specs(cfg) -> dict[str, Spec]:
 def slot_cache(cfg, slot: Slot, batch: int, cache_len: int, dtype, *,
                device):
     """One layer's cache: a dense KV cache for attention (a sliding-window
-    layer keeps a ring of ``min(window, cache_len)`` slots), or the
-    recurrent state rows of an RWKV (with the channel mix's token shift)
-    or Mamba layer."""
-    _check_ported(cfg, slot)
+    layer keeps a ring of ``min(window, cache_len)`` slots), the frozen
+    cross-attention K/V rows ``{"k", "v"}: [batch, KV,
+    cfg.num_frontend_tokens, D]`` (zeros until a frontend fills them), or
+    the recurrent state rows of an RWKV (with the channel mix's token
+    shift) or Mamba layer."""
+    if slot.kind == "cross":
+        shape = (batch, cfg.num_kv_heads, cfg.num_frontend_tokens,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     if slot.kind == "rwkv":
         return {"rwkv": SSM.rwkv_state_init(cfg, batch, dtype, device),
                 "cmix_x_prev": torch.zeros((batch, cfg.d_model), dtype=dtype,
@@ -127,6 +121,7 @@ def slot_cache(cfg, slot: Slot, batch: int, cache_len: int, dtype, *,
 class Ctx(NamedTuple):
     mode: str                          # 'train' | 'prefill' | 'decode' | 'chunk'
     positions: torch.Tensor            # [S] shared or [B, S] per slot
+    frontend: torch.Tensor | None = None  # image/audio embeddings [B, P, d]
     shared_params: Params | None = None   # zamba2's shared block
     lengths: torch.Tensor | None = None   # [B] real tokens per row
     kernels: L.Kernels = L.DEFAULT_KERNELS
@@ -148,6 +143,8 @@ def _mixer(cfg, slot: Slot, params: Params, h: torch.Tensor, cache,
     if slot.kind == "attn":
         return L.attention(cfg, params, "attn", h, positions=ctx.positions,
                            window=slot.window, cache=cache, **kw)
+    if slot.kind == "cross":
+        return _cross(cfg, params, h, cache, ctx)
     if slot.kind == "rwkv":
         fn = SSM.rwkv_step if ctx.mode == "decode" else SSM.rwkv_mix
         st = cache["rwkv"] if cache is not None else None
@@ -160,6 +157,53 @@ def _mixer(cfg, slot: Slot, params: Params, h: torch.Tensor, cache,
     if cache is not None:
         _store(cache, new)
     return y, cache
+
+
+def _cross(cfg, params: Params, h: torch.Tensor, cache, ctx: Ctx):
+    """A cross-attention layer: (y, cache).  In decode mode, and in any
+    step with a cache but no frontend (text-only serving), it attends over
+    the frozen K/V rows as they are: all-zero rows add an exact zero.
+    Otherwise the frontend, normed by ``cross_kv_norm``, is projected to
+    K/V once, frozen into the rows when there is a cache (in place), and
+    attended without a mask: JAX's ``attention(kv_x=...)`` followed by
+    ``_project_cross_kv``, with two GEMMs fewer."""
+    if ctx.mode == "decode" or (ctx.frontend is None and cache is not None):
+        return _cross_from_cache(cfg, params, h, cache, ctx.kernels), cache
+    if ctx.frontend is None:
+        raise ValueError(f"{cfg.name}'s cross-attention layers need a "
+                         "frontend or a cache")
+    kv_src = L.apply_norm(cfg, params, "cross_kv_norm", ctx.frontend)
+    kv = _project_cross_kv(cfg, params, kv_src, ctx.kernels)
+    if cache is not None:
+        for name, t in kv.items():
+            cache[name].copy_(t)
+    return _cross_from_cache(cfg, params, h, kv, ctx.kernels), cache
+
+
+def _project_cross_kv(cfg, params: Params, kv_src: torch.Tensor,
+                      kernels: L.Kernels) -> dict:
+    """The frontend's K/V, ``{"k", "v"}: [B, KV, P, D]``."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = L.dense(kv_src, params["attn_wk"], bias=params.get("attn_bk"),
+                kernels=kernels)
+    v = L.dense(kv_src, params["attn_wv"], bias=params.get("attn_bv"),
+                kernels=kernels)
+    return {"k": L._split_heads(k, kv, hd), "v": L._split_heads(v, kv, hd)}
+
+
+def _cross_from_cache(cfg, params: Params, h: torch.Tensor, kv,
+                      kernels: L.Kernels) -> torch.Tensor:
+    """Unmasked attention of ``h``'s queries over cross K/V ``kv``
+    (``{"k", "v"}: [B, KV, P, D]``: the frozen rows or a frontend's)."""
+    q = L.dense(h, params["attn_wq"], bias=params.get("attn_bq"),
+                kernels=kernels)
+    qh = L._split_heads(q, cfg.num_heads, cfg.head_dim)
+    n = kv["k"].shape[2]
+    out = L._gqa_sdpa(qh, kv["k"], kv["v"], window=0,
+                      q_pos=torch.arange(qh.shape[2], device=h.device),
+                      kv_pos=torch.arange(n, device=h.device),
+                      mask_mode="none")
+    return L.dense(L._merge_heads(out), params["attn_wo"], kernels=kernels)
 
 
 def apply_slot(cfg, slot: Slot, params: Params, x: torch.Tensor, cache,

@@ -1,15 +1,19 @@
 """Serving engine: continuous batching with chunked prefill over paged KV
 pools.
 
-A port of ``repro.serving.engine`` for the attention families with a dense
-or MoE feed-forward, over float or int8 (``cfg.kv_cache_dtype == "int8"``)
-KV pools, and for the recurrent families (rwkv6, and zamba2's Mamba2
-blocks with their weight-shared attention).  One engine instance owns
+A port of ``repro.serving.engine`` for every architecture of the
+registry: the attention families with a dense, gelu or MoE feed-forward
+over float or int8 (``cfg.kv_cache_dtype == "int8"``) KV pools, the
+recurrent families (rwkv6, and zamba2's Mamba2 blocks with their
+weight-shared attention) and the cross-attention one (llama-3.2-vision).
+Serving is text-only, as the reference's: no request carries a frontend,
+so a cross layer attends over its frozen K/V rows, which stay zero and add
+an exact zero.  One engine instance owns
 
 * a **state tree** (:mod:`repro_torch.serving.state`): one page pool per
   attention layer (and per call of zamba2's shared block), sharing a page
-  allocator per ring length, and one row per slot of each recurrent
-  layer's state, zeroed when the slot is refilled;
+  allocator per ring length, and one row per slot of each recurrent or
+  cross-attention layer's state, zeroed when the slot is refilled;
 * a **priority scheduler** with admission control, aging and per-request
   metrics (:mod:`repro_torch.serving.scheduler`): ``QUEUED ->
   PREFILLING(k/K chunks) -> RUNNING -> DONE``, pages claimed at the first
@@ -204,10 +208,6 @@ class PagedEngine:
                  config: EngineConfig | None = None):
         config = (config or EngineConfig()).validate()
         self.config = config
-        if not self.supports(model):
-            raise NotImplementedError(
-                "a stack slot of this model has no ported state "
-                "(repro_torch.serving.state); ROADMAP Queue 1 item 8")
         self.model, self.params, self.cfg = model, params, model.cfg
         self.device = params["embed"].device
         slots, max_len = config.slots, config.cache.max_len

@@ -10,8 +10,7 @@ admission over the shared allocators, the table pushes, prefix-cache
 eligibility and the engine's eager round trips: preempt-to-host
 (``swap_out`` / ``swap_in``, digest-checked before any write) and
 speculation's rollback (``spec_snapshot`` / ``truncate``).  Device
-transforms update the states in place and return them.  Frozen
-cross-attention rows come with cross attention (ROADMAP Queue 1 item 8).
+transforms update the states in place and return them.
 """
 
 from __future__ import annotations
@@ -182,19 +181,21 @@ class PagedKVState:
 
 
 class SlotRowState:
-    """The state of one recurrent layer: RWKV's wkv state and token shifts,
-    or Mamba's SSM state and conv window.  Each is a fixed-size row per
-    slot, so the ``[n_slots, ...]`` tensors *are* the pool: no page
-    indirection, no allocator, and admission is gated by the KV pools
-    alone.  The mixed step advances a slot's rows in place through the
+    """The state of one recurrent layer (RWKV's wkv state and token
+    shifts, Mamba's SSM state and conv window) or one cross-attention
+    layer (its frozen K/V rows).  Each is a fixed-size row per slot, so
+    the ``[n_slots, ...]`` tensors *are* the pool: no page indirection, no
+    allocator, and admission is gated by the KV pools alone.  The mixed
+    step advances a slot's recurrent rows in place through the
     length-masked recurrence (a row with no token keeps its state), the
-    decode step through the live-masked per-token step, and :meth:`reset`
+    decode step through the live-masked per-token step; no step writes
+    cross rows (serving is text-only, so they stay zero).  :meth:`reset`
     zeroes a refilled slot's rows."""
 
     kind = "slot_rows"
 
     #: a row is the whole state of a slot: there is no per-chunk page to
-    #: share, so recurrent layers are never prefix-cacheable
+    #: share, so recurrent and cross layers are never prefix-cacheable
     cacheable = False
 
     def __init__(self, cfg, slot: T.Slot, *, n_slots: int, device):
@@ -270,11 +271,6 @@ class SlotRowState:
         return StateGeometry(kind=self.kind, slots=self.n_slots)
 
 
-def stack_is_stateable(model) -> bool:
-    """True when every stack slot has a ported layer and state kind."""
-    return all(T.slot_is_ported(model.cfg, s) for s in model.stack.pattern)
-
-
 @dataclasses.dataclass
 class StateTree:
     """State handles mirroring the model's flat cache layout exactly."""
@@ -310,7 +306,7 @@ class StateTree:
 
     @property
     def has_rows(self) -> bool:
-        """Whether any layer's state is a recurrent row."""
+        """Whether any layer's state is a row (recurrent or cross)."""
         return any(isinstance(st, SlotRowState) for st in self.leaves())
 
     # ---- engine touchpoints --------------------------------------------------
@@ -422,22 +418,24 @@ def _ring_len(window: int, max_len: int) -> int:
     return min(window, max_len) if window else max_len
 
 
+def stack_is_stateable(model) -> bool:
+    """True when every stack slot's kind has a state (JAX's
+    ``PagedEngine.supports`` predicate): a kind of ``T.SLOT_KINDS``."""
+    return all(s.kind in T.SLOT_KINDS for s in model.stack.pattern)
+
+
 def build_state_tree(model, *, slots: int, page_size: int, max_len: int,
                      overcommit: float = 1.0, pool_pages: int | None = None,
                      device=None) -> StateTree:
     """One state per layer of the flat stack (a PagedKVState per
     attention layer and shared-block call, a SlotRowState per recurrent
-    layer), the paged ones sharing a :class:`PageAllocator` per distinct
-    ring length, on ``device`` (default ``cuda``).  ``pool_pages``
-    hard-caps every allocator's pool size."""
+    or cross-attention layer), the paged ones sharing a
+    :class:`PageAllocator` per distinct ring length, on ``device``
+    (default ``cuda``).  ``pool_pages`` hard-caps every allocator's pool
+    size."""
     cfg = model.cfg
     stack = model.stack
     device = _device.resolve(device)
-    if not stack_is_stateable(model):
-        raise NotImplementedError(
-            f"no ported state for the slots {stack.pattern} of {cfg.name}: "
-            "cross attention, layernorm, gelu, sinusoidal positions and "
-            "frontends come with ROADMAP Queue 1 item 8")
     attn_windows = [s.window for s in stack.pattern if s.kind == "attn"]
     if stack.has_shared:
         attn_windows.append(0)   # zamba2's shared block: full attention

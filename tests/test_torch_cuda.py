@@ -6,8 +6,10 @@ kernel has no CPU mode.  On a machine with one (and ``nvcc``):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-``chip_smoke.py`` makes the same comparisons at the yi-6b and mixtral
-shapes.
+``chip_smoke.py`` makes the same comparisons at the main paths' shapes
+(``GEMM_EDGE`` holds llama-3.2-vision-11b's cross K/V projection of 1601
+patches and musicgen-large's bias + gelu MLP; ``PAGED_CASES`` the
+llama-3.2-vision geometry and, in its zamba2 entries, musicgen's).
 """
 
 import dataclasses
@@ -532,7 +534,8 @@ def test_grouped_expert_ffn_captures_in_a_cuda_graph():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x22b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x22b",
+                                  "llama-3.2-vision-11b", "musicgen-large"])
 def test_engine_on_the_card_matches_the_cpu(arch):
     """The f32 smoke engine through the CUDA kernels emits the same greedy
     tokens as through the plain versions on the CPU."""

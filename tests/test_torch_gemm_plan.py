@@ -52,7 +52,11 @@ def _lm_cases():
               + [("rwkv6 " + n, k, nn)
                  for n, k, nn, _, _ in gemm_cases.RWKV_GEMMS]
               + [("zamba2 " + n, k, nn)
-                 for n, k, nn, _, _ in gemm_cases.ZAMBA_GEMMS])
+                 for n, k, nn, _, _ in gemm_cases.ZAMBA_GEMMS]
+              + [("llama-3.2-vision " + n, k, nn)
+                 for n, k, nn, *_ in gemm_cases.VLM_GEMMS]
+              + [("musicgen " + n, k, nn)
+                 for n, k, nn, *_ in gemm_cases.MUSICGEN_GEMMS])
     return [(f"{name} M{m}", m, k, n, 16, 16)
             for m in gemm_cases.LM_ROWS for name, k, n in shapes]
 
@@ -219,6 +223,74 @@ def test_gemm_tables_match_the_configs():
         "wq|wo": (d, mix.num_heads * mix.head_dim),
         "wk|wv": (d, mix.num_kv_heads * mix.head_dim),
         "unembed": (d, mix.vocab_size)}
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
+def test_cross_and_audio_gemm_tables_match_the_configs(arch):
+    """The two tables are the models' own widths, and their calls a step
+    are what the port's model launches: a model built with a counting
+    matmul on the smoke config (a period of each stack, every layer kind)
+    makes, in one mixed and one decode step of the engine, the table's
+    calls scaled to its depth."""
+    cfg = get_arch(arch)
+    d, hd = cfg.d_model, cfg.head_dim
+    if arch == "musicgen-large":
+        table, layers = gemm_cases.MUSICGEN_GEMMS, gemm_cases.MUSICGEN_LAYERS
+        assert cfg.num_heads == cfg.num_kv_heads and not cfg.tie_embeddings
+        want = {"q|k|v|o": (d, cfg.num_heads * hd), "wi": (d, cfg.d_ff),
+                "wo": (cfg.d_ff, d), "unembed": (d, cfg.vocab_size)}
+        assert [(a, b) for _, _, _, a, b, _ in table] == [
+            (None, False), ("gelu", True), (None, True), (None, False)]
+        per_step = 6 * layers + 1
+    else:
+        table, layers = gemm_cases.VLM_GEMMS, gemm_cases.VLM_LAYERS
+        cross = layers // cfg.cross_attn_period
+        assert gemm_cases.VLM_CROSS == cross
+        assert gemm_cases.VLM_PATCHES == cfg.num_frontend_tokens
+        want = {"wq|wo": (d, cfg.num_heads * hd),
+                "wk|wv": (d, cfg.num_kv_heads * hd), "gate": (d, cfg.d_ff),
+                "up": (d, cfg.d_ff), "down": (cfg.d_ff, d),
+                "unembed": (d, cfg.vocab_size)}
+        per_step = 7 * (layers - cross) + 5 * cross + 1
+    assert {n: (k, nn) for n, k, nn, *_ in table} == want
+    assert layers == cfg.num_layers
+    assert sum(c for *_, c in table) == per_step
+
+    # the smoke model's launches per step, scaled by the same rule
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import DEFAULT_KERNELS
+    from repro_torch.models.model import Model
+    from repro_torch.serving.state import build_state_tree
+    calls = []
+
+    def counting(a, b, **kw):
+        calls.append((b.shape, kw.get("bias") is not None,
+                      kw.get("activation")))
+        return ref.matmul(a, b, **kw)
+
+    small = smoke_config(cfg)
+    model = Model(small, kernels=DEFAULT_KERNELS._replace(matmul=counting))
+    params = model.init(torch.Generator().manual_seed(0))
+    tree = build_state_tree(model, slots=2, page_size=4, max_len=16,
+                            device="cpu")
+    tree.admit(0)
+    pools = tree.push_tables(tree.init_device())
+    tok = torch.zeros((2, 4), dtype=torch.int32)
+    pos = torch.arange(4, dtype=torch.int32).repeat(2, 1)
+    model.chunk_step(params, pools, tok, pos, torch.tensor([4, 0]))
+    n_mixed = len(calls)
+    model.decode_step(params, pools, tok[:, :1], torch.tensor([4, 0]),
+                      lengths=torch.tensor([1, 0]))
+    n_cross = small.num_layers // max(1, small.cross_attn_period) \
+        if small.cross_attn_period else 0
+    small_step = (6 * small.num_layers + 1 if arch == "musicgen-large" else
+                  7 * (small.num_layers - n_cross) + 5 * n_cross + 1)
+    assert n_mixed == len(calls) - n_mixed == small_step
+    acts = {(bias, act) for _, bias, act in calls}
+    assert acts == ({(False, None), (True, "gelu"), (True, None)}
+                    if arch == "musicgen-large" else
+                    {(False, None), (False, "silu")})
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@ tolerance: the K/V are products, summed in either order).  The JAX decode
 step runs its Pallas kernel in interpret mode, whose dead-slot rule (a slot
 with nothing live attends to nothing) is the port's.
 
-Also here: the guard that ``src/repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor ``repro``.
+Also here: every architecture of the registry builds its spec tree, state
+tree and engine in the port, and the guard that ``src/repro_torch`` and
+``chip_smoke.py`` import neither ``jax`` nor ``repro``.
 """
 
 import ast
@@ -34,8 +35,10 @@ from repro.models.model import Model as JModel  # noqa: E402
 from repro.serving.state import build_state_tree as jbuild  # noqa: E402
 
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.configs import get_arch, smoke_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_arch, smoke_config  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving import (CacheConfig, EngineConfig,  # noqa: E402
+                                 PagedEngine)
 from repro_torch.serving.state import build_state_tree  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -168,14 +171,29 @@ def test_chunk_and_decode_steps_match():
     _assert_pools_match(jpools, tpools)
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
-def test_unported_architectures_refuse(arch):
-    model = Model(smoke_config(get_arch(arch)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model._spec_tree()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_state_tree(model, slots=2, page_size=4, max_len=16,
-                         device="cpu")
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_registry_arch_builds_its_specs_and_states(arch):
+    """Every architecture of the registry runs in the port: its full-width
+    spec tree has JAX's parameter count, and at smoke width its state tree
+    holds one state per layer, builds its device leaves and an engine."""
+    assert sum(n for _, n in Model(get_arch(arch)).param_numels()) \
+        == jget_arch(arch).param_count()
+    cfg = smoke_config(get_arch(arch))
+    model = Model(cfg)
+    assert PagedEngine.supports(model)
+    tree = build_state_tree(model, slots=2, page_size=4, max_len=16,
+                            device="cpu")
+    n_layers = cfg.num_layers + (model.stack.n_periods
+                                 if model.stack.has_shared else 0)
+    assert len(list(tree.leaves())) == n_layers
+    kinds = {s.kind for s in model.stack.pattern}
+    assert tree.has_rows == bool(kinds & {"cross", "rwkv", "mamba"})
+    pools = tree.init_device()
+    assert len(pools["slots"]) == len(model.stack.pattern)
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = PagedEngine(model, params, config=EngineConfig(
+        slots=2, cache=CacheConfig(page_size=4, max_len=16)))
+    assert eng.state.has_rows == tree.has_rows
 
 
 def _imports(path: Path) -> set[str]:

@@ -103,6 +103,24 @@ def test_paged_plan_at_the_serve_shapes():
     assert pa.plan(1, 32, 4, 128, 16, 32, torch.int8)["splits"] == 32
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large",
+                                  "zamba2-1.2b"])
+def test_paged_cases_hold_each_served_geometry(arch):
+    """``PAGED_CASES`` (which the card runs) holds every served attention
+    geometry at 4 and 64 slots over the serve pools: llama-3.2-vision's
+    32/8 heads of 128 (G 4) and musicgen's 32/32 heads of 64 (G 1, the
+    zamba2 shared block's), each timed at 4 slots in bf16."""
+    cfg = ARCHS[arch]
+    geo = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, ac.PAGE,
+           ac.MAX_PAGES, 0)
+    found = {c[1]: c for c in ac.PAGED_CASES
+             if (c[2], c[3], c[4], c[5], c[6], c[8]) == geo}
+    assert {4, 64} <= set(found)
+    assert found[4][12] and "bfloat16" in found[4][7]
+    q = pa.plan(4, *geo[:5], torch.bfloat16, sms=H100_SMS)
+    assert q["G"] == cfg.num_heads // cfg.num_kv_heads and q["tma"] == 1
+
+
 def test_paged_plan_routes():
     """TMA where every row and scale row is a multiple of 16 bytes and the
     pools are aligned; the ``ldg`` route otherwise, chosen by the plan."""
