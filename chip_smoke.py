@@ -71,6 +71,21 @@ default ``build/chip_smoke/``):
    phase's warm engine: device time by kernel and the device's busy share
    (and, with ``moe_serve``, over one more warm mixtral pass; with
    ``swa_forward``, over one more gemma3-12b forward).
+   ``tune`` -- the tile tuner, ``serve --autotune --tile-cache`` on the
+   card (``launch.serve.warm_tile_cache``): yi-6b's 10 ``kraken_gemm``
+   cells and its ``paged_decode_attention`` geometry tuned into a fresh
+   cache file, every timed candidate first held against the plain version
+   within its kernel's tolerance (a fast but wrong plan fails the phase),
+   each cell's planner pick, winner and both device times printed; a
+   second warm-up from the file must print ``11/11 cells hit — fully
+   warm``.  Then ``grouped_moe_gemm`` at mixtral-8x22b's two cell widths,
+   ``kraken_conv2d_direct``'s (BN, split) at VGG-16's conv layers at batch
+   1 and 32, and the decode cells of rwkv6-3b and musicgen-large (with
+   the G = 1 paged geometry), all on random operands.  Last, the serve
+   phase's weights served in mode ``cached``: every logit finite, zero new
+   signatures warm, every launch on its cached winner (the plans
+   ``_launch_plan`` saw); tok/s and bf16 token agreement with the serve
+   phase's model-plan engine reported.
 7. ``moe_serve`` -- release yi-6b, then serve mixtral-8x22b at full width
    and 8 of its 56 layers (20.4 B parameters, bf16) with the same engine
    and traffic; every MoE layer's expert FFN must go through
@@ -194,7 +209,7 @@ default ``build/chip_smoke/``):
 
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
 swa_kernels, conv_kernels, recurrence, serve, serve_features, e2e,
-profile, dense_serve, dense_e2e, moe_serve, moe_e2e, swa_forward,
+profile, tune, dense_serve, dense_e2e, moe_serve, moe_e2e, swa_forward,
 conv_nets, rwkv_serve, rwkv_e2e, zamba_serve, zamba_e2e, vlm_serve,
 vlm_e2e, audio_serve, audio_e2e``.
 
@@ -259,15 +274,9 @@ F32_E2E_TOL = 1e-4
 # kraken_conv2d_direct launches per frame: AlexNet's grouped layers run one
 # call per group, ResNet-50's repeated blocks one per repeat
 CONV_FRAME_LAUNCHES = {"alexnet": 8, "vgg16": 13, "resnet50": 53}
-# kraken_conv2d_direct and the im2col route against ref.conv2d, (atol, rtol)
-# elementwise by output dtype.  Both sides read the same inputs, sum the
-# products in fp32 and round once, so they differ by the summation order
-# and at most one output ulp: 2 bf16 ulps of rtol (8e-3) cover the rounding,
-# the atol the fp32 order on outputs near zero (the weights are scaled by
-# 1/sqrt(C_i K_H K_W), so outputs are O(1)).  The largest bf16 atol needed
-# over every case of conv_kernels on an H100 was 8.9e-6 (at K_H K_W C_i
-# 4608); a dropped tap or channel chunk needs 1.5 or more
-CONV_TOL = {"bfloat16": (2e-5, 8e-3), "float32": (1e-5, 1e-5)}
+# CONV_TOL, kraken_conv2d_direct's and the im2col route's tolerance against
+# ref.conv2d, is repro_torch.core.conv_cases's (the tile tuner holds every
+# conv candidate to it too)
 
 
 def log(msg: str) -> None:
@@ -1075,16 +1084,17 @@ def _yi6b(kernels=None):
     return Model(get_arch("yi-6b"), kernels=kernels)   # bf16, full width
 
 
-def serve_passes(eng, label: str) -> list[dict]:
-    """The serve workload twice through ``eng``: each pass's wall time,
-    tok/s, TTFT, steps and new program signatures.  Every request must be
-    served in full."""
+def serve_passes(eng, label: str, reps: int = 2) -> list[dict]:
+    """The serve workload ``reps`` times through ``eng``: each pass's wall
+    time, tok/s, TTFT, steps and new program signatures.  Every request
+    must be served in full, and the last pass (warm) may add no program
+    signature."""
     import numpy as np
     import torch
     vocab = eng.model.cfg.vocab_size
     rng = np.random.default_rng(0)
     passes = []
-    for rep in range(2):
+    for rep in range(reps):
         before = (eng._prefill.retraces, eng._decode.retraces,
                   eng._reset.retraces)
         reqs = [eng.submit(rng.integers(0, vocab, (n,)), SERVE_NEW)
@@ -1119,7 +1129,7 @@ def serve_passes(eng, label: str) -> list[dict]:
             f"({passes[-1]['mixed_steps']} mixed + "
             f"{passes[-1]['decode_steps']} decode steps, "
             f"{new_sigs} new signatures)")
-    if passes[1]["new_signatures"]:
+    if passes[-1]["new_signatures"]:
         raise AssertionError(f"{label}: the warm pass added program "
                              "signatures")
     for alloc in eng.allocators.values():
@@ -1693,6 +1703,234 @@ def phase_profile(rec: dict, state: dict) -> None:
     if "engine" not in state:
         raise RuntimeError("the profile phase needs the serve phase")
     rec["profile"] = trace_pass(state["engine"], seed=2)
+
+
+# ---------------------------------------------------------------------------
+# the tile tuner: serve --autotune --tile-cache on the serve phase's weights
+# ---------------------------------------------------------------------------
+
+# the archs whose decode cells the tune phase measures beside yi-6b's
+TUNE_DECODE_ARCHS = ("rwkv6-3b", "musicgen-large")
+
+
+def _tuned_shape(key: str, entry: dict):
+    """The planner's shape of a tuned cell, from its key and guards."""
+    kind, m, k, n = key.split(":")[:4]
+    m, k, n = int(m[1:]), int(k[1:]), int(n[1:])
+    if kind == "gemm":
+        return (m, k, n)
+    if kind == "paged_decode":
+        ps = entry["page_size"]
+        return (m, *entry["heads"], n, ps, k // ps)
+    if kind == "moe_gemm":
+        return (entry["experts"], m // entry["experts"], k, n)
+    x, w, stride, pad, r = entry["geometry"]
+    return (tuple(x), tuple(w), tuple(stride), tuple(map(tuple, pad)), r)
+
+
+def retime_overruled(entries: dict) -> dict:
+    """Every cell whose measured winner overruled the planner, timed again
+    (fresh operands, the same card timer): does the winner stay faster?
+    The spread between the two timings is what a measured win has to beat
+    before it means anything."""
+    from repro_torch.tuning import search
+    out = {}
+    for key, e in entries.items():
+        if e["agrees_with_model"]:
+            continue
+        kind = key.split(":")[0]
+        fields = search._op(kind).fields
+        timer = search.card_timer(kind, _tuned_shape(key, e),
+                                  dtype_name=key.split(":")[4],
+                                  extra={"window": e["window"]}
+                                  if "window" in e else None)
+        win = tuple(e[f] for f in fields)
+        pick = tuple(e["model_pick"][f] for f in fields)
+        out[key] = {"winner_us": [e["measured_us"], timer(win)],
+                    "pick_us": [e["model_pick"]["measured_us"], timer(pick)]}
+    held = sum(r["winner_us"][1] < r["pick_us"][1] for r in out.values())
+    log(f"  tune: re-timed, the winner stayed faster than the planner's pick "
+        f"in {held} of {len(out)} overruled cells")
+    return out
+
+
+def _recording(mod, seen: dict, nshape: int):
+    """Wrap ``mod._launch_plan`` so that every call records its shape (the
+    first ``nshape`` arguments) and its choice (the last) in ``seen``;
+    returns the original, to restore."""
+    orig = mod._launch_plan
+
+    def launch_plan(*args):
+        seen.setdefault(tuple(args[:nshape]), set()).add(args[-1])
+        return orig(*args)
+    mod._launch_plan = launch_plan
+    return orig
+
+
+def phase_tune(rec: dict, state: dict) -> None:
+    """``serve --autotune --tile-cache`` on the card: yi-6b's serving cells
+    (its 10 ``kraken_gemm`` cells and its ``paged_decode_attention`` pool
+    geometry) warmed into a fresh cache file through
+    ``launch.serve.warm_tile_cache``, every candidate held against the plain
+    version before it is timed; a second warm-up from the file must be
+    fully warm.  ``grouped_moe_gemm`` is tuned at mixtral-8x22b's two cell
+    widths (random operands), ``kraken_conv2d_direct``'s (BN, split) at
+    VGG-16's conv layers at batch 1 and 32.  Then the serve phase's weights
+    are served in mode ``cached``: every logit finite, zero new signatures
+    when warm, every launch's choice the cached winner (the plans
+    ``_launch_plan`` saw), and tok/s and token agreement with the serve
+    phase's model-plan engine reported, not gated."""
+    import numpy as np
+    import torch
+    from repro_torch import tuning
+    from repro_torch.configs import get_arch
+    from repro_torch.core.conv_cases import CONV_R, conv_geometries
+    from repro_torch.kernels import kraken_gemm as kg
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.core.unified import (arch_cells, dedup_cells,
+                                          tunable_cells)
+    from repro_torch.launch.serve import warm_tile_cache
+    from repro_torch.models.model import Model
+    from repro_torch.serving import PagedEngine
+    from repro_torch.tuning import search
+    if "params" not in state:
+        raise RuntimeError("the tune phase needs the serve phase's weights")
+    path = ROOT / "build" / "tune" / "plans.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    model = _yi6b()
+    cfg = model.cfg
+    kw = dict(slots=SLOTS, prompt_lens=[CHUNK], cache_len=MAX_LEN,
+              prefill_batch=SLOTS, page_size=PAGE,
+              paged_geoms=PagedEngine.pool_geoms(
+                  model, slots=SLOTS, page_size=PAGE, max_len=MAX_LEN))
+    out: dict = {"cache": str(path.relative_to(ROOT))}
+    try:
+        lines = []
+
+        def say(msg):
+            lines.append(msg)
+            log(f"  {msg}")
+        for run in ("first", "second"):
+            tuning.set_tile_cache(str(path))     # the file, as a server reads it
+            t0 = time.perf_counter()
+            statuses = warm_tile_cache(cfg, autotune=True, log=say, **kw)
+            torch.cuda.synchronize()
+            out[f"{run}_warm_s"] = time.perf_counter() - t0
+            out[f"{run}_statuses"] = statuses
+            out[f"{run}_summary"] = lines[-1]
+        n = len(out["first_statuses"])
+        if out["first_statuses"] != ["tuned"] * n:
+            raise AssertionError(f"tune: a fresh cache did not tune every "
+                                 f"cell: {out['first_statuses']}")
+        want = f"tile-cache: {n}/{n} cells hit — fully warm"
+        if out["second_summary"] != want:
+            raise AssertionError(f"tune: the second warm-up printed "
+                                 f"{out['second_summary']!r}, not {want!r}")
+        cache = tuning.get_tile_cache()
+        sms = tuning.card_sms()
+        t0 = time.perf_counter()
+        out["moe_statuses"] = tuning.warm_moe_gemm(
+            get_arch("mixtral-8x22b"), [SLOTS, SLOTS * CHUNK], cache=cache,
+            log=say)
+        for net, layer, h, w, ci, k, s, pad, co in conv_geometries():
+            if net == "vgg16":
+                for nb in (1, 32):
+                    tuning.autotune_conv((nb, h, w, ci), (k, k, ci, co),
+                                         stride=(s, s), padding=pad,
+                                         R=CONV_R, sms=sms, cache=cache,
+                                         log=say)
+        # the decode cells where the planner is least trusted: rwkv6-3b's
+        # and musicgen-large's small weights, and the G = 1 paged geometry
+        # musicgen-large and zamba2-1.2b's shared block serve
+        for arch in TUNE_DECODE_ARCHS:
+            acfg = get_arch(arch)
+            tuning.autotune_cells(dedup_cells(tunable_cells(arch_cells(
+                acfg, batch=SLOTS, seq_q=1, seq_kv=MAX_LEN))), cache=cache,
+                sms=sms, log=say)
+            if acfg.num_heads:
+                tuning.warm_paged_decode(
+                    acfg, PagedEngine.pool_geoms(
+                        Model(acfg), slots=SLOTS, page_size=PAGE,
+                        max_len=MAX_LEN), page_size=PAGE, cache=cache,
+                    sms=sms, log=say)
+        out["other_cells_s"] = time.perf_counter() - t0
+        out["cells"] = {key: entry for key, entry in cache.entries.items()}
+        out["retimed"] = retime_overruled(cache.entries)
+        agree = sum(e["agrees_with_model"] for e in cache.entries.values())
+        log(f"  tune: {len(cache)} cells measured, the planner's pick won "
+            f"{agree}")
+
+        # serve the serve phase's weights in mode "cached"
+        tuning.set_tile_cache(str(path))
+        tuning.set_tile_mode("cached")
+        seen = {"gemm": {}, "paged": {}}
+        orig = (_recording(kg, seen["gemm"], 3),
+                _recording(pa, seen["paged"], 6))
+        try:
+            eng = _engine(model, state["params"])
+            finite = _check_logits(eng)
+            _zero_counts()
+            passes = serve_passes(eng, "tune")
+            launches = _read_counts()
+        finally:
+            kg._launch_plan, pa._launch_plan = orig
+        if not bool(finite[0]):
+            raise AssertionError("tune: a served logit is not finite")
+        steps = eng._prefill.calls + eng._decode.calls
+        if launches["kraken_gemm"] != (LAYERS * 7 + 1) * steps or \
+                launches["paged_decode_attention"] != LAYERS * \
+                eng._decode.calls:
+            raise AssertionError(f"tune: launch counts {launches} do not "
+                                 f"match {steps} steps")
+        wrong, missing = [], []
+        for kind, op in (("gemm", "gemm"), ("paged", "paged_decode")):
+            for shape, choices in seen[kind].items():
+                winner = search.lookup(op, shape, dtype_name="bfloat16",
+                                       sms=sms, cache=cache, count=False)
+                if winner is None:
+                    missing.append((op, shape))
+                if choices != {winner}:
+                    wrong.append((op, shape, sorted(map(str, choices)),
+                                  winner))
+        plans = sum(len(c) for v in seen.values() for c in v.values())
+        if wrong or missing:
+            raise AssertionError(f"tune: launched choices differ from the "
+                                 f"cached winners: {wrong}; no entry: "
+                                 f"{missing}")
+        # one more warm pass under each mode on the same engine, in turns:
+        # the host's state then weighs on both alike
+        pair = {}
+        for mode in ("model", "cached"):
+            tuning.set_tile_mode(mode)
+            pair[mode] = serve_passes(eng, f"tune {mode}", reps=1)[0]
+        out["pair_tok_s"] = {m: p["tok_s"] for m, p in pair.items()}
+        ref_out = [t for p in rec["serve"]["passes"] for r in p["out"]
+                   for t in r]
+        got_out = [t for p in passes for r in p["out"] for t in r]
+        same = float(np.mean(np.asarray(ref_out) == np.asarray(got_out)))
+        out.update(passes=passes, launches=launches, launched_plans=plans,
+                   token_agreement_with_model_plans=same,
+                   tok_s_model_plans=rec["serve"]["passes"][1]["tok_s"])
+        log(f"  tune: {plans} plans launched ({len(seen['gemm'])} kraken_gemm "
+            f"shapes, {len(seen['paged'])} paged geometry), each the cached "
+            f"winner; warm pass {passes[1]['tok_s']:.1f} tok/s (the serve "
+            f"phase's model plans {rec['serve']['passes'][1]['tok_s']:.1f}; "
+            f"one more pass each on this engine: model "
+            f"{pair['model']['tok_s']:.1f}, cached "
+            f"{pair['cached']['tok_s']:.1f}), bf16 tokens agree with the "
+            f"model-plan engine {same:.3f}")
+        del eng
+    finally:
+        tuning.set_tile_mode("model")
+        tuning.set_tile_cache(tuning.TileCache(path=None))
+    rec["tune"] = out
+    log(f"tune: {n} yi-6b cells tuned, then fully warm; "
+        f"{len(out['moe_statuses'])} grouped_moe_gemm cells, VGG-16's conv "
+        f"layers and the decode cells of {', '.join(TUNE_DECODE_ARCHS)} "
+        f"tuned ({len(out['cells'])} cells in all); served in mode cached "
+        f"with every launch on its cached winner, every logit finite, zero "
+        f"new signatures warm")
 
 
 def _mixtral(kernels=None, layers: int = MOE_LAYERS, dtype: str = "bfloat16"):
@@ -3087,6 +3325,7 @@ def conv_check(label: str, got, want, dt: str) -> tuple[float, float]:
     """``got`` within ``CONV_TOL[dt]`` of ``want`` elementwise; returns the
     max |err| and the least atol that passes at the rtol."""
     import torch
+    from repro_torch.core.conv_cases import CONV_TOL
     atol, rtol = CONV_TOL[dt]
     if got.shape != want.shape or got.dtype != want.dtype:
         raise ConvMismatch(f"{label}: got {tuple(got.shape)} {got.dtype}, "
@@ -3241,6 +3480,7 @@ def phase_conv_kernels(rec: dict, state: dict) -> None:
             log(f"  conv edge {name:32s} {r['dtype']:8s}->{r['out_dtype']:8s} "
                 f"err={r['max_abs_err']:.2e} atol_needed="
                 f"{r['atol_needed']:.2e} plan={json.dumps(r['plan'])}")
+    from repro_torch.core.conv_cases import CONV_TOL
     rec["conv_kernels"] = rows
     if failed:
         worst = max(failed, key=lambda e: e.need)
@@ -3849,6 +4089,7 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "conv_kernels": phase_conv_kernels,
           "recurrence": phase_recurrence, "serve": phase_serve,
           "serve_features": phase_serve_features, "e2e": phase_e2e, "profile": phase_profile,
+          "tune": phase_tune,
           "dense_serve": phase_dense_serve, "dense_e2e": phase_dense_e2e,
           "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e,
           "swa_forward": phase_swa_forward, "conv_nets": phase_conv_nets,

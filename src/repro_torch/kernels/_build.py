@@ -15,6 +15,7 @@ machine-independent half is all they see.  Without ``nvcc`` a build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -104,3 +105,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA device ``device`` (an index or
+    a ``torch.device``): what the planners lay a grid out for."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count

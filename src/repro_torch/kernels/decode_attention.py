@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from repro_torch.core.elastic import ceil_div
+from repro_torch.core.elastic import SMEM_BUDGET, ceil_div
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import _DTYPE, _check, _int32_on
 from repro_torch.kernels.ref import quantize_kv  # noqa: F401  (re-exported)
@@ -35,8 +35,6 @@ from repro_torch.kernels.ref import quantize_kv  # noqa: F401  (re-exported)
 #: included); callers may reset it to 0
 launches = 0
 
-#: shared memory one block may use on an H100 (bytes)
-SMEM_MAX = 227 * 1024
 #: the H100's streaming multiprocessors: the planner's default
 SMS = 132
 #: entries a tile: one per lane of the warp that scores them
@@ -103,9 +101,9 @@ def plan(b: int, h: int, kv: int, s: int, d: int, dtype=torch.int8, *,
     tps = max(1, ntiles // ceil_div(sms, base)) if base < sms else ntiles
     splits = ceil_div(ntiles, tps) if ntiles else 1
     smem = smem_bytes(g, d)
-    if smem > SMEM_MAX:
+    if smem > SMEM_BUDGET:
         raise ValueError(f"decode_attention: {g} query rows of D={d} need "
-                         f"{smem} bytes of shared memory (> {SMEM_MAX})")
+                         f"{smem} bytes of shared memory (> {SMEM_BUDGET})")
     if base * splits > 2 ** 31 - 1:
         raise ValueError(f"decode_attention: {base * splits} blocks exceed "
                          "one grid")

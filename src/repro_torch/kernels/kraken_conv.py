@@ -18,7 +18,9 @@ output channels, C_i walked in 64-channel chunks, an asynchronous ring of
 input bands and per-tap weight tiles, and a split of C_i over blocks when the
 tiles alone leave SMs idle.  float32 keeps the fp32 FMA kernel (one block per
 R rows x 16 columns x 64 channels), for parity, with no TF32.  The TPU's
-output-channel tile ``bco`` is not tunable here.  The wrapper takes CUDA
+output-channel tile ``bco`` is the bf16 plan's ``BN``: a caller may fix it
+(64 or 128), and the tile cache may choose it with the split
+(:func:`candidates`).  The wrapper takes CUDA
 tensors only and launches the kernel or raises; the plain version is
 :func:`repro_torch.kernels.ref.conv2d`.
 
@@ -34,7 +36,8 @@ import functools
 
 import torch
 
-from repro_torch.core.elastic import ceil_div, round_up
+from repro_torch.core import elastic
+from repro_torch.core.elastic import SMEM_BUDGET, ceil_div, round_up
 from repro_torch.kernels import _build
 
 #: launches of the kernel in this process; callers may reset it to 0
@@ -43,8 +46,6 @@ launches = 0
 #: output rows per band the kernel takes, at most
 MAX_R = 16
 
-#: shared memory one block may use on an H100 (bytes)
-SMEM_MAX = 227 * 1024
 #: the H100's streaming multiprocessors: the planner's default
 SMS = 132
 #: bf16: channels per chunk, one 128-byte swizzled row per pixel
@@ -71,6 +72,11 @@ PLAN_FIELDS = (
     "packed", "band_mode", "BN", "TR", "TC", "G", "BR", "BW", "rowlen",
     "img_bytes", "band_bytes", "NB", "NW", "kcp", "taps", "nchunks", "split",
     "cps", "rts", "cts", "ptiles", "ctiles", "tiles", "grid", "smem")
+#: the fields of a bf16 plan that the tile cache may choose; every other
+#: field is derived from them
+CHOICE = ("BN", "split")
+#: the output-channel tiles (``bco``) the bf16 kernel is built for
+BCO = (64, 128)
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -127,11 +133,11 @@ def check_args(x_shape, k_shape, *, stride, padding, R, bco
                ) -> tuple[int, int]:
     """Validate a direct conv's arguments (the same on every device) and
     return the output size (OH, OW)."""
-    if bco is not None:
+    if bco is not None and bco not in BCO:
         raise ValueError(
-            f"kraken_conv2d_direct takes bco=None only, got {bco}: the card's "
-            "c_o tile is the kernel's own; a tunable tile is ROADMAP Queue 1 "
-            "item 10")
+            f"kraken_conv2d_direct: bco = {bco}, but the card's kernel has "
+            f"output-channel tiles {' and '.join(map(str, BCO))} (or None: "
+            "the planner's or the tile cache's pick)")
     if len(x_shape) != 4 or len(k_shape) != 4 or x_shape[3] != k_shape[2]:
         raise ValueError(f"shapes x {tuple(x_shape)}, k {tuple(k_shape)}: need "
                          "x [N, H, W, C_i] and k [K_H, K_W, C_i, C_o]")
@@ -157,7 +163,7 @@ def _plan_fma(q: dict, *, vec: bool) -> dict:
     br, bw = (r - 1) * q["S_H"] + k_h, 15 * q["S_W"] + k_w
     ck_max = min(32, round_up(q["C_i"], 8))
     cands = [ck_max] + [c for c in (32, 16, 8) if c < ck_max]
-    for limit in (100 * 1024, SMEM_MAX):
+    for limit in (100 * 1024, SMEM_BUDGET):
         for ck in cands:
             for khs in (k_h, 1):
                 off_w = round_up(4 * br * bw * ck, 128)
@@ -167,7 +173,7 @@ def _plan_fma(q: dict, *, vec: bool) -> dict:
                                 fBR=br, fBW=bw, off_w=off_w, vec=int(vec),
                                 smem=smem)
     raise ValueError(f"kraken_conv2d_direct: no float32 tile of R = {r} and "
-                     f"kernel {k_h}x{k_w} fits {SMEM_MAX} bytes of shared "
+                     f"kernel {k_h}x{k_w} fits {SMEM_BUDGET} bytes of shared "
                      "memory")
 
 
@@ -201,8 +207,11 @@ def _tiles(q: dict):
         m += 1
 
 
-def _plan_wgmma(q: dict, *, sms: int, x_align: int) -> dict:
-    """bfloat16: the tile, c_o tile, ring and split of least estimated time.
+def _best_wgmma(q: dict, *, sms: int, x_align: int, bn_only=None,
+                split_only=None):
+    """bfloat16: (key, fields) of the tile, c_o tile, ring and split of
+    least estimated time, the c_o tile fixed to ``bn_only`` and the split to
+    ``split_only`` where given; None when no tile fits.
 
     The estimate is in SM cycles.  A tile takes the longer of its tensor-core
     work (k16 steps x BN cycles for two warpgroups; the 64-wide c_o tile
@@ -239,19 +248,22 @@ def _plan_wgmma(q: dict, *, sms: int, x_align: int) -> dict:
         band = g * img
         rts, cts = ceil_div(q["OH"], tr), ceil_div(q["OW"], tc)
         ptiles = ceil_div(q["N"], g) * rts * cts
-        for bn in ((128, 64) if c_o > 64 else (64,)):
+        for bn in ((bn_only,) if bn_only else
+                   (128, 64) if c_o > 64 else (64,)):
             # bands enough to stay 8 taps ahead, then as many weight stages
             # as fit
             nb = min(NB_MAX, max(2, ceil_div(8, taps)))
-            while nb > 2 and nb * band + 2 * bn * 128 > SMEM_MAX - RESERVED:
+            while nb > 2 and nb * band + 2 * bn * 128 > SMEM_BUDGET - RESERVED:
                 nb -= 1
-            nw = min(NW_MAX, (SMEM_MAX - RESERVED - nb * band) // (bn * 128))
+            nw = min(NW_MAX, (SMEM_BUDGET - RESERVED - nb * band) // (bn * 128))
             if nw < 2:
                 continue
             ctiles = ceil_div(c_o, bn)
             mn = ptiles * ctiles
             split = 1
-            if mn < sms:
+            if split_only:
+                split = split_only
+            elif mn < sms:
                 fits = [s for s in _splits(nchunks) if mn * s >= sms]
                 split = fits[0] if fits else _splits(nchunks)[-1]
             cps = ceil_div(nchunks, split)
@@ -274,24 +286,64 @@ def _plan_wgmma(q: dict, *, sms: int, x_align: int) -> dict:
                     rts=rts, cts=cts, ptiles=ptiles,
                     ctiles=ctiles, tiles=tiles, grid=min(tiles, sms),
                     smem=nb * band + nw * bn * 128 + RESERVED))
+    return best
+
+
+def _plan_wgmma(q: dict, *, sms: int, x_align: int, choice=None) -> dict:
+    """bfloat16: the plan of :func:`_best_wgmma`; ``choice`` (BN, split)
+    fixes the c_o tile and, unless its split is None, the split, which must
+    be one :func:`_splits` gives."""
+    bn = split = None
+    if choice is not None:
+        bn, split = choice
+        nchunks = (1 if q["C_i"] < 16 and q["K_W"] * q["C_i"] <= CK
+                   else ceil_div(q["C_i"], CK))
+        if bn not in BCO or (split is not None
+                             and split not in _splits(nchunks)):
+            raise ValueError(f"kraken_conv2d_direct: (BN, split) = "
+                             f"{tuple(choice)} is not a candidate plan")
+    best = _best_wgmma(q, sms=sms, x_align=x_align, bn_only=bn,
+                       split_only=split)
     if best is None:
+        k_h, k_w = q["K_H"], q["K_W"]
         raise ValueError(
             f"kraken_conv2d_direct: no bfloat16 tile of kernel {k_h}x{k_w} "
-            f"stride ({s_h}, {s_w}) fits a 256-pixel TMA box and {SMEM_MAX} "
-            "bytes of shared memory")
+            f"stride ({q['S_H']}, {q['S_W']}) fits a 256-pixel TMA box and "
+            f"{SMEM_BUDGET} bytes of shared memory"
+            + (f" with (BN, split) = {tuple(choice)}" if choice else ""))
     return best[1]
 
 
-def plan(x_shape, k_shape, *, stride=(1, 1), padding=((0, 0), (0, 0)),
-         R: int = 7, dtype=torch.bfloat16, out_dtype=None, sms: int = SMS,
-         x_align: int = 16, k_align: int = 16) -> dict:
-    """How one call runs on the card: every field of :data:`PLAN_FIELDS`
-    (those of the other dtype's kernel are 0).  ``sms`` is the card's SM
-    count, ``x_align`` and ``k_align`` the byte alignment of the operands'
-    data.  Raises ValueError for a call the kernel does not take."""
+def candidates(x_shape, k_shape, *, stride=(1, 1),
+               padding=((0, 0), (0, 0)), R: int = 7, dtype=torch.bfloat16,
+               sms: int = SMS) -> list[dict]:
+    """The plans a bf16 call may run with (the TPU's ``bco``, and the split
+    over C_i): every c_o tile the planner considers with every split of C_i
+    into non-empty runs of chunks, each with its best pixel tile and the
+    planner's estimate ``est`` (SM cycles).  float32 has one plan: []."""
+    if dtype != torch.bfloat16:
+        return []
+    q = _base_fields(x_shape, k_shape, stride=stride, padding=padding, R=R,
+                     dtype=dtype, out_dtype=dtype)
+    packed = q["C_i"] < 16 and q["K_W"] * q["C_i"] <= CK
+    nchunks = 1 if packed else ceil_div(q["C_i"], CK)
+    out = []
+    for bn in ((128, 64) if q["C_o"] > 64 else (64,)):
+        for split in _splits(nchunks):
+            best = _best_wgmma(q, sms=sms, x_align=16, bn_only=bn,
+                               split_only=split)
+            if best is not None:
+                out.append(dict(BN=bn, split=split, est=best[0][1]))
+    return out
+
+
+
+
+def _base_fields(x_shape, k_shape, *, stride, padding, R, dtype,
+                 out_dtype) -> dict:
+    """A plan's shape fields (every other field 0), the arguments checked."""
     oh, ow = check_args(x_shape, k_shape, stride=stride, padding=padding,
                         R=R, bco=None)
-    out_dtype = out_dtype or dtype
     if dtype not in _DTYPE or out_dtype not in _DTYPE:
         raise ValueError(f"dtypes {dtype} -> {out_dtype}: need float32 or "
                          "bfloat16")
@@ -302,7 +354,28 @@ def plan(x_shape, k_shape, *, stride=(1, 1), padding=((0, 0), (0, 0)),
     q.update(dtype=_DTYPE[dtype], out_dtype=_DTYPE[out_dtype], N=n, H=h, W=w,
              C_i=c_i, K_H=k_h, K_W=k_w, C_o=c_o, S_H=s_h, S_W=s_w, pt=pt,
              pl=pl, OH=oh, OW=ow, R=int(R))
+    return q
+
+
+def plan(x_shape, k_shape, *, stride=(1, 1), padding=((0, 0), (0, 0)),
+         R: int = 7, dtype=torch.bfloat16, out_dtype=None, sms: int = SMS,
+         x_align: int = 16, k_align: int = 16, choice=None) -> dict:
+    """How one call runs on the card: every field of :data:`PLAN_FIELDS`
+    (those of the other dtype's kernel are 0).  ``sms`` is the card's SM
+    count, ``x_align`` and ``k_align`` the byte alignment of the operands'
+    data; ``choice`` (bf16 only) the :data:`CHOICE` fields of one of
+    :func:`candidates` -- or (BN, None), a c_o tile with the planner's
+    split for it -- from which every other field is derived (None: the
+    planner's pick).  Raises ValueError for a call the kernel does not
+    take."""
+    q = _base_fields(x_shape, k_shape, stride=stride, padding=padding, R=R,
+                     dtype=dtype, out_dtype=out_dtype or dtype)
+    n, ow = q["N"], q["OW"]
+    c_i, c_o = q["C_i"], q["C_o"]
     if dtype == torch.float32:
+        if choice is not None:
+            raise ValueError("kraken_conv2d_direct float32 has one plan: no "
+                             "choice")
         vec = (x_align % 16 == 0 and k_align % 16 == 0 and c_i % 4 == 0
                and c_o % 4 == 0)
         q.update(_plan_fma(q, vec=vec))
@@ -310,7 +383,7 @@ def plan(x_shape, k_shape, *, stride=(1, 1), padding=((0, 0), (0, 0)),
             raise ValueError(f"kraken_conv2d_direct: grid of N * L = "
                              f"{n * q['L']} bands is too large")
     else:
-        q.update(_plan_wgmma(q, sms=sms, x_align=x_align))
+        q.update(_plan_wgmma(q, sms=sms, x_align=x_align, choice=choice))
     return q
 
 
@@ -321,18 +394,26 @@ def _align(t: torch.Tensor) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def _launch_plan(x_shape, k_shape, stride, padding, R, dtype, out_dtype, sms,
-                 x_align, k_align):
-    """The plan of a call and its fields as the C array the kernel takes,
-    kept per distinct call: planning walks every candidate tile."""
+                 x_align, k_align, choice=None):
+    """The plan of a call with ``choice`` (None: the planner's pick) and its
+    fields as the C array the kernel takes, kept per distinct call and
+    choice: planning walks every candidate tile."""
     q = plan(x_shape, k_shape, stride=stride, padding=padding, R=R,
              dtype=dtype, out_dtype=out_dtype, sms=sms, x_align=x_align,
-             k_align=k_align)
+             k_align=k_align, choice=choice)
     return q, (ctypes.c_int * len(PLAN_FIELDS))(*(q[f] for f in PLAN_FIELDS))
 
 
-@functools.lru_cache(maxsize=16)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _resolve_bco(x_shape, k_shape, stride, padding, R, sms, bco):
+    """The bf16 choice of a call (``repro.kernels.kraken_conv._resolve_bco``):
+    a caller's ``bco`` as the c_o tile with the planner's split for it;
+    else the tile policy's (:func:`elastic.choose_tiles`), None for the
+    planner's pick."""
+    if bco is not None:
+        return (int(bco), None)
+    return elastic.choose_tiles(
+        "conv_direct", (tuple(x_shape), tuple(k_shape), stride, padding, R),
+        dtype_name="bfloat16", sms=sms)
 
 
 def kraken_conv2d_direct(x: torch.Tensor, k: torch.Tensor, *,
@@ -340,11 +421,17 @@ def kraken_conv2d_direct(x: torch.Tensor, k: torch.Tensor, *,
                          padding: tuple[tuple[int, int], tuple[int, int]] = (
                              (0, 0), (0, 0)),
                          R: int = 7, bco: int | None = None,
-                         out_dtype=None) -> torch.Tensor:
+                         out_dtype=None,
+                         choice: tuple | None = None) -> torch.Tensor:
     """x: [N, H, W, C_i]; k: [K_H, K_W, C_i, C_o] in x's dtype (float32 or
     bfloat16), contiguous, on one CUDA device; ``padding`` ((top, bottom),
     (left, right)) of zeros; ``R`` output rows per band (1..16).  Returns
     [N, OH, OW, C_o] in ``out_dtype`` (default x's dtype).
+
+    The bf16 plan takes ``choice`` (BN, split) when given, else ``bco``
+    (64 or 128) as its c_o tile, else the tile policy's choice (the
+    planner's pick unless the tile cache holds a measured one); float32
+    takes neither.
 
     bfloat16 launches three kernels, counted as one call: the weights'
     K-major copy, the convolution, and (when C_i is split) the fixed-order
@@ -368,10 +455,16 @@ def kraken_conv2d_direct(x: torch.Tensor, k: torch.Tensor, *,
     if n == 0 or c_o == 0:
         return out
     (s_h, s_w), ((pt, pb), (pl, pr)) = stride, padding
+    stride = (int(s_h), int(s_w))
+    padding = ((int(pt), int(pb)), (int(pl), int(pr)))
+    sms = _build.sm_count(x.device)
+    if choice is None and x.dtype == torch.bfloat16:
+        choice = _resolve_bco(x.shape, k.shape, stride, padding, int(R), sms,
+                              bco)
     q, fields = _launch_plan(
-        tuple(x.shape), tuple(k.shape), (int(s_h), int(s_w)),
-        ((int(pt), int(pb)), (int(pl), int(pr))), int(R), x.dtype, out_dtype,
-        _sm_count(x.device), _align(x), _align(k))
+        tuple(x.shape), tuple(k.shape), stride, padding, int(R), x.dtype,
+        out_dtype, sms, _align(x), _align(k),
+        None if choice is None else tuple(choice))
     # bf16: one scratch buffer holds the weights' K-major copy and, for a
     # split, the fp32 partials
     scratch = wt = part = None

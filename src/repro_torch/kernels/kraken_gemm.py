@@ -27,15 +27,14 @@ import functools
 
 import torch
 
-from repro_torch.core.elastic import ceil_div
+from repro_torch.core import elastic
+from repro_torch.core.elastic import SMEM_BUDGET, ceil_div
 from repro_torch.kernels import _build
 
 #: launches of the kernel in this process (one per call, the split's sum
 #: included); callers may reset it to 0
 launches = 0
 
-#: shared memory one block may use on an H100 (bytes)
-SMEM_MAX = 227 * 1024
 #: the H100's streaming multiprocessors: the planner's default
 SMS = 132
 #: K per ring stage: one 128-byte swizzled row of 64 bf16 elements
@@ -64,6 +63,9 @@ PLAN_FIELDS = ("path", "M", "N", "K",
                # bfloat16: the wgmma kernel
                "BM", "BN", "stages", "nk", "split", "kps", "mtiles", "ntiles",
                "tiles", "fill_a", "fill_b", "smem")
+#: the fields of a bf16 plan that the tile cache may choose; :func:`plan`
+#: derives every other field from them
+CHOICE = ("BM", "BN", "split")
 
 _ACT = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,9 +104,10 @@ def _splits(nk: int) -> list[int]:
     return sorted({ceil_div(nk, ceil_div(nk, s)) for s in range(1, nk + 1)})
 
 
-def _plan_wgmma(m: int, k: int, n: int, *, sms: int, a_align: int,
-                b_align: int) -> dict:
-    """bfloat16: the tile, ring and split of least estimated time.
+def _wgmma_plans(m: int, k: int, n: int, *, sms: int, a_align: int,
+                 b_align: int):
+    """bfloat16: every (tile, split) plan with its estimate, as (key,
+    plan) in the planner's order; the least key is the planner's pick.
 
     The estimate is in SM cycles (the constants above, chosen against the
     device times ``tools/gemm_sweep.py`` takes of every tile and split at
@@ -124,11 +127,10 @@ def _plan_wgmma(m: int, k: int, n: int, *, sms: int, a_align: int,
     nk = ceil_div(k, KB)
     fill_a = int(not tma_takes(a_align, k))
     fill_b = int(not tma_takes(b_align, n))
-    best = None
     for bm in TILE_M:
         for bn in TILE_N:
             stage = (bm + bn) * ROW
-            stages = min(STAGES_MAX, (SMEM_MAX - RESERVED) // stage)
+            stages = min(STAGES_MAX, (SMEM_BUDGET - RESERVED) // stage)
             mtiles, ntiles = ceil_div(m, bm), ceil_div(n, bn)
             mn = mtiles * ntiles
             feed = FEED_HBM if mtiles == 1 else FEED_L2
@@ -142,22 +144,49 @@ def _plan_wgmma(m: int, k: int, n: int, *, sms: int, a_align: int,
                 if split > 1:
                     est += (4 * split + 2) * m * n / HBM_BYTES + REDUCE_CYCLES
                 key = (est, tiles, split, mtiles * bm * ntiles * bn, -bn)
-                if best is None or key < best[0]:
-                    best = (key, dict(
-                        path=PATH_WGMMA, BM=bm, BN=bn, stages=stages, nk=nk,
-                        split=split, kps=kps, mtiles=mtiles, ntiles=ntiles,
-                        tiles=tiles, fill_a=fill_a, fill_b=fill_b,
-                        smem=stages * stage + RESERVED))
-    return best[1]
+                yield key, dict(
+                    path=PATH_WGMMA, BM=bm, BN=bn, stages=stages, nk=nk,
+                    split=split, kps=kps, mtiles=mtiles, ntiles=ntiles,
+                    tiles=tiles, fill_a=fill_a, fill_b=fill_b,
+                    smem=stages * stage + RESERVED)
+
+
+def _plan_wgmma(m: int, k: int, n: int, *, sms: int, a_align: int,
+                b_align: int, choice=None) -> dict:
+    """bfloat16: the plan of least estimated time (:func:`_wgmma_plans`),
+    or the one of ``choice`` (BM, BN, split), which must be a candidate."""
+    plans = _wgmma_plans(m, k, n, sms=sms, a_align=a_align, b_align=b_align)
+    if choice is None:
+        return min(plans, key=lambda kq: kq[0])[1]
+    for _, q in plans:
+        if (q["BM"], q["BN"], q["split"]) == tuple(choice):
+            return q
+    raise ValueError(f"kraken_gemm M={m} K={k} N={n}: (BM, BN, split) = "
+                     f"{tuple(choice)} is not a candidate plan")
+
+
+def candidates(m: int, k: int, n: int, *, dtype=torch.bfloat16,
+               sms: int = SMS) -> list[dict]:
+    """The plans a call may run with, as their :data:`CHOICE` fields and
+    the planner's estimate ``est`` (SM cycles), in the planner's order:
+    every bf16 tile with every split the planner would consider.  float32
+    has one plan and no choice: []."""
+    if dtype != torch.bfloat16:
+        return []
+    return [dict(BM=q["BM"], BN=q["BN"], split=q["split"], est=key[0])
+            for key, q in _wgmma_plans(int(m), int(k), int(n), sms=sms,
+                                       a_align=16, b_align=16)]
 
 
 def plan(m: int, k: int, n: int, *, dtype=torch.bfloat16, sms: int = SMS,
-         a_align: int = 16, b_align: int = 16) -> dict:
+         a_align: int = 16, b_align: int = 16, choice=None) -> dict:
     """How one ``[m, k] @ [k, n]`` call runs on the card: every field of
     :data:`PLAN_FIELDS` (the wgmma fields are 0 for float32).  ``sms`` is
     the card's SM count, ``a_align`` and ``b_align`` the byte alignment of
-    the operands' data.  Raises ValueError for a call the kernel does not
-    take."""
+    the operands' data; ``choice`` (bf16 only) the :data:`CHOICE` fields of
+    one of :func:`candidates`, from which every other field is derived
+    (None: the planner's pick).  Raises ValueError for a call the kernel
+    does not take."""
     if dtype not in _DTYPE:
         raise ValueError(f"kraken_gemm dtype {dtype}: needs bfloat16 or "
                          "float32")
@@ -169,10 +198,12 @@ def plan(m: int, k: int, n: int, *, dtype=torch.bfloat16, sms: int = SMS,
         if ceil_div(m, 64) > 65535:
             raise ValueError(f"kraken_gemm float32: M={m} needs more than "
                              "65535 row blocks")
+        if choice is not None:
+            raise ValueError("kraken_gemm float32 has one plan: no choice")
         q["path"] = PATH_FMA
         return q
     q.update(_plan_wgmma(int(m), int(k), int(n), sms=sms, a_align=a_align,
-                         b_align=b_align))
+                         b_align=b_align, choice=choice))
     if q["tiles"] > 2 ** 31 - 1:
         raise ValueError(f"kraken_gemm: {q['tiles']} tiles exceed one grid")
     return q
@@ -200,25 +231,29 @@ def alignment(t: torch.Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def _launch_plan(m, k, n, dtype, device, a_align, b_align):
-    """The plan of a call on CUDA device ``device`` and its fields as the C
-    array the kernel takes, kept per distinct call."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q = plan(m, k, n, dtype=dtype, sms=sms, a_align=a_align,
-             b_align=b_align)
+def _launch_plan(m, k, n, dtype, device, a_align, b_align, choice):
+    """The plan of a call on CUDA device ``device`` with ``choice`` (None:
+    the planner's pick) and its fields as the C array the kernel takes,
+    kept per distinct call and choice."""
+    q = plan(m, k, n, dtype=dtype, sms=_build.sm_count(device),
+             a_align=a_align, b_align=b_align, choice=choice)
     return q, (ctypes.c_int * len(PLAN_FIELDS))(*(q[f] for f in PLAN_FIELDS))
 
 
 def kraken_gemm(a: torch.Tensor, b: torch.Tensor, *,
                 bias: torch.Tensor | None = None,
-                activation: str | None = None) -> torch.Tensor:
+                activation: str | None = None,
+                choice: tuple | None = None) -> torch.Tensor:
     """``act(a @ b + bias)``: a [M, K], b [K, N], bias [N] (or [1, N]);
     out [M, N] in ``a.dtype``.  All on one CUDA device, a and b contiguous
     and of one dtype (bfloat16 or float32).
 
-    A bf16 plan that splits K launches two kernels, counted as one call:
-    the split products into an fp32 scratch tensor allocated here, then
-    their fixed-order sum with bias and the activation."""
+    The bf16 plan is the tile policy's (:func:`elastic.choose_tiles`: the
+    planner's pick unless the tile cache holds a measured one), or the one
+    of ``choice`` (:data:`CHOICE` fields of a candidate) when given.  A
+    plan that splits K launches two kernels, counted as one call: the split
+    products into an fp32 scratch tensor allocated here, then their
+    fixed-order sum with bias and the activation."""
     global launches
     if not (a.is_cuda and b.is_cuda) or a.get_device() != b.get_device():
         raise ValueError(f"kraken_gemm needs CUDA tensors on one device, got "
@@ -248,8 +283,13 @@ def kraken_gemm(a: torch.Tensor, b: torch.Tensor, *,
     if m == 0 or n == 0:
         return out
     pa, pb = a.data_ptr(), b.data_ptr()
+    if choice is None and dtype == torch.bfloat16:
+        choice = elastic.choose_tiles("gemm", (m, k, n),
+                                      dtype_name="bfloat16",
+                                      sms=_build.sm_count(dev))
     q, fields = _launch_plan(m, k, n, dtype, dev, _ptr_align(pa),
-                             _ptr_align(pb))
+                             _ptr_align(pb),
+                             None if choice is None else tuple(choice))
     part = None
     if q["split"] > 1:
         part = torch.empty(q["split"] * m * n, dtype=torch.float32,

@@ -7,7 +7,9 @@ It replaces the Pallas TPU kernel
 ``xs[e, :sizes[e]] @ w[e]`` over the ``[E, C, d]`` capacity buffer in one
 call, with ``sizes`` read on the device only, no weight byte of a dead tile
 read (an empty expert reads no weights) and rows past ``sizes[e]`` exactly
-zero.  The TPU's ``block_rows`` plan and lane padding have no counterpart.
+zero.  The TPU's ``block_rows`` has its counterpart in the wgmma route's
+row tile ``BM``, which the tile cache may choose with the most splits of d
+(:func:`candidates`); its lane padding has none.
 
 :func:`plan` lays one call onto the card (the kernel takes its plan as a
 list of ints, :data:`PLAN_FIELDS`) and names its route:
@@ -35,15 +37,14 @@ import functools
 
 import torch
 
-from repro_torch.core.elastic import ceil_div
+from repro_torch.core import elastic
+from repro_torch.core.elastic import SMEM_BUDGET, ceil_div
 from repro_torch.kernels import _build, ref
 
 #: launches of the kernel in this process (one per call, the split's sum
 #: included); callers may reset it to 0
 launches = 0
 
-#: shared memory one block may use on an H100 (bytes)
-SMEM_MAX = 227 * 1024
 #: the H100's streaming multiprocessors: the planner's default
 SMS = 132
 #: d per ring stage: one 128-byte swizzled row of 64 bf16 elements
@@ -75,6 +76,9 @@ PLAN_FIELDS = ("path", "dtype", "E", "C", "d", "f",
                # bfloat16 on wgmma
                "BM", "BN", "stages", "nk", "mtiles", "ntiles", "split",
                "blocks", "smem")
+#: the fields of a wgmma plan that the tile cache may choose; every other
+#: field is derived from them
+CHOICE = ("BM", "split")
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _lib = None
@@ -111,16 +115,19 @@ def _tma_refuses(e: int, d: int, f: int, x_align: int, w_align: int):
 
 
 def _stages(bm: int, bn: int) -> int:
-    return min(STAGES_MAX, (SMEM_MAX - RESERVED) // ((bm + bn) * ROW))
+    return min(STAGES_MAX, (SMEM_BUDGET - RESERVED) // ((bm + bn) * ROW))
 
 
 def plan(e: int, c: int, d: int, f: int, dtype=torch.bfloat16, *,
-         sms: int = SMS, x_align: int = 16, w_align: int = 16) -> dict:
+         sms: int = SMS, x_align: int = 16, w_align: int = 16,
+         choice=None) -> dict:
     """How one call with ``xs [e, c, d]`` and ``w [e, d, f]`` runs on the
     card: every field of :data:`PLAN_FIELDS` (the wgmma fields are 0 on the
     tile route).  ``sms`` is the card's SM count, ``x_align`` and
-    ``w_align`` the byte alignment of the operands' data.  Raises
-    ValueError for a call the kernel does not take."""
+    ``w_align`` the byte alignment of the operands' data; ``choice`` (the
+    wgmma route only) the :data:`CHOICE` fields of one of
+    :func:`candidates` (None: the planner's pick).  Raises ValueError for a
+    call the kernel does not take."""
     if dtype not in _DTYPE:
         raise ValueError(f"grouped_moe_gemm dtype {dtype}: needs bfloat16, "
                          "float32 or int8")
@@ -132,28 +139,44 @@ def plan(e: int, c: int, d: int, f: int, dtype=torch.bfloat16, *,
         if e > 65535 or ceil_div(c, 64) > 65535:
             raise ValueError(f"grouped_moe_gemm tile route: E={e} or C={c} "
                              "exceeds the grid")
+        if choice is not None:
+            raise ValueError("grouped_moe_gemm's tile route has one plan: no "
+                             "choice")
         q["path"] = PATH_TILE
         return q
-    q.update(wgmma_plan(e, c, d, f, sms=sms))
+    q.update(wgmma_plan(e, c, d, f, sms=sms, choice=choice))
     return q
 
 
+def _split_cap(e: int, c: int, d: int, f: int) -> int:
+    """The most splits of d any plan may take: each split at least
+    SPLIT_MIN_KSTEPS deep, the partials at most PART_MAX_BYTES."""
+    return max(1, min(SPLIT_MAX, ceil_div(d, KB) // SPLIT_MIN_KSTEPS,
+                      PART_MAX_BYTES // (4 * e * c * f)))
+
+
 def wgmma_plan(e: int, c: int, d: int, f: int, *, sms: int = SMS,
-               stages: int | None = None) -> dict:
+               stages: int | None = None, choice=None) -> dict:
     """The wgmma route's fields with ``stages`` ring stages (by default as
-    many as fit): what :func:`plan` builds, and what ``tools/moe_sweep.py``
-    times every depth of."""
-    bm = 64 if c <= 64 else 128
+    many as fit) and ``choice`` (BM, split), by default the planner's:
+    what :func:`plan` builds, and what ``tools/moe_sweep.py`` times every
+    depth of."""
+    if choice is None:
+        bm = 64 if c <= 64 else 128
+    else:
+        bm, split = choice
+        if bm not in TILES or not 1 <= split <= _split_cap(e, c, d, f):
+            raise ValueError(f"grouped_moe_gemm E={e} C={c} d={d} f={f}: "
+                             f"(BM, split) = {tuple(choice)} is not a "
+                             "candidate plan")
     bn = TILES[bm]
     nk, mtiles, ntiles = ceil_div(d, KB), ceil_div(c, bm), ceil_div(f, bn)
-    # the most splits a call may take: enough for one live m tile's n tiles
-    # to fill the grid, each split at least SPLIT_MIN_KSTEPS deep, the
-    # partials at most PART_MAX_BYTES
-    split = 1
-    if ntiles < sms:
-        split = min(SPLIT_MAX, ceil_div(sms, ntiles), nk // SPLIT_MIN_KSTEPS,
-                    PART_MAX_BYTES // (4 * e * c * f))
-        split = max(1, split)
+    if choice is None:
+        # the most splits a call may take: enough for one live m tile's n
+        # tiles to fill the grid, within _split_cap
+        split = 1
+        if ntiles < sms:
+            split = min(ceil_div(sms, ntiles), _split_cap(e, c, d, f))
     if e * mtiles * ntiles * split > 2 ** 31 - 1:
         raise ValueError(f"grouped_moe_gemm: E={e} C={c} f={f} exceeds the "
                          "work items' count")
@@ -161,6 +184,39 @@ def wgmma_plan(e: int, c: int, d: int, f: int, *, sms: int = SMS,
     return dict(path=PATH_WGMMA, BM=bm, BN=bn, stages=stages, nk=nk,
                 mtiles=mtiles, ntiles=ntiles, split=split, blocks=int(sms),
                 smem=stages * (bm + bn) * ROW + RESERVED)
+
+
+def candidates(e: int, c: int, d: int, f: int, dtype=torch.bfloat16, *,
+               sms: int = SMS) -> list[dict]:
+    """The plans a wgmma call may run with (the TPU's ``block_rows``
+    lattice, ``repro.tuning.search.moe_gemm_candidates``, on the two tiles
+    the kernel has): ``BM`` 64 (64 x 256) and 128 (128 x 128), each with
+    the most splits of d 1, the powers of two up to the cap and the
+    planner's own; with the planner's estimate ``est``, the k-steps the
+    busiest block runs when every row is live.  The tile route has no
+    choice: []."""
+    if dtype != torch.bfloat16 or _tma_refuses(e, d, f, 16, 16):
+        return []
+    pick = wgmma_plan(e, c, d, f, sms=sms)
+    cap = _split_cap(e, c, d, f)
+    out = []
+    for bm in sorted(TILES):
+        splits = {1, pick["split"]} if bm == pick["BM"] else {1}
+        s = 2
+        while s <= cap:
+            splits.add(s)
+            s *= 2
+        for split in sorted(splits):
+            try:
+                q = wgmma_plan(e, c, d, f, sms=sms, choice=(bm, split))
+            except ValueError:
+                continue
+            tiles = e * q["mtiles"] * q["ntiles"]
+            taken = live_split(q, tiles)
+            est = ceil_div(tiles * taken, q["blocks"]) * ceil_div(
+                q["nk"], taken) * bm * q["BN"] / (64 * 256)
+            out.append(dict(BM=bm, split=split, est=est))
+    return out
 
 
 def live_tiles(q: dict, sizes) -> int:
@@ -212,11 +268,12 @@ def plan_array(q: dict):
 
 
 @functools.lru_cache(maxsize=1024)
-def _launch_plan(e, c, d, f, dtype, device, x_align, w_align):
-    """The plan of a call on CUDA device ``device`` and its C array, kept
-    per distinct call."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q = plan(e, c, d, f, dtype, sms=sms, x_align=x_align, w_align=w_align)
+def _launch_plan(e, c, d, f, dtype, device, x_align, w_align, choice=None):
+    """The plan of a call on CUDA device ``device`` with ``choice`` (None:
+    the planner's pick) and its C array, kept per distinct call and
+    choice."""
+    q = plan(e, c, d, f, dtype, sms=_build.sm_count(device), x_align=x_align,
+             w_align=w_align, choice=choice)
     return q, plan_array(q)
 
 
@@ -259,12 +316,16 @@ def run_plan(xs: torch.Tensor, w: torch.Tensor, sizes: torch.Tensor,
 
 
 def grouped_moe_gemm(xs: torch.Tensor, w: torch.Tensor,
-                     sizes: torch.Tensor) -> torch.Tensor:
+                     sizes: torch.Tensor, *,
+                     choice: tuple | None = None) -> torch.Tensor:
     """xs [E, C, d], w [E, d, f] of one dtype (bfloat16, float32 or int8),
     sizes [E] int32, all contiguous on one CUDA device.  Returns [E, C, f]
     in ``xs.dtype`` (int32 for int8).
 
-    A wgmma plan that may split d allocates its fp32 partials here and
+    The wgmma route's plan is the tile policy's
+    (:func:`elastic.choose_tiles`: the planner's pick unless the tile cache
+    holds a measured one), or ``choice`` (BM, split) when given.  A wgmma
+    plan that may split d allocates its fp32 partials here and
     launches two kernels, counted as one call."""
     global launches
     if xs.device.type != "cuda" or w.device != xs.device \
@@ -290,9 +351,15 @@ def grouped_moe_gemm(xs: torch.Tensor, w: torch.Tensor,
         return torch.empty((e, c, f), device=xs.device,
                            dtype=torch.int32 if xs.dtype == torch.int8
                            else xs.dtype)
-    q, fields = _launch_plan(e, c, d, f, xs.dtype, xs.get_device(),
-                             _ptr_align(xs.data_ptr()),
-                             _ptr_align(w.data_ptr()))
+    dev = xs.get_device()
+    x_align, w_align = _ptr_align(xs.data_ptr()), _ptr_align(w.data_ptr())
+    if (choice is None and xs.dtype == torch.bfloat16
+            and not _tma_refuses(e, d, f, x_align, w_align)):
+        choice = elastic.choose_tiles("moe_gemm", (e, c, d, f),
+                                      dtype_name="bfloat16",
+                                      sms=_build.sm_count(dev))
+    q, fields = _launch_plan(e, c, d, f, xs.dtype, dev, x_align, w_align,
+                             None if choice is None else tuple(choice))
     out = run_plan(xs, w, sizes, q, fields)
     launches += 1
     return out

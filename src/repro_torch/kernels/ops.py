@@ -52,7 +52,7 @@ def kraken_conv2d_direct(x: torch.Tensor, k: torch.Tensor, *,
     [K_H, K_W, C_i, C_o] HWIO -> NHWC, fp32 accumulation, cast once to
     ``out_dtype`` (default x's dtype).  ``R`` is the paper's row count, the
     output rows of one band (a tile on the card holds whole bands);
-    ``bco`` must be None (the card's c_o tile is the kernel's plan's)."""
+    ``bco`` is the card's c_o tile, 64 or 128 (None: the tile policy's)."""
     if _on_cuda(x):
         return _conv.kraken_conv2d_direct(x, k, stride=stride,
                                           padding=padding, R=R, bco=bco,

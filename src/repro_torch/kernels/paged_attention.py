@@ -13,8 +13,9 @@ share of the slot's live logical pages, streams them through a ring fed by
 TMA (or, where TMA refuses the shapes, by plain loads: the plan's route) and
 keeps the online-softmax state in fp32; a second kernel combines the splits
 in a fixed order.  Nothing reads ``q_pos`` or the table on the host, so a
-call captures in a CUDA graph.  The TPU's ``pages_per_block`` tunable has no
-counterpart.  The wrapper takes CUDA tensors only and launches the kernel or
+call captures in a CUDA graph.  The TPU's ``pages_per_block`` tunable has its
+counterpart in ``splits`` (a split walks at most ``share`` pages), which the
+tile cache may choose (:func:`candidates`).  The wrapper takes CUDA tensors only and launches the kernel or
 raises; the plain version is
 :func:`repro_torch.kernels.ref.paged_decode_attention`.
 """
@@ -27,15 +28,14 @@ import math
 
 import torch
 
-from repro_torch.core.elastic import ceil_div
+from repro_torch.core import elastic
+from repro_torch.core.elastic import SMEM_BUDGET, ceil_div
 from repro_torch.kernels import _build
 
 #: launches of the kernel in this process (one per call, the combine
 #: included); callers may reset it to 0
 launches = 0
 
-#: shared memory one block may use on an H100 (bytes)
-SMEM_MAX = 227 * 1024
 #: the H100's streaming multiprocessors: the planner's default
 SMS = 132
 #: the largest page and head dim the kernel takes (a TMA box side; the
@@ -52,6 +52,9 @@ ROUTES = ("ldg", "tma")
 #: checks)
 PLAN_FIELDS = ("B", "H", "KV", "D", "G", "ps", "MP", "isz", "quant", "splits",
                "share", "pps", "ring", "tma", "blocks", "smem")
+#: the plan field that the tile cache may choose; :func:`plan` derives every
+#: other field from it
+CHOICE = ("splits",)
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ISZ = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
@@ -126,46 +129,84 @@ def route(d: int, ps: int, dtype, *, aligned: bool = True) -> str:
     return "tma" if ok and aligned else "ldg"
 
 
+def _default_splits(b: int, kv: int, mp: int, sms: int) -> int:
+    """The planner's split: enough to reach ``sms`` blocks, at most ``mp``,
+    none once ``b * kv`` fills the card."""
+    base = b * kv
+    return 1 if base >= sms or mp <= 1 else min(mp, max(1, sms // base))
+
+
 def plan(b: int, h: int, kv: int, d: int, ps: int, mp: int,
-         dtype=torch.bfloat16, *, sms: int = SMS,
-         aligned: bool = True) -> dict:
+         dtype=torch.bfloat16, *, sms: int = SMS, aligned: bool = True,
+         choice=None) -> dict:
     """How one call runs on the card: every field of :data:`PLAN_FIELDS`.
 
     ``dtype`` is the pools' (float32, bfloat16 or int8).  Each slot's live
     logical pages are split ``splits`` ways, so that ``B * KV * splits``
     reaches ``sms`` (one block per SM; the walk is latency-bound, not
     byte-bound), never more than ``mp`` ways, and not at all once ``B * KV``
-    fills the card; a split takes at most ``share`` pages.  A step scores
-    ``pps`` pages (32 entries where ``ps`` divides 32); the ring holds
-    ``ring`` pages: two steps, at least four pages, fewer only where shared
-    memory runs out.  ``tma`` is the route (:func:`route`).  Raises
-    ValueError for a call the kernel does not take."""
+    fills the card; a split takes at most ``share`` pages.  ``choice``
+    ``(splits,)`` overrides that count with one of :func:`candidates`.  A
+    step scores ``pps`` pages (32 entries where ``ps`` divides 32); the
+    ring holds ``ring`` pages: two steps, at least four pages, fewer only
+    where shared memory runs out.  ``tma`` is the route (:func:`route`).
+    Raises ValueError for a call the kernel does not take."""
     if dtype not in _DTYPE:
         raise ValueError(f"paged_decode_attention pool dtype {dtype}")
     if (b < 1 or kv < 1 or h < kv or h % kv or not 1 <= d <= MAX_D
             or not 1 <= ps <= MAX_PS or mp < 0):
         raise ValueError(f"paged_decode_attention shape B={b} H={h} KV={kv} "
                          f"D={d} ps={ps} MP={mp}")
-    base = b * kv
-    splits = 1 if base >= sms or mp <= 1 else min(mp, max(1, sms // base))
+    if choice is None:
+        splits = _default_splits(b, kv, mp, sms)
+    else:
+        (splits,) = choice
+        if not 1 <= splits <= max(1, mp):
+            raise ValueError(f"paged_decode_attention MP={mp}: splits = "
+                             f"{splits} is not a candidate plan")
     pps = 32 // ps if ps < 32 else 1
     q = dict(B=b, H=h, KV=kv, D=d, G=h // kv, ps=ps, MP=mp,
              isz=_ISZ[dtype], quant=int(dtype == torch.int8), splits=splits,
              share=ceil_div(mp, splits), pps=pps, ring=0,
              tma=int(route(d, ps, dtype, aligned=aligned) == "tma"),
-             blocks=base * splits, smem=0)
+             blocks=b * kv * splits, smem=0)
     for ring in range(max(4, 2 * pps), pps - 1, -1):
         q["ring"], q["smem"] = ring, smem_bytes({**q, "ring": ring})
-        if q["smem"] <= SMEM_MAX:
+        if q["smem"] <= SMEM_BUDGET:
             break
     else:
         raise ValueError(f"paged_decode_attention: {q['G']} query rows of "
                          f"D={d} and pages of {ps} need {q['smem']} bytes of "
-                         f"shared memory (> {SMEM_MAX})")
+                         f"shared memory (> {SMEM_BUDGET})")
     if q["blocks"] > 2 ** 31 - 1:
         raise ValueError(f"paged_decode_attention: {q['blocks']} blocks "
                          "exceed one grid")
     return q
+
+
+def candidates(b: int, h: int, kv: int, d: int, ps: int, mp: int,
+               dtype=torch.bfloat16, *, sms: int = SMS) -> list[dict]:
+    """The plans a call may run with: ``splits`` of every power of two up
+    to ``mp``, ``mp`` itself and the planner's pick (the TPU's
+    ``pages_per_block`` lattice, ``repro.tuning.search.
+    paged_decode_candidates``), each kept only where it fits
+    :data:`SMEM_BUDGET`; with the planner's estimate ``est``: the pages the
+    busiest SM walks, ``share`` for each wave of ``sms`` blocks, and one
+    more for the combine of a split."""
+    cands = {max(1, mp), _default_splits(b, kv, mp, sms)}
+    s = 1
+    while s <= mp:
+        cands.add(s)
+        s *= 2
+    out = []
+    for splits in sorted(cands):
+        try:
+            q = plan(b, h, kv, d, ps, mp, dtype, sms=sms, choice=(splits,))
+        except ValueError:
+            continue
+        est = ceil_div(q["blocks"], sms) * q["share"] + int(splits > 1)
+        out.append(dict(splits=splits, est=est))
+    return out
 
 
 def describe(q: dict) -> str:
@@ -185,23 +226,28 @@ def shares(q: dict, q_pos: int) -> list[tuple[int, int]]:
 
 
 @functools.lru_cache(maxsize=1024)
-def _launch_plan(b, h, kv, d, ps, mp, kv_dtype, aligned, device):
-    """The plan of a call on CUDA device ``device`` and its fields as the C
-    array the kernel takes, kept per distinct call."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q = plan(b, h, kv, d, ps, mp, kv_dtype, sms=sms, aligned=aligned)
+def _launch_plan(b, h, kv, d, ps, mp, kv_dtype, aligned, device,
+                 choice=None):
+    """The plan of a call on CUDA device ``device`` with ``choice`` (None:
+    the planner's pick) and its fields as the C array the kernel takes,
+    kept per distinct call and choice."""
+    q = plan(b, h, kv, d, ps, mp, kv_dtype, sms=_build.sm_count(device),
+             aligned=aligned, choice=choice)
     return q, (ctypes.c_int * len(PLAN_FIELDS))(*(q[f] for f in PLAN_FIELDS))
 
 
 def paged_decode_attention(q, k_pages, v_pages, *, pos_pages, page_table,
                            q_pos, k_scale=None, v_scale=None,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0,
+                           choice: tuple | None = None) -> torch.Tensor:
     """q: [B, H, D]; k_pages/v_pages: [n_pages, KV, ps, D] in q's dtype, or
     int8 with fp32 scales [n_pages, KV, ps]; pos_pages: [n_pages, ps] int32;
     page_table: [B, MP] int32 (entries < 0 or >= n_pages are dead); q_pos:
     a scalar or [B].  Returns [B, H, D] in q's dtype.
 
-    A plan that splits the slots' pages launches two kernels, counted as one
+    The split is the tile policy's (:func:`elastic.choose_tiles`: the
+    planner's pick unless the tile cache holds a measured one), or
+    ``choice`` ``(splits,)`` when given.  A plan that splits the slots' pages launches two kernels, counted as one
     call: the splits' partial (m, l, acc) into an fp32 scratch tensor
     allocated here, then their fixed-order combine."""
     global launches
@@ -237,7 +283,13 @@ def paged_decode_attention(q, k_pages, v_pages, *, pos_pages, page_table,
         return out
     pools = (k_pages, v_pages) + ((k_scale, v_scale) if quant else ())
     aligned = n_pages > 0 and all(t.data_ptr() % 16 == 0 for t in pools)
-    pl, fields = _launch_plan(b, h, kvh, d, ps, mp, kv_dtype, aligned, dev)
+    if choice is None:
+        choice = elastic.choose_tiles(
+            "paged_decode", (b, h, kvh, d, ps, mp),
+            dtype_name=str(kv_dtype).split(".")[-1],
+            sms=_build.sm_count(dev.index))
+    pl, fields = _launch_plan(b, h, kvh, d, ps, mp, kv_dtype, aligned, dev,
+                              None if choice is None else tuple(choice))
     part = None
     if pl["splits"] > 1:
         part = torch.empty(b * h * pl["splits"] * (d + 2),

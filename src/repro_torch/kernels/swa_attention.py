@@ -29,14 +29,12 @@ import math
 
 import torch
 
-from repro_torch.core.elastic import ceil_div, round_up
+from repro_torch.core.elastic import SMEM_BUDGET, ceil_div, round_up
 from repro_torch.kernels import _build
 
 #: launches of the kernel in this process; callers may reset it to 0
 launches = 0
 
-#: shared memory one block may use on an H100 (bytes)
-SMEM_MAX = 227 * 1024
 #: bfloat16: q rows a block (two warpgroups of 64), keys a kv tile, bytes of
 #: a 64-element swizzled row, ring stages at most, bytes kept for the
 #: barriers and the 1024-byte alignment
@@ -112,7 +110,7 @@ def plan(b: int, h: int, kv: int, s: int, d: int, window: int,
     else:
         db = 1 if d <= 64 else 2 if d <= 128 else 4
         qbytes, stage = db * BQ * ROW, 2 * db * BKV * ROW
-        stages = min(STAGES_MAX, (SMEM_MAX - RESERVED - qbytes) // stage)
+        stages = min(STAGES_MAX, (SMEM_BUDGET - RESERVED - qbytes) // stage)
         q.update(path=PATH_WGMMA, DB=db, stages=stages,
                  qtiles=ceil_div(s, BQ),
                  smem=qbytes + stages * stage + RESERVED)

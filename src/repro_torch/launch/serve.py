@@ -21,6 +21,16 @@ seeded fault plan (with ``--watchdog`` sweeps).  ``--verify-speculate``,
 ``--verify-preempt`` and ``--verify-faults`` replay every submission
 through a fresh engine with ``EngineConfig.verify_reference()`` and check
 token identity (for faults: of every request that completed).
+
+Tile plans: ``--autotune --tile-cache F`` measures, on the card, the
+candidate plans of this server's cells (:func:`warm_tile_cache`: the
+``kraken_gemm`` cells of its mixed and decode steps, every
+``paged_decode_attention`` pool geometry, and for MoE archs the
+``grouped_moe_gemm`` cells) and persists the winners in F before the first
+engine step; a second run prints ``tile-cache: N/N cells hit — fully
+warm``.  ``--tile-cache F`` alone replays them (tile mode ``cached``).  On
+``--device cpu`` no kernel runs, so ``--autotune`` is refused there and
+``--tile-cache`` only loads and reports the file.
 """
 
 from __future__ import annotations
@@ -33,6 +43,53 @@ import numpy as np
 from repro_torch import device as _device
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.launch.engine_args import add_engine_args, engine_config_from_args
+
+
+def warm_tile_cache(cfg, *, slots: int, prompt_lens: list[int],
+                    cache_len: int, autotune: bool, prefill_batch: int = 1,
+                    paged_geoms: list[tuple[int, int, int, int]] | None = None,
+                    page_size: int = 8, log=print, timer=None) -> list[str]:
+    """Warm (or, without ``autotune``, report) the tile cache for this
+    server's cells; returns each cell's status (``hit``, ``tuned`` or
+    ``skipped``).
+
+    The GEMM cells are the prefill cells of every prompt bucket and the
+    batched decode cells (``core.unified.serving_cells``); ``paged_geoms``
+    (``PagedEngine.pool_geoms``) adds ``paged_decode_attention``'s
+    ``splits`` per pool geometry, and an MoE arch ``grouped_moe_gemm``'s
+    ``(BM, split)`` at both token widths in both directions.  Each miss is
+    measured on the card (``timer`` replaces that measurement) and the
+    closing line reads ``tile-cache: N/N cells hit — fully warm`` on a warm
+    cache.  Afterwards the process-wide tile mode is ``cached``: the
+    serving hot path replays the winners and never measures."""
+    from repro_torch import tuning
+    from repro_torch.core.unified import serving_cells
+
+    cells = serving_cells(cfg, slots=slots, prompt_len=max(prompt_lens),
+                          cache_len=cache_len, prefill_batch=prefill_batch,
+                          bucket_lens=sorted(set(prompt_lens)))
+    cache = tuning.get_tile_cache()
+    statuses: list[str] = []
+    if autotune:
+        results = tuning.warm_cells(cells, cache=cache, dtype_name=cfg.dtype,
+                                    log=log, label="gemm cells", timer=timer)
+        statuses += [s for *_, s in results]
+        statuses += tuning.warm_paged_decode(cfg, paged_geoms or [],
+                                             page_size=page_size,
+                                             cache=cache, timer=timer,
+                                             log=log)
+        if getattr(cfg, "num_experts", 0):
+            statuses += tuning.warm_moe_gemm(
+                cfg, [slots, slots * max(prompt_lens)], cache=cache,
+                timer=timer, log=log)
+        log(tuning.summarize(statuses))
+    else:
+        log(f"tile-cache: loaded {len(cache)} entries from "
+            f"{cache.path or '<memory>'} for {len(cells)} serving cells"
+            + (f" + {len(paged_geoms)} paged-decode geoms" if paged_geoms
+               else ""))
+    tuning.set_tile_mode("cached")
+    return statuses
 
 
 def _parse_lens(spec: str | None, default: int) -> list[int]:
@@ -87,6 +144,13 @@ def main(argv=None) -> int:
                         "fault-free engine and assert each request that "
                         "completed under faults is token-identical "
                         "(greedy only)")
+    p.add_argument("--autotune", action="store_true",
+                   help="measure the candidate tile plans of this server's "
+                        "cells on the card and persist the winners before "
+                        "serving")
+    p.add_argument("--tile-cache", default=None, metavar="PATH",
+                   help="tile-plan cache file (also: $KRAKEN_TILE_CACHE); "
+                        "without --autotune, replays it read-only")
     args = p.parse_args(argv)
 
     import torch
@@ -95,11 +159,29 @@ def main(argv=None) -> int:
     from repro_torch.serving import PagedEngine
 
     dev = _device.resolve(args.device)
+    if args.autotune and dev.type != "cuda":
+        p.error(f"--autotune measures the hand-written kernels on the card; "
+                f"on --device {args.device} no kernel runs to measure (the "
+                "CPU runs their plain versions)")
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     model = Model(cfg)
     config = engine_config_from_args(args)
+    if args.tile_cache or args.autotune:
+        from repro_torch import tuning
+        tuning.set_tile_cache(args.tile_cache)
+        # the engine runs two token widths: the mixed step at the chunk
+        # width over every slot, and the decode step at one token a slot
+        chunk = args.chunk or args.cache_len
+        warm_tile_cache(cfg, slots=args.slots, prompt_lens=[chunk],
+                        cache_len=args.cache_len, autotune=args.autotune,
+                        prefill_batch=args.slots,
+                        paged_geoms=PagedEngine.pool_geoms(
+                            model, slots=args.slots,
+                            page_size=args.page_size,
+                            max_len=args.cache_len),
+                        page_size=args.page_size)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen)
     eng = PagedEngine(model, params, config=config)

@@ -204,6 +204,18 @@ class PagedEngine:
     def supports(model: Model) -> bool:
         return stack_is_stateable(model)
 
+    @staticmethod
+    def pool_geoms(model: Model, *, slots: int, page_size: int,
+                   max_len: int) -> list[tuple[int, int, int, int]]:
+        """The distinct ``(slots, logical_len, head_dim, window)`` paged
+        decode geometries an engine with these knobs runs (zamba2's shared
+        pools included): what ``serve --autotune`` tunes
+        ``paged_decode_attention`` for.  Read off the state tree itself,
+        whose construction allocates nothing, so the warm-up cannot drift
+        from what the decode program launches."""
+        return build_state_tree(model, slots=slots, page_size=page_size,
+                                max_len=max_len, device="cpu").paged_geoms()
+
     def __init__(self, model: Model, params, *,
                  config: EngineConfig | None = None):
         config = (config or EngineConfig()).validate()

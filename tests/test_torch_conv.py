@@ -15,8 +15,9 @@
   ``tests/test_kernels.py``; every conv layer of the three networks, per
   group, with the spatial size cut, through both routes against JAX's
   ``ref.conv2d``.
-* The refusals: the kernel's wrapper takes no CPU tensor, and ``bco`` other
-  than None is refused on every device.
+* The refusals: the kernel's wrapper takes no CPU tensor, and a ``bco``
+  that is no c_o tile of the card's kernel (64, 128) is refused on every
+  device.
 
 Tolerances: float32 1e-5 (both sides sum fp32 products, in another order;
 the weights are scaled by 1/sqrt(fan-in), so outputs are O(1)); bfloat16
@@ -242,9 +243,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("fn", [ops.kraken_conv2d_direct,
                                 kc.kraken_conv2d_direct])
 def test_bco_other_than_none_is_refused(fn):
+    """``bco`` is the card's c_o tile: None, 64 or 128, nothing else."""
     x, k = torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 8)
-    with pytest.raises(ValueError, match="Queue 1 item 10"):
-        fn(x, k, bco=128)
+    for bco in (96, 256, 0):
+        with pytest.raises(ValueError, match="output-channel tiles 64 and 128"):
+            fn(x, k, bco=bco)
 
 
 @pytest.mark.parametrize("kw,match", [

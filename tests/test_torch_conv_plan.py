@@ -34,6 +34,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import conv_cases  # noqa: E402
+from repro_torch.core.elastic import SMEM_BUDGET  # noqa: E402
 from repro_torch.kernels import kraken_conv as kc  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
@@ -91,7 +92,7 @@ def test_plan_fits_and_covers(case):
     p = _plan(case)
     _, n, h, w, ci, k, s, pad, co, R = case
     oh, ow = p["OH"], p["OW"]
-    assert p["path"] == 1 and p["smem"] <= kc.SMEM_MAX
+    assert p["path"] == 1 and p["smem"] <= SMEM_BUDGET
     assert p["smem"] >= (p["NB"] * p["band_bytes"] + p["NW"] * p["BN"] * 128
                          + 1024 + 16 * (kc.NB_MAX + kc.NW_MAX))
     assert p["G"] * p["TR"] * p["TC"] <= kc.SLOTS

@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import attention_cases as ac  # noqa: E402
+from repro_torch.core import conv_cases  # noqa: E402
 from repro_torch.core.conv_cases import CONV_NONFINITE  # noqa: E402
 from repro_torch.core.gemm_cases import GEMM_EDGE, GEMM_TOL  # noqa: E402
 from repro_torch.core.moe_cases import (MOE_CASES, MOE_EDGE,  # noqa: E402
@@ -86,10 +87,12 @@ SWA_CASES = [c[:7] for c in ac.SWA_CASES]
 SWA_TOL = {torch.float32: ac.SWA_TOL["float32"],
            torch.bfloat16: ac.SWA_TOL["bfloat16"]}
 SWA_ROW_KEYS = ac.SWA_ROW_KEYS
-# kraken_conv2d_direct: chip_smoke.py's CONV_TOL, (atol, rtol) by output
-# dtype: both sides sum fp32 products and round once, so they differ by the
-# summation order and one output ulp (2 bf16 ulps of rtol cover it)
-CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-5, 8e-3)}
+# kraken_conv2d_direct: repro_torch.core.conv_cases's CONV_TOL, (atol,
+# rtol) by output dtype: both sides sum fp32 products and round once, so
+# they differ by the summation order and one output ulp (2 bf16 ulps of
+# rtol cover it)
+CONV_TOL = {torch.float32: conv_cases.CONV_TOL["float32"],
+            torch.bfloat16: conv_cases.CONV_TOL["bfloat16"]}
 # (name, N, H, W, C_i, K, S, padding, C_o, R): the paper geometries of
 # tests/test_kraken_conv.py at their (K, S) classes and chip_smoke.py's edge
 # cases
@@ -701,3 +704,83 @@ def test_kraken_conv_im2col_route_matches_plain():
         atol, rtol = CONV_TOL[dtype]
         err = (got.float() - want.float()).abs()
         assert (err <= atol + rtol * want.float().abs()).all(), err.max()
+
+
+# the tile tuner's choices on the card: (op kind, the planner's shape)
+TUNE_SHAPES = {
+    "gemm": (4, 4096, 4096),
+    "paged_decode": (4, 32, 4, 128, 16, 32),
+    "moe_gemm": (8, 16, 1024, 2048),
+    "conv_direct": ((1, 14, 14, 512), (3, 3, 512, 512), (1, 1),
+                    ((1, 1), (1, 1)), 7),
+}
+
+
+def _tune_other(search, op_kind, sms):
+    """A candidate of ``op_kind`` at its TUNE_SHAPES shape that is not the
+    planner's pick (``kraken_gemm``'s from the shortlist the tuner times)."""
+    shape = TUNE_SHAPES[op_kind]
+    fields = search._op(op_kind).fields
+    pick = search.model_pick(op_kind, shape, dtype_name="bfloat16", sms=sms)
+    cands = search.candidates_of(op_kind, shape, dtype_name="bfloat16",
+                                 sms=sms)
+    if op_kind == "gemm":
+        cands = search.shortlist(cands, fields, keep=pick)
+    return pick, next(tuple(c[f] for f in fields) for c in cands
+                      if tuple(c[f] for f in fields) != pick)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op_kind", sorted(TUNE_SHAPES))
+def test_tune_non_default_choice_matches_plain(op_kind):
+    """One candidate the planner does not pick, through the tuner's card
+    timer: held against the plain version within the kernel's tolerance
+    (the timer raises otherwise), then timed."""
+    from repro_torch.tuning import search
+    _cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pick, other = _tune_other(search, op_kind, sms)
+    timer = search.card_timer(op_kind, TUNE_SHAPES[op_kind],
+                              dtype_name="bfloat16", reps=1, warmup=1)
+    assert timer(other) > 0 and timer(pick) > 0
+
+
+@pytest.mark.cuda
+def test_tune_replayed_cache_launches_the_cached_choice(tmp_path):
+    """A cache file tuned to a non-default plan, replayed in mode
+    ``cached``: ``kraken_matmul`` launches that choice, within TOL."""
+    from repro_torch import tuning
+    from repro_torch.kernels import kraken_gemm as tkg
+    from repro_torch.kernels import ops, ref
+    from repro_torch.tuning import search
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = TUNE_SHAPES["gemm"]
+    pick, other = _tune_other(search, "gemm", sms)
+    path = str(tmp_path / "plans.json")
+    search.autotune("gemm", shape, dtype_name="bfloat16", sms=sms,
+                    cache=tuning.TileCache(path),
+                    timer=lambda c: 0.5 if c == other else 1.0)
+    seen = []
+    orig = tkg._launch_plan
+
+    def recording(*args):
+        seen.append(args[-1])
+        return orig(*args)
+    tkg._launch_plan = recording
+    tuning.set_tile_cache(path)
+    tuning.set_tile_mode("cached")
+    try:
+        g = torch.Generator(device=dev).manual_seed(0)
+        m, k, n = shape
+        a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        b = (torch.randn((k, n), generator=g, device=dev)
+             / k ** 0.5).to(torch.bfloat16)
+        got = ops.kraken_matmul(a, b)
+    finally:
+        tkg._launch_plan = orig
+        tuning.set_tile_mode(None)
+        tuning.set_tile_cache(tuning.TileCache(path=None))
+    assert seen == [other] and other != pick
+    torch.testing.assert_close(got, ref.matmul(a, b), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])

@@ -7,9 +7,10 @@ against the fastest.
 
 For each shape (yi-6b's ``GEMMS`` at M 4 and 256, gemma3's ``GEMMA_GEMMS``
 but the unembed at M 4096): every BM x BN the kernel is built for and the
-splits of K that leave none empty (at M 4096 only 1 and 2), each forced
-into the plan that ``kernels/kraken_gemm.py::plan`` would build for it,
-checked against an fp32 product and timed by CUDA-graph replay over
+splits of K that leave none empty (at M 4096 only 1 and 2), each a
+candidate of ``kernels/kraken_gemm.py::candidates`` run through the
+wrapper with that ``choice``, checked against an fp32 product and timed
+by CUDA-graph replay over
 rotating weight copies (``chip_smoke.graph_ms``), beside
 ``torch.matmul``.  Prints per shape the planner's pick, its time and how
 much slower it is than the fastest plan; the planner's cost constants are
@@ -19,7 +20,6 @@ meant to keep that small.  Writes every timing to ``--out``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import sys
@@ -28,42 +28,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
-
-
-def forced(kg, m, k, n, bm, bn, split):
-    """The plan of an [m, k] @ [k, n] call with this tile and split, or
-    None when the split would leave a split empty."""
-    from repro_torch.core.elastic import ceil_div
-    q = kg.plan(m, k, n)
-    nk = ceil_div(k, kg.KB)
-    kps = ceil_div(nk, split)
-    if split > 1 and (split - 1) * kps >= nk:
-        return None
-    stage = (bm + bn) * kg.ROW
-    stages = min(kg.STAGES_MAX, (kg.SMEM_MAX - kg.RESERVED) // stage)
-    mt, nt = ceil_div(m, bm), ceil_div(n, bn)
-    q.update(BM=bm, BN=bn, stages=stages, split=split, kps=kps, mtiles=mt,
-             ntiles=nt, tiles=mt * nt * split,
-             smem=stages * stage + kg.RESERVED)
-    return q
-
-
-def launch(torch, kg, a, b, q):
-    lib = kg._library()
-    m, n = q["M"], q["N"]
-    fields = (ctypes.c_int * len(kg.PLAN_FIELDS))(
-        *(q[f] for f in kg.PLAN_FIELDS))
-    out = torch.empty((m, n), dtype=a.dtype, device="cuda")
-    part = (torch.empty(q["split"] * m * n, dtype=torch.float32,
-                        device="cuda") if q["split"] > 1 else None)
-    err = lib.kraken_gemm(a.data_ptr(), b.data_ptr(), None, out.data_ptr(),
-                          None if part is None else part.data_ptr(), fields,
-                          len(kg.PLAN_FIELDS), 0,
-                          torch._C._cuda_getCurrentRawStream(
-                              torch.cuda.current_device()))
-    if err:
-        raise RuntimeError(f"CUDA error {err} for {kg.describe(q)}")
-    return out
 
 
 def main(argv=None) -> int:
@@ -110,16 +74,18 @@ def main(argv=None) -> int:
         for bm in kg.TILE_M:
             for bn in kg.TILE_N:
                 for split in splits:
-                    q = forced(kg, m, k, n, bm, bn, split)
-                    if q is None or (split > 1 and q["mtiles"] * q["ntiles"]
-                                     >= kg.SMS):
+                    choice = (bm, bn, split)
+                    try:     # a candidate: no split left empty, and K
+                        # split only while the tiles leave SMs idle
+                        q = kg.plan(m, k, n, choice=choice)
+                    except ValueError:
                         continue
-                    err = (launch(torch, kg, a, bs[0], q).float()
+                    err = (kg.kraken_gemm(a, bs[0], choice=choice).float()
                            - want).abs().max().item()
                     if not err < 0.1:
                         raise AssertionError(f"{kg.describe(q)}: err {err}")
-                    ms = cs.graph_ms(cycle(lambda b, q=q: launch(
-                        torch, kg, a, b, q)), len(bs))
+                    ms = cs.graph_ms(cycle(lambda b, c=choice: kg.kraken_gemm(
+                        a, b, choice=c)), len(bs))
                     rows.append({"ms": ms, "BM": bm, "BN": bn,
                                  "split": split, "tiles": q["tiles"]})
         rows.sort(key=lambda r: r["ms"])

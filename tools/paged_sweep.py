@@ -41,10 +41,9 @@ def main(argv=None) -> int:
         raise SystemExit("paged_sweep needs an NVIDIA GPU")
     print(cs.card_line(), flush=True)
     h, kvh, d, ps, mp = 32, 4, 128, 16, 32
-    launch_plan = pa._launch_plan
     rows = []
 
-    def point(b, pages, *, sms=None):
+    def point(b, pages, *, choice=None):
         case = ("sweep", b, h, kvh, d, ps, mp, ("bfloat16",), 0,
                 [pages * ps - 1] * b, (), (), False, 0.0)
         x = paged_pool(case, "bfloat16", 0)
@@ -55,23 +54,10 @@ def main(argv=None) -> int:
         k = put(x["k"]).to(torch.bfloat16)[:n]
         v = put(x["v"]).to(torch.bfloat16)[:n]
         kw = dict(pos_pages=put(x["pos"])[:n], page_table=put(x["table"]),
-                  q_pos=put(x["q_pos"]))
-        if sms is not None:
-            def forced(*a, **k_):
-                q_, _ = launch_plan(*a, **k_)
-                pl = pa.plan(q_["B"], q_["H"], q_["KV"], q_["D"], q_["ps"],
-                             q_["MP"], torch.bfloat16, sms=sms)
-                import ctypes
-                return pl, (ctypes.c_int * len(pa.PLAN_FIELDS))(
-                    *(pl[f] for f in pa.PLAN_FIELDS))
-            pa._launch_plan = forced
-        try:
-            fn = lambda: pa.paged_decode_attention(q, k, v, **kw)  # noqa: E731
-            ms = cs.graph_ms(fn, 20)
-            plan = (pa._launch_plan(b, h, kvh, d, ps, mp, torch.bfloat16,
-                                    True, dev)[0])
-        finally:
-            pa._launch_plan = launch_plan
+                  q_pos=put(x["q_pos"]), choice=choice)
+        fn = lambda: pa.paged_decode_attention(q, k, v, **kw)  # noqa: E731
+        ms = cs.graph_ms(fn, 20)
+        plan = pa.plan(b, h, kvh, d, ps, mp, torch.bfloat16, choice=choice)
         per_block = -(-pages // plan["splits"])
         r = {"B": b, "pages_a_slot": pages, "splits": plan["splits"],
              "pages_a_block": per_block, "device_ms": ms,
@@ -82,7 +68,7 @@ def main(argv=None) -> int:
     for pages in (8, 16, 24, 32):
         point(4, pages)
     for pages in (2, 4, 8, 16, 32):
-        point(4, pages, sms=1)
+        point(4, pages, choice=(1,))
     for pages in (1, 2, 4, 8, 16, 32):
         point(64, pages)
     args.out.mkdir(parents=True, exist_ok=True)
