@@ -206,12 +206,35 @@ default ``build/chip_smoke/``):
    decode step; on the dense path seeded audio frames [1, S, 2048] are
    added in the prefill and [1, 1, 2048] at each decode step; its float32
    gate runs 2 layers.
+23. ``train`` -- release every earlier model, then the gradient of
+   ``kraken_matmul`` (``ops.KrakenMatmul``: its forward and both backward
+   products on ``kraken_gemm``) at yi-6b's training cells (M 1024: q/o,
+   k/v, the silu gate, up, down, the unembed), musicgen-large's bias +
+   gelu and rwkv6-3b's relu widths and a ragged M 65 / K 27 / N 123 with
+   every epilogue, in bfloat16 and float32: the output, dA, dB and dbias
+   against autograd through ``ref.matmul`` within ``GEMM_TOL`` at unit
+   scale, a second forward and backward with the same bits, the launches counted; at M 1024
+   in bf16 the two backward products timed event-timed and device-only
+   beside ``torch.matmul`` and the bound, the operand transposes and the
+   z relaunch apart.  Then full-width, full-depth yi-6b (bf16 parameters,
+   fp32 AdamW moments) takes 3 steps of batch 8 x seq 128 from
+   ``SyntheticLM`` through ``launch/steps.make_train_step`` (remat
+   ``"full"``): every loss and grad norm finite, exactly
+   ``train_launches()`` (931) ``kraken_gemm`` launches a step and nothing
+   else, the step time and the peak allocation (which must leave 4 GB
+   free); one more step traced (device time by kernel group, AdamW's
+   kernels apart).  Then one step's gradients at full width and 2 layers,
+   kernels (remat "none" and "full") against plain versions: each leaf
+   within 1e-4 relative L2 in float32 (gated; bf16 reported).  Last, ``python -m repro_torch.launch.train
+   --arch yi-6b --smoke`` on the card: 12 steps with a failure injected at
+   step 8 (restored from step 5), then a second invocation resuming from
+   step 12.
 
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
 swa_kernels, conv_kernels, recurrence, serve, serve_features, e2e,
 profile, tune, dense_serve, dense_e2e, moe_serve, moe_e2e, swa_forward,
 conv_nets, rwkv_serve, rwkv_e2e, zamba_serve, zamba_e2e, vlm_serve,
-vlm_e2e, audio_serve, audio_e2e``.
+vlm_e2e, audio_serve, audio_e2e, train``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -274,6 +297,8 @@ F32_E2E_TOL = 1e-4
 # kraken_conv2d_direct launches per frame: AlexNet's grouped layers run one
 # call per group, ResNet-50's repeated blocks one per repeat
 CONV_FRAME_LAUNCHES = {"alexnet": 8, "vgg16": 13, "resnet50": 53}
+# profiler sessions conv_trace may take to get a whole trace of its frames
+CONV_TRACE_ATTEMPTS = 3
 # CONV_TOL, kraken_conv2d_direct's and the im2col route's tolerance against
 # ref.conv2d, is repro_torch.core.conv_cases's (the tile tuner holds every
 # conv candidate to it too)
@@ -3543,38 +3568,51 @@ def conv_trace(torch, layers: list[dict], direct, batch: int) -> dict:
     to back (20 at batch 1, 4 at batch 32), after one untraced profiler
     session: the profiler's start-up drops the first kernels of a session.
     The traced launches must be every launch of those frames, so that the
-    busy share is read from a whole trace."""
+    busy share is read from a whole trace.  A session can still lose a few
+    records (an H100 run once traced 256 of 260): such a trace is not read,
+    the frames are traced again, at most ``CONV_TRACE_ATTEMPTS`` times in
+    all, and the phase fails if no trace is whole.  The lost counts are
+    kept in ``incomplete_traces``."""
     from torch.profiler import ProfilerActivity, profile
     frames = 20 if batch == 1 else 4
+    expected = frames * CONV_FRAME_LAUNCHES["vgg16"]
 
     def run():
         for _ in range(frames):
             run_frame(layers, direct)
 
-    with profile(activities=[ProfilerActivity.CUDA]):
-        run_frame(layers, direct)
-        torch.cuda.synchronize()
-    out = device_trace(run, f"vgg16 b{batch}, {frames} frames, direct")
-    out["frames"] = frames
-    def traced(kernel):
+    def traced(out, kernel):
         return sum(t["count"] for t in out["top"] if kernel in t["name"])
 
-    out["traced_launches"] = traced("kraken_conv_kernel")
-    out["traced_weight_copies"] = traced("kraken_conv_weights")
-    out["traced_split_sums"] = traced("kraken_conv_reduce")
-    out["expected_launches"] = frames * CONV_FRAME_LAUNCHES["vgg16"]
-    log(f"    traced {out['traced_launches']} of "
-        f"{out['expected_launches']} kraken_conv2d_direct launches "
+    incomplete = []
+    for _ in range(CONV_TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]):
+            run_frame(layers, direct)
+            torch.cuda.synchronize()
+        out = device_trace(run, f"vgg16 b{batch}, {frames} frames, direct")
+        got = traced(out, "kraken_conv_kernel")
+        if got == expected:
+            break
+        incomplete.append(got)
+        log(f"    trace incomplete: {got} of {expected} "
+            "kraken_conv2d_direct launches traced; tracing again")
+    out["frames"] = frames
+    out["traced_launches"] = got
+    out["traced_weight_copies"] = traced(out, "kraken_conv_weights")
+    out["traced_split_sums"] = traced(out, "kraken_conv_reduce")
+    out["expected_launches"] = expected
+    out["incomplete_traces"] = incomplete
+    log(f"    traced {got} of {expected} kraken_conv2d_direct launches "
         f"(kraken_conv_kernel), {out['traced_weight_copies']} "
         f"kraken_conv_weights, {out['traced_split_sums']} "
         f"kraken_conv_reduce; per frame: wall "
         f"{out['wall_s'] / frames * 1e3:.4f} ms, device "
         f"{out['device_s'] / frames * 1e3:.4f} ms")
-    if out["traced_launches"] != out["expected_launches"]:
+    if got != expected:
         raise AssertionError(
-            f"vgg16 b{batch} trace: {out['traced_launches']} "
-            f"kraken_conv2d_direct launches traced, "
-            f"{out['expected_launches']} made")
+            f"vgg16 b{batch} trace: {got} kraken_conv2d_direct launches "
+            f"traced, {expected} made, in each of {CONV_TRACE_ATTEMPTS} "
+            f"sessions ({incomplete})")
     return out
 
 
@@ -3876,6 +3914,389 @@ def frontend_e2e(rec: dict, state: dict, key: str) -> None:
         f"{layers} layers token-identical")
 
 
+# ---------------------------------------------------------------------------
+# phase: train -- the gradient of kraken_matmul and yi-6b train steps
+# ---------------------------------------------------------------------------
+
+# the full-width steps: batch x seq from SyntheticLM, remat "full", one
+# microbatch, TRAIN_STEPS steps through launch/steps.make_train_step
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 3
+# the gradient gate: yi-6b at full width and TRAIN_GATE_LAYERS layers,
+# kernels against plain versions, per-leaf relative L2 in float32
+TRAIN_GATE_LAYERS, TRAIN_GATE_TOL = 2, 1e-4
+# free device memory the full-width steps must leave
+TRAIN_HEADROOM = 4e9
+
+
+def _norm_close(got, want, dt: str):
+    """(max |err| / max |want|, ok): the gradient and the plain one, both
+    divided by the plain one's largest |entry|, within ``GEMM_TOL``."""
+    from repro_torch.core.gemm_cases import GEMM_TOL
+    import torch
+    atol, rtol = GEMM_TOL[dt]
+    scale = want.float().abs().max().clamp_min(1e-30)
+    g, w = got.float() / scale, want.float() / scale
+    err = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool(
+        (err <= atol + rtol * w.abs()).all())
+    return float(err.max()), ok
+
+
+def grad_case(torch, kg, ref, ops, name, m, k, n, act, bias, dtype, *,
+              timed, seed=0):
+    """``ops.kraken_matmul_grad``'s forward and backward on the card at [M,
+    K] @ [K, N] against autograd through ``ref.matmul`` on the same inputs:
+    the output Y, dA, dB and dbias each within ``GEMM_TOL`` at unit scale;
+    a second forward and backward must give the same bits, and the launches are counted (one
+    forward, two products, one recomputed z when activated).  When
+    ``timed`` the backward's two products are timed event-timed and
+    device-only beside ``torch.matmul`` on the same operands and the bound,
+    and the operand transposes (and the z relaunch) apart."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = str(dtype).split(".")[-1]
+    a = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    b = (torch.randn((k, n), generator=g, device="cuda")
+         / math.sqrt(k)).to(dtype)
+    c = (torch.randn((n,), generator=g, device="cuda").to(dtype)
+         if bias else None)
+    dy = torch.randn((m, n), generator=g, device="cuda").to(dtype)
+    leaves = [t for t in (a, b, c) if t is not None]
+
+    def grads(fn):
+        xs = [t.detach().clone().requires_grad_() for t in leaves]
+        out = fn(*xs)
+        return out.detach(), torch.autograd.grad(out, xs, dy)
+
+    def kernel(*xs):
+        return ops.kraken_matmul_grad(xs[0], xs[1],
+                                      bias=xs[2] if bias else None,
+                                      activation=act)
+
+    def plain(*xs):
+        return ref.matmul(xs[0], xs[1], bias=xs[2] if bias else None,
+                          activation=act)
+
+    before = kg.launches
+    out, got = grads(kernel)
+    torch.cuda.synchronize()
+    launches = kg.launches - before
+    out2, again = grads(kernel)
+    want_out, want = grads(plain)
+    same = torch.equal(out, out2) and all(
+        torch.equal(x, y) for x, y in zip(got, again))
+    got, want = (out, *got), (want_out, *want)
+    errs = [_norm_close(x, y, dt) for x, y in zip(got, want)]
+    row = {"name": name, "m": m, "k": k, "n": n, "act": act, "bias": bias,
+           "dtype": dt, "launches": launches,
+           "launches_ok": launches == 3 + (act is not None),
+           "max_abs_err": max(float((x.float() - y.float()).abs().max())
+                              for x, y in zip(got, want)),
+           "rel_err": {lab: e for lab, (e, _) in
+                       zip(("Y", "dA", "dB", "dbias"), errs)},
+           "same_bits": same,
+           "ok": all(ok for _, ok in errs) and same
+           and launches == 3 + (act is not None)}
+    if timed:
+        z = ref.matmul(a, b, bias=c)
+        gp = (dy.float() * (ops.activation_grad(act, z) if act else 1.0)
+              ).to(dtype).contiguous()
+        bt, at = b.t().contiguous(), a.t().contiguous()
+        isz = a.element_size()
+        for lab, x, y in (("dA", gp, bt), ("dB", at, gp)):
+            mm, kk, nn = x.shape[0], x.shape[1], y.shape[1]
+            row[f"{lab}_ms"] = time_ms(lambda: kg.kraken_gemm(x, y), 10)
+            row[f"{lab}_device_ms"] = graph_ms(lambda: kg.kraken_gemm(x, y),
+                                               4)
+            row[f"{lab}_matmul_ms"] = time_ms(lambda: torch.matmul(x, y), 10)
+            row[f"{lab}_device_matmul_ms"] = graph_ms(
+                lambda: torch.matmul(x, y), 4)
+            row[f"{lab}_bound_ms"], row[f"{lab}_bound_by"] = bound_ms(
+                (mm * kk + kk * nn + mm * nn) * isz, 2.0 * mm * nn * kk,
+                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+            row[f"{lab}_plan"] = kg.describe(kg.plan(
+                mm, kk, nn, dtype=dtype, a_align=kg.alignment(x),
+                b_align=kg.alignment(y)))
+        row["bT_ms"] = time_ms(lambda: b.t().contiguous(), 10)
+        row["aT_ms"] = time_ms(lambda: a.t().contiguous(), 10)
+        row["z_ms"] = (time_ms(lambda: kg.kraken_gemm(a, b, bias=c), 10)
+                       if act else 0.0)
+    return row
+
+
+def grad_line(r: dict) -> str:
+    out = (f"  {r['name']}: M={r['m']} K={r['k']} N={r['n']} {r['dtype']} "
+           f"act={r['act']} bias={r['bias']} launches={r['launches']} "
+           f"err/max Y {r['rel_err']['Y']:.2e} dA {r['rel_err']['dA']:.2e} "
+           f"dB {r['rel_err']['dB']:.2e}"
+           + (f" dbias {r['rel_err']['dbias']:.2e}" if r["bias"] else "")
+           + ("" if r["same_bits"] else " BITS DIFFER")
+           + ("" if r["ok"] else " FAIL"))
+    if "dA_ms" in r:
+        for lab in ("dA", "dB"):
+            out += (f"\n    {lab} [{r[lab + '_plan']}] ms={r[lab + '_ms']:.4f}"
+                    f" device={r[lab + '_device_ms']:.4f} matmul="
+                    f"{r[lab + '_matmul_ms']:.4f} (device "
+                    f"{r[lab + '_device_matmul_ms']:.4f}) bound="
+                    f"{r[lab + '_bound_ms']:.4f} ({r[lab + '_bound_by']})")
+        out += (f"\n    transposes: b.T {r['bT_ms']:.4f} a.T {r['aT_ms']:.4f}"
+                f" ms; z relaunch {r['z_ms']:.4f} ms")
+    return out
+
+
+def train_step_sums(rows: list) -> dict:
+    """The backward's products summed over one yi-6b train step (each
+    ``TRAIN_GEMMS`` cell times its forward calls a step): ms, device ms,
+    ``torch.matmul`` ms, bound; the transposes and z relaunches apart."""
+    from repro_torch.core.gemm_cases import TRAIN_GEMMS
+    calls = {name: c for name, *_, c in TRAIN_GEMMS}
+    by = {r["name"]: r for r in rows if r["name"] in calls}
+    out = {}
+    for key in ("ms", "device_ms", "matmul_ms", "device_matmul_ms",
+                "bound_ms"):
+        out[key] = sum(calls[nm] * (by[nm][f"dA_{key}"] + by[nm][f"dB_{key}"])
+                       for nm in calls)
+    out["transposes_ms"] = sum(calls[nm] * (by[nm]["bT_ms"] + by[nm]["aT_ms"])
+                               for nm in calls)
+    out["z_ms"] = sum(calls[nm] * by[nm]["z_ms"] for nm in calls)
+    return out
+
+
+def _param_grads(model, params, batch, remat="none"):
+    """(loss, [grad per leaf]) of ``Model.loss``."""
+    import torch
+    from repro_torch import tree as T
+    leaves = T.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss(params, batch, remat=remat)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), grads
+
+
+def _train_batch(torch, cfg, step: int) -> dict:
+    from repro_torch.data.pipeline import SyntheticLM
+    pipe = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    return {k: torch.as_tensor(v, device="cuda")
+            for k, v in pipe.batch_at(step).items()}
+
+
+def gradient_gate(torch) -> dict:
+    """One step's gradients at full width and ``TRAIN_GATE_LAYERS``
+    layers, with the kernels (remat ``"none"`` and ``"full"``, the train
+    step's, whose checkpoint recomputes each period through the kernel)
+    and with the plain versions, on the same parameters and batch: each
+    leaf's relative L2 within ``TRAIN_GATE_TOL`` in float32 (gated) and in
+    bf16 (reported)."""
+    import gc
+    from repro_torch import tree as T
+    out = {}
+    base = _full_width("yi-6b", dtype="float32", layers=TRAIN_GATE_LAYERS)
+    params32 = base.init(torch.Generator(device="cuda").manual_seed(5))
+    batch = _train_batch(torch, base.cfg, 0)
+    for dt in ("float32", "bfloat16"):
+        params = T.map_leaves(lambda p: p.detach().to(getattr(torch, dt)),
+                              params32)
+        res = {}
+        for label, kernels, remat in (
+                ("plain", _plain_kernels(), "none"),
+                ("none", None, "none"), ("full", None, "full")):
+            model = _full_width("yi-6b", kernels, dt, TRAIN_GATE_LAYERS)
+            loss, grads = _param_grads(model, params, batch, remat)
+            res[label] = (float(loss), [g.float() for g in grads])
+            del grads
+        out[dt] = {"loss_plain": res["plain"][0]}
+        for remat in ("none", "full"):
+            worst, where = 0.0, ""
+            for (path, _), g, w in zip(T.leaves_with_path(params),
+                                       res[remat][1], res["plain"][1]):
+                rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+                if rel > worst:
+                    worst, where = rel, path
+            out[dt][remat] = {"loss_kernels": res[remat][0],
+                              "worst_rel_l2": worst, "worst_leaf": where}
+            log(f"  gradient gate {dt}, {TRAIN_GATE_LAYERS} layers, remat "
+                f"{remat}: loss {res[remat][0]:.6f} / plain "
+                f"{res['plain'][0]:.6f}, worst leaf {where} relative L2 "
+                f"{worst:.3e}" + (f" (gate {TRAIN_GATE_TOL})"
+                                  if dt == "float32" else " (reported)"))
+        del res, params
+        gc.collect()
+    bad = {remat: out["float32"][remat] for remat in ("none", "full")
+           if out["float32"][remat]["worst_rel_l2"] > TRAIN_GATE_TOL}
+    if bad:
+        raise AssertionError(f"train: float32 gradients, kernels vs plain, "
+                             f"{bad}")
+    del params32
+    return out
+
+
+def train_cli(out_dir: Path) -> dict:
+    """The launcher on the card, as ``tests/test_system.py`` drives the
+    reference's: 12 smoke steps with a failure injected at step 8, then a
+    second invocation resuming from the last checkpoint."""
+    import os
+    import shutil
+    ck = out_dir / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "yi-6b", "--smoke", "--batch", "4", "--seq", "32", "--ckpt-dir",
+            str(ck), "--ckpt-every", "5", "--log-every", "5"]
+    runs = {}
+    for label, extra, want in (
+            ("restart", ["--steps", "12", "--inject-failure-at", "8"],
+             ["injected failure", "[restore] resumed from step 5",
+              "done: 12 steps", "(1 restarts"]),
+            ("resume", ["--steps", "15"],
+             ["[restore] resumed from step 12", "done: 15 steps",
+              "(0 restarts"])):
+        t0 = time.perf_counter()
+        res = subprocess.run(base + extra, capture_output=True, text=True,
+                             env=env, timeout=300)
+        secs = time.perf_counter() - t0
+        for ln in res.stdout.splitlines():
+            log(f"  train cli {label}: {ln}")
+        missing = [w for w in want if w not in res.stdout]
+        if res.returncode or missing:
+            raise AssertionError(f"train cli {label}: rc {res.returncode}, "
+                                 f"missing {missing}: {res.stderr[-2000:]}")
+        runs[label] = {"seconds": secs, "stdout": res.stdout}
+    shutil.rmtree(ck, ignore_errors=True)
+    return runs
+
+
+def phase_train(rec: dict, state: dict) -> None:
+    """The gradient of ``kraken_matmul`` at yi-6b's training cells (and
+    the other epilogues, and a ragged shape), full-width yi-6b train steps,
+    the float32 gradient gate and the training launcher."""
+    import gc
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core.gemm_cases import (TRAIN_EDGE, TRAIN_GEMMS,
+                                             TRAIN_M, train_launches)
+    from repro_torch.kernels import kraken_gemm as kg
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as S
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    state.clear()                       # every earlier phase's model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the full-width step holds 72.7 GB of state on an 80 GB card: its
+    # per-layer gradients and their stacks must not strand reserved
+    # blocks (launch/train.py asks the same of a fresh process)
+    set_alloc = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                        torch.cuda.memory._set_allocator_settings)
+    set_alloc("expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {}
+
+    # 1. the Function at the training cells, bf16 (timed) and float32
+    rows = []
+    cases = ([(name, TRAIN_M, k, n, act, bias)
+              for name, k, n, act, bias, _ in TRAIN_GEMMS]
+             + list(TRAIN_EDGE))
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, m, k, n, act, bias) in enumerate(cases):
+            r = grad_case(torch, kg, ref, ops, name, m, k, n, act, bias,
+                          dtype, timed=dtype == torch.bfloat16
+                          and m == TRAIN_M, seed=i)
+            log(grad_line(r))
+            rows.append(r)
+            gc.collect()
+    res["gemm_grads"] = rows
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            "train: kraken_matmul's gradient fails "
+            + "; ".join(f"{r['name']} {r['dtype']} launches {r['launches']} "
+                        f"{r['rel_err']} same_bits={r['same_bits']}"
+                        for r in bad))
+    sums = train_step_sums([r for r in rows if r["dtype"] == "bfloat16"])
+    res["backward_per_step"] = sums
+    log(f"  backward products per yi-6b step (bf16, 450 launches): "
+        f"{sums['ms']:.2f} ms event-timed, {sums['device_ms']:.2f} device; "
+        f"torch.matmul {sums['matmul_ms']:.2f} / "
+        f"{sums['device_matmul_ms']:.2f}; bound {sums['bound_ms']:.2f}; "
+        f"transposes {sums['transposes_ms']:.2f}; z relaunches "
+        f"{sums['z_ms']:.2f}")
+
+    # 2. full-width yi-6b steps through the launcher's train step
+    model = _yi6b()
+    cfg = model.cfg
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=20, total=100))
+    step_fn = S.make_train_step(model, opt, num_microbatches=1,
+                                remat="full")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ostate = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    want = train_launches(cfg.num_layers, "full")
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = _train_batch(torch, cfg, i)
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        _zero_counts()
+        t0 = time.perf_counter()
+        params, ostate, m = step_fn(params, ostate, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        # the caching allocator's retries: each frees its cache and syncs
+        retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                                0) - retries
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        steps.append({"loss": loss, "ce": float(m["ce"]), "grad_norm": gn,
+                      "seconds": dt, "launches": counts,
+                      "alloc_retries": retries})
+        log(f"  yi-6b train step {i}: loss {loss:.4f} gnorm {gn:.3f} "
+            f"{dt * 1e3:.1f} ms, kraken_gemm {counts['kraken_gemm']}, "
+            f"{retries} allocator retries")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"train: step {i} loss {loss} gnorm {gn}")
+        if counts["kraken_gemm"] != want or any(
+                v for k, v in counts.items() if k != "kraken_gemm"):
+            raise AssertionError(f"train: step {i} launches {counts}, "
+                                 f"want {want} kraken_gemm only")
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    # one more step traced: device time by kernel group, the update's
+    # kernels (launched inside its "adamw" range) apart
+    res["trace"] = device_trace(
+        lambda: step_fn(params, ostate, _train_batch(torch, cfg,
+                                                     TRAIN_STEPS)),
+        "yi-6b train step", ranges=("adamw",))
+    res["steps"] = steps
+    res["full_width"] = {
+        "params": sum(p.numel() for p in T.leaves(params)),
+        "layers": cfg.num_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "init_s": init_s, "peak_bytes": peak, "total_bytes": total,
+        "peak_reserved_bytes": reserved,
+        "launches_per_step": want,
+        "warm_step_s": min(s["seconds"] for s in steps[1:])}
+    log(f"  yi-6b full width ({res['full_width']['params'] / 1e9:.2f} B "
+        f"params, {cfg.num_layers} layers, batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, remat full): warm step "
+        f"{res['full_width']['warm_step_s'] * 1e3:.1f} ms, peak "
+        f"{peak / 1e9:.2f} GB of {total / 1e9:.2f} ({reserved / 1e9:.2f} "
+        f"reserved), {want} kraken_gemm a step")
+    if total - peak < TRAIN_HEADROOM:
+        raise AssertionError(f"train: peak {peak / 1e9:.2f} GB leaves less "
+                             f"than {TRAIN_HEADROOM / 1e9:.0f} GB free")
+    del params, ostate, m, step_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the gradient gate, 4. the launcher
+    res["gate"] = gradient_gate(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cli"] = train_cli(ROOT / "build")
+    rec["train"] = res
+
+
 def conv_entry(rec: dict, by_path) -> dict:
     """The kernels line's ``kraken_conv2d_direct`` entry: one VGG-16 frame
     at batch 1 in bf16 as ``conv_nets`` timed it (its 13 layers back to
@@ -3933,10 +4354,16 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
          "decode_steps_by_arch": {
              k: v for k, v in rec.get("gemm_steps", {}).items()
              if k.endswith("decode")},
+         "train_step_backward": rec.get("train", {}).get(
+             "backward_per_step"),
          "shape": "one yi-6b decode step, bf16, M=4: 32 x (q,k,v,o,gate,up,"
                   "down) + unembed; decode_steps_by_arch: rwkv6-3b's 289, "
                   "zamba2-1.2b's 119, llama-3.2-vision-11b's 265 and "
-                  "musicgen-large's 289 GEMMs of one decode step"},
+                  "musicgen-large's 289 GEMMs of one decode step; "
+                  "train_step_backward: the dA and dB products of one "
+                  "yi-6b train step (bf16, M 1024: 225 calls x 2), "
+                  "library = torch.matmul on the same contiguous "
+                  "operands, transposes and z relaunches apart"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:234",
@@ -3998,7 +4425,10 @@ def kernels_line(rec: dict) -> dict:
                 **{f"{key} conv direct": r["launches"].get(name)
                    for key, r in rec.get("conv_nets", {}).items()},
                 **{f"{key} conv im2col": r["im2col_launches"].get(name)
-                   for key, r in rec.get("conv_nets", {}).items()}}
+                   for key, r in rec.get("conv_nets", {}).items()},
+                "yi-6b train step": next(iter(
+                    rec.get("train", {}).get("steps", [])), {}).get(
+                    "launches", {}).get(name)}
 
     entries = []
     if "gemm" in rec:
@@ -4102,7 +4532,9 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           **{f"{key}_{what}": functools.partial(fn, key=key)
              for key in FRONTEND
              for what, fn in (("serve", frontend_serve),
-                              ("e2e", frontend_e2e))}}
+                              ("e2e", frontend_e2e))},
+          # last: it releases every earlier phase's model
+          "train": phase_train}
 
 
 def main(argv=None) -> int:

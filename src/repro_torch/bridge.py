@@ -1,4 +1,4 @@
-"""Parameters from a numpy tree with ``repro``'s layout.
+"""Parameters (and AdamW state) from a numpy tree with ``repro``'s layout.
 
 ``params_from_numpy(jax.tree.map(np.asarray, repro.Model(cfg).init(key)))``
 gives the port's parameters for the same model.  Both packages keep dense
@@ -39,3 +39,15 @@ def params_from_numpy(tree, *, device=None, dtype: torch.dtype | None = None):
         return _to_tensor(node, dev, dtype)
 
     return walk(tree)
+
+
+def adamw_state_from_numpy(state, *, device=None):
+    """JAX's ``AdamWState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) as the port's :class:`~repro_torch.optim.adamw.AdamWState`
+    on ``device`` (default ``cuda``): the int32 step and the fp32 moments,
+    copied."""
+    from repro_torch.optim.adamw import AdamWState
+    dev = _device.resolve(device)
+    return AdamWState(step=_to_tensor(state.step, dev, None),
+                      m=params_from_numpy(state.m, device=dev),
+                      v=params_from_numpy(state.v, device=dev))

@@ -126,3 +126,31 @@ GEMM_EDGE = [
 # (M, K, N) run with every activation, with and without bias: N 123 is
 # refused by TMA (B filled), 136 and 72 are not
 RAGGED = [(37, 200, 123), (5, 136, 72)]
+
+# training (``ops.KrakenMatmul``): yi-6b at batch 8 x seq 128, so every
+# forward product has M = TRAIN_M rows and the backward's dB = a.T @ dY'
+# sums over them.  (name, K, N, activation, bias, forward calls per step):
+# 32 x (q, k, v, o, gate, up, down) + the unembed = 225; each has a dA and
+# a dB product, and each activated one relaunches to recompute its z
+TRAIN_M = 1024
+TRAIN_GEMMS = [("wq|wo", 4096, 4096, None, False, 2 * YI_LAYERS),
+               ("wk|wv", 4096, 512, None, False, 2 * YI_LAYERS),
+               ("gate", 4096, 11008, "silu", False, YI_LAYERS),
+               ("up", 4096, 11008, None, False, YI_LAYERS),
+               ("down", 11008, 4096, None, False, YI_LAYERS),
+               ("unembed", 4096, 64000, None, False, 1)]
+# the other epilogues at their archs' widths, and a ragged shape whose
+# transposed operands TMA refuses: (name, M, K, N, activation, bias)
+TRAIN_EDGE = [("musicgen wi: bias + gelu", TRAIN_M, 2048, 8192, "gelu", True),
+              ("rwkv6 cmix k: relu", TRAIN_M, 2560, 8960, "relu", False),
+              *((f"ragged, {act or 'no act'}", 65, 27, 123, act, True)
+                for act in (None, "relu", "silu", "gelu"))]
+
+
+def train_launches(layers: int = YI_LAYERS, remat: str = "full") -> int:
+    """``kraken_gemm`` launches of one yi-6b train step: the forward's 7 a
+    layer + the unembed, under ``remat="full"`` every layer's again (the
+    unembed is outside the checkpointed periods), two backward products a
+    call and one recomputed z a silu gate."""
+    fwd = 7 * layers + 1
+    return fwd + (fwd - 1 if remat == "full" else 0) + 2 * fwd + layers

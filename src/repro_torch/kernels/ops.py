@@ -9,6 +9,7 @@ fallback from one to the other, and no TPU tile plan.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import kraken_conv as _conv
@@ -40,6 +41,107 @@ def kraken_matmul(a: torch.Tensor, b: torch.Tensor, *,
         return _gemm.kraken_gemm(a, b, bias=bias, activation=activation)
     return ref.matmul(a, b, bias=bias, activation=activation,
                       out_dtype=out_dtype)
+
+
+def activation_grad(activation: str, z: torch.Tensor) -> torch.Tensor:
+    """d act / dz in fp32 at the pre-activation ``z``, as JAX
+    differentiates ``jax.nn.relu`` (0 at 0), ``jax.nn.silu`` and the tanh
+    ``jax.nn.gelu`` that ``ref.matmul`` computes."""
+    z = z.to(torch.float32)
+    if activation == "relu":
+        return (z > 0).to(torch.float32)
+    if activation == "silu":
+        s = torch.reciprocal(1.0 + torch.exp(-z))
+        return s * (1.0 + z * (1.0 - s))
+    if activation == "gelu":
+        c, k = 0.7978845608028654, 0.044715
+        t = torch.tanh(c * (z + k * z ** 3))
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * c * (
+            1.0 + 3.0 * k * z * z)
+    raise ValueError(activation)
+
+
+# the ``matmul`` callables :func:`dense_gemm` has been handed, by index: a
+# custom op's arguments are tensors and scalars, so it names its callable
+_MATMULS: list = []
+
+
+def _route(matmul) -> int:
+    for i, f in enumerate(_MATMULS):
+        if f is matmul:
+            return i
+    _MATMULS.append(matmul)
+    return len(_MATMULS) - 1
+
+
+@torch.library.custom_op("repro_torch::dense_gemm", mutates_args=())
+def dense_gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None,
+               activation: str | None, route: int) -> torch.Tensor:
+    """``_MATMULS[route](a, b, bias=bias, activation=activation)`` as one
+    dispatcher op: the forward of :class:`KrakenMatmul`, where a
+    selective-checkpoint policy can see it (``remat="dots"`` saves its
+    outputs, see :func:`save_dots`)."""
+    return _MATMULS[route](a, b, bias=bias, activation=activation)
+
+
+def save_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``: the dense
+    GEMMs' outputs are saved, everything else is recomputed (JAX's
+    ``checkpoint_dots_with_no_batch_dims`` on the dense layers; the
+    attention and MoE einsums are recomputed)."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.repro_torch.dense_gemm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+class KrakenMatmul(torch.autograd.Function):
+    """:func:`kraken_matmul` with a gradient whose two products are
+    ``kraken_matmul`` too: ``dA = dY' @ b.T`` and ``dB = a.T @ dY'``, with
+    ``dY' = dY * act'(z)`` (fp32, cast to ``a.dtype``) and the bias
+    gradient the fp32 column sum of ``dY'``.
+
+    ``matmul`` is the ``Kernels`` entry the caller holds: the hand-written
+    kernel on CUDA tensors, the plain version on CPU tensors.  The forward
+    is the serving path's one fused launch (through :func:`dense_gemm`);
+    the backward of a call with an activation launches once more to
+    recompute the pre-activation ``z = a @ b + bias`` (rounded to
+    ``a.dtype``, as the kernel writes it).  The kernel reads contiguous
+    operands only, so ``b.T``, ``a.T`` and ``dY'`` are made contiguous
+    before their launches."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias, activation, matmul):
+        out = dense_gemm(a, b, bias, activation, _route(matmul))
+        ctx.save_for_backward(a, b, bias)
+        ctx.activation, ctx.matmul = activation, matmul
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, bias = ctx.saved_tensors
+        mm = ctx.matmul
+        dyp = dy.to(torch.float32)
+        if ctx.activation is not None:
+            z = mm(a, b, bias=bias)
+            dyp = dyp * activation_grad(ctx.activation, z)
+        g = dyp.to(a.dtype).contiguous()
+        da = db = dbias = None
+        if ctx.needs_input_grad[0]:
+            da = mm(g, b.t().contiguous())
+        if ctx.needs_input_grad[1]:
+            db = mm(a.t().contiguous(), g).to(b.dtype)
+        if bias is not None and ctx.needs_input_grad[2]:
+            dbias = dyp.sum(dim=0).to(bias.dtype).reshape(bias.shape)
+        return da, db, dbias, None, None
+
+
+def kraken_matmul_grad(a: torch.Tensor, b: torch.Tensor, *,
+                       bias: torch.Tensor | None = None,
+                       activation: str | None = None,
+                       matmul=kraken_matmul) -> torch.Tensor:
+    """:func:`kraken_matmul` ``a [M, K] @ b [K, N]`` (+bias, +activation)
+    recorded for autograd through :class:`KrakenMatmul`."""
+    return KrakenMatmul.apply(a, b, bias, activation, matmul)
 
 
 def kraken_conv2d_direct(x: torch.Tensor, k: torch.Tensor, *,
@@ -116,8 +218,16 @@ def kraken_decode_attention(q, k, v, *, kv_pos, q_pos, k_scale=None,
 def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
     """Causal sliding-window attention over a whole sequence: q
     [B, H, S, D], k/v [B, KV, S, D]; token ``i`` attends to ``j`` iff
-    ``i - window < j <= i``."""
+    ``i - window < j <= i``.  The kernel has no backward: under grad on
+    the card it raises (ROADMAP Queue 1 item 15); on the CPU the plain
+    version is differentiable."""
     if _on_cuda(q):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "swa_attention has no gradient on the card yet (ROADMAP "
+                "Queue 1 item 15: training the windowed archs); it never "
+                "falls back to another attention")
         return _swa.swa_attention(q, k, v, window=window)
     return ref.sliding_window_attention(q, k, v, window=window)
 

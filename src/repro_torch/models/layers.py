@@ -153,14 +153,29 @@ def sinusoidal_pos_emb(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 # The uniform-GEMM dense layer
 # ---------------------------------------------------------------------------
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors`` (None entries
+    ignored)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None,
           activation: str | None = None,
           kernels: Kernels = DEFAULT_KERNELS) -> torch.Tensor:
     """x: [..., K] @ w: [K, N] through ``kraken_gemm``, bias and activation
-    fused in its epilogue."""
+    fused in its epilogue.  When autograd records (grad enabled and an
+    operand requiring it) the call goes through
+    :func:`~repro_torch.kernels.ops.kraken_matmul_grad`, whose backward's
+    two products are ``kernels.matmul`` too; otherwise it is the direct
+    call the serving paths make."""
     lead = x.shape[:-1]
-    out = kernels.matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
-                         bias=bias, activation=activation)
+    a = x.reshape(-1, x.shape[-1]).contiguous()
+    if not needs_grad(x, w, bias):
+        out = kernels.matmul(a, w, bias=bias, activation=activation)
+        return out.reshape(*lead, w.shape[-1])
+    out = ops.kraken_matmul_grad(a, w, bias=bias, activation=activation,
+                                 matmul=kernels.matmul)
     return out.reshape(*lead, w.shape[-1])
 
 

@@ -67,6 +67,12 @@ class Model:
             tree["unembed"] = Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
         return tree
 
+    def param_specs(self, fn=None):
+        """The parameter tree with each ``Spec`` mapped by ``fn`` (for
+        example to a ``meta`` tensor, a checkpoint's restore target); the
+        Specs themselves without it."""
+        return _map_specs(self._spec_tree(), fn or (lambda s: s))
+
     def param_numels(self) -> list[tuple[str, int]]:
         """(path, element count) for every parameter; allocates nothing."""
         out = []
@@ -111,7 +117,12 @@ class Model:
         """``embed.T`` as the contiguous [d_model, vocab] operand of the
         unembed GEMM, transposed once and reused while ``embed`` is the same
         tensor at the same version (an in-place update transposes it
-        again).  At gemma3's width the copy is 2 GB in bf16."""
+        again).  At gemma3's width the copy is 2 GB in bf16.  While
+        autograd records through ``embed`` the transpose is made in the
+        graph on every call and never cached, so the unembed's gradient
+        reaches ``embed``."""
+        if L.needs_grad(embed):
+            return embed.T.contiguous()
         if self._tied is not None:
             ref, version, w = self._tied
             if ref() is embed and version == embed._version:
@@ -126,9 +137,8 @@ class Model:
         return L.dense(x, w, kernels=self.kernels)
 
     # ------------------------------------------------------------------ forward
-    @torch.no_grad()
     def forward(self, params: Params, batch: dict, *, mode: str = "train",
-                caches=None):
+                caches=None, remat: str = "none"):
         """Returns (logits [B, S, V], caches, aux); caches are updated in
         place.  ``aux`` is the MoE auxiliary loss summed over the layers
         (0 without MoE layers).  ``mode`` ('train', 'prefill', 'decode' or
@@ -136,6 +146,8 @@ class Model:
         their chunked mix otherwise.  ``batch["frontend"]`` ([B, P,
         d_model], optional) holds the precomputed image patches the cross
         layers attend over, or the audio frames added to the embeddings.
+        Differentiable when the parameters require grad; ``remat`` ('none',
+        'full' or 'dots', see ``LayerStack.apply``) applies then.
         """
         tokens = batch["tokens"]
         positions = batch.get("positions")
@@ -148,20 +160,18 @@ class Model:
                   shared_params=params["stack"].get("shared"),
                   lengths=batch.get("lengths"), kernels=self.kernels)
         x, caches, aux = self.stack.apply(params["stack"], x, ctx,
-                                          caches=caches)
+                                          caches=caches, remat=remat)
         x = L.apply_norm(self.cfg, params, "final_norm", x)
         logits = self._unembed(params, x)
         return logits, caches, aux
 
     # ------------------------------------------------------------------ train
-    @torch.no_grad()
-    def loss(self, params: Params, batch: dict):
+    def loss(self, params: Params, batch: dict, *, remat: str = "none"):
         """Next-token cross-entropy of ``forward`` against
         ``batch["labels"]`` [B, S], averaged over ``batch["mask"]`` (default
         every position), plus ``0.01 * aux``.  Returns (total, {"ce",
-        "aux"}).  The value only: the gradient comes with training (ROADMAP
-        Queue 1 item 12)."""
-        logits, _, aux = self.forward(params, batch)
+        "aux"}), differentiable in the parameters that require grad."""
+        logits, _, aux = self.forward(params, batch, remat=remat)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         labels = batch["labels"].long()
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
@@ -184,6 +194,7 @@ class Model:
             batch, cache_len, getattr(torch, self.cfg.dtype),
             device=_device.resolve(device))
 
+    @torch.no_grad()
     def prefill(self, params: Params, batch: dict, caches):
         """Run a prompt (``batch["tokens"]`` [B, S], shared ``positions``
         [S], an optional ``frontend``) and store its K/V in the dense
@@ -193,6 +204,7 @@ class Model:
                                          caches=caches)
         return logits[:, -1:], caches
 
+    @torch.no_grad()
     def decode_step(self, params: Params, caches, tokens: torch.Tensor,
                     pos: torch.Tensor, frontend: torch.Tensor | None = None,
                     lengths: torch.Tensor | None = None):
@@ -217,6 +229,7 @@ class Model:
                                          caches=caches)
         return logits[:, -1], caches
 
+    @torch.no_grad()
     def chunk_step(self, params: Params, caches, tokens: torch.Tensor,
                    positions: torch.Tensor, lengths: torch.Tensor,
                    frontend: torch.Tensor | None = None,

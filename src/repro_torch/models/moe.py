@@ -11,7 +11,8 @@ A port of ``repro.models.moe`` for one device:
 * the expert FFN over that buffer through ``kernels.moe_ffn`` -- by default
   :func:`repro_torch.kernels.ops.grouped_expert_ffn`, the hand-written
   ``grouped_moe_gemm`` on CUDA tensors -- with the per-expert live-row
-  counts ``sizes``,
+  counts ``sizes``; when autograd records, the reference's einsum branch
+  instead (``torch.einsum``, the batched products outside any kernel),
 * a gather back to token order and the weighted top-k sum, plus the shared
   expert through :func:`~repro_torch.models.layers.dense`.
 
@@ -123,9 +124,17 @@ def moe_block(cfg, params: Params, prefix: str, x: torch.Tensor, *,
     xt = x.reshape(t, d)
     buf, info, aux, sizes = _route_and_dispatch(
         cfg, params[f"{prefix}_router"], xt)
-    out_buf = kernels.moe_ffn(buf, sizes, params[f"{prefix}_wi_gate"],
-                              params[f"{prefix}_wi_up"],
-                              params[f"{prefix}_wo"])
+    wi_gate, wi_up, wo = (params[f"{prefix}_{n}"]
+                          for n in ("wi_gate", "wi_up", "wo"))
+    if L.needs_grad(buf, wi_gate, wi_up, wo):
+        # the reference's einsum branch, the one with a VJP: the grouped
+        # kernel serves inference only, there as here
+        h = torch.nn.functional.silu(
+            torch.einsum("ecd,edf->ecf", buf, wi_gate)) * torch.einsum(
+            "ecd,edf->ecf", buf, wi_up)
+        out_buf = torch.einsum("ecf,efd->ecd", h, wo)
+    else:
+        out_buf = kernels.moe_ffn(buf, sizes, wi_gate, wi_up, wo)
     y = _combine(out_buf, info, t, cfg.experts_per_token, x.dtype)
     if cfg.shared_expert:
         g = L.dense(xt, params[f"{prefix}_shared_wi_gate"], activation="silu",

@@ -18,7 +18,9 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -36,6 +38,13 @@ class Slot:
     kind: str          # one of SLOT_KINDS
     ffn: str           # 'mlp' | 'moe' | 'cmix' | 'none'
     window: int = 0    # sliding window for 'attn' (0 = full)
+
+
+def _dots_contexts():
+    """``remat="dots"``'s checkpoint contexts: the dense GEMMs' outputs
+    saved, the rest recomputed."""
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        ops.save_dots)
 
 
 def build_pattern(cfg) -> tuple[list[Slot], bool]:
@@ -285,16 +294,32 @@ class LayerStack:
                               for _ in range(self.n_periods)]
         return tree
 
-    def apply(self, params: Params, x: torch.Tensor, ctx: Ctx, caches=None):
+    def apply(self, params: Params, x: torch.Tensor, ctx: Ctx, caches=None,
+              remat: str = "none"):
         """Every layer in order, the shared block after each period.
         ``caches`` is a :meth:`cache_tree` or the engine's pools, in the
         same layout and updated in place, or None.  Returns (x, caches,
-        aux_loss), the MoE auxiliary losses summed over the layers."""
+        aux_loss), the MoE auxiliary losses summed over the layers.
+
+        Each stacked leaf is taken apart once with ``unbind(0)``: under
+        autograd its backward is one ``stack``, where indexing each layer
+        would allocate a zero tensor of the whole leaf per layer.  A
+        stacked leaf may also come as the tuple of its periods (the tensors
+        ``launch/steps`` differentiates against, so that no ``stack`` runs
+        at all).  While
+        autograd records, ``remat`` is JAX's: ``"none"``; ``"full"``, each
+        period a non-reentrant ``torch.utils.checkpoint``; ``"dots"``, the
+        same with the dense GEMMs' outputs kept (the selective-checkpoint
+        policy :func:`~repro_torch.kernels.ops.save_dots`)."""
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat {remat!r}: none, full or dots")
         use_cache = caches is not None
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(self.n_periods):
+        slots = [{k: w if isinstance(w, tuple) else w.unbind(0)
+                  for k, w in sp.items()} for sp in params["slots"]]
+
+        def period(i, x, aux):
             for s, slot in enumerate(self.pattern):
-                sp = {k: w[i] for k, w in params["slots"][s].items()}
+                sp = {k: w[i] for k, w in slots[s].items()}
                 c = caches["slots"][s][i] if use_cache else None
                 x, c_new, a = apply_slot(self.cfg, slot, sp, x, c, ctx)
                 if a is not None:
@@ -307,6 +332,17 @@ class LayerStack:
                                              c, ctx)
                 if use_cache:
                     caches["shared"][i] = c_new
+            return x, aux
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = remat if torch.is_grad_enabled() else "none"
+        for i in range(self.n_periods):
+            if remat == "none":
+                x, aux = period(i, x, aux)
+                continue
+            x, aux = torch.utils.checkpoint.checkpoint(
+                period, i, x, aux, use_reentrant=False,
+                **({"context_fn": _dots_contexts} if remat == "dots" else {}))
         for i in range(self.n_tail):
             c = caches["tail"][i] if use_cache else None
             x, c_new, a = apply_slot(self.cfg, self.pattern[i],

@@ -784,3 +784,111 @@ def test_tune_replayed_cache_launches_the_cached_choice(tmp_path):
     assert seen == [other] and other != pick
     torch.testing.assert_close(got, ref.matmul(a, b), rtol=TOL[torch.bfloat16],
                                atol=TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
+# training: the gradient of kraken_matmul, and what never runs under grad
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu"])
+def test_train_matmul_grad_matches_plain(act, dtype):
+    """``ops.KrakenMatmul`` at the ragged M 65 / K 27 / N 123 (TMA refuses
+    the transposed operands), with a bias: its forward and dA, dB, dbias
+    on the kernel against the same Function on the plain version, within
+    TOL at unit scale; the launches counted."""
+    from repro_torch.kernels import kraken_gemm as tkg
+    from repro_torch.kernels import ops, ref
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(65)
+    m, k, n = 65, 27, 123
+    a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+    c = torch.randn((n,), generator=g, device=dev).to(dtype)
+    dy = torch.randn((m, n), generator=g, device=dev).to(dtype)
+
+    def run(mm):
+        xs = [t.clone().requires_grad_() for t in (a, b, c)]
+        out = ops.kraken_matmul_grad(*xs[:2], bias=xs[2], activation=act,
+                                     matmul=mm)
+        return [out, *torch.autograd.grad(out, xs, dy)]
+
+    before = tkg.launches
+    got = run(ops.kraken_matmul)
+    torch.cuda.synchronize()
+    assert tkg.launches == before + 3 + (act is not None)
+    for x, y in zip(got, run(ref.matmul)):
+        s = y.float().abs().max()
+        torch.testing.assert_close(x.float() / s, y.float() / s,
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_train_swa_attention_under_grad_raises():
+    """The window kernel has no backward: under grad it refuses, naming
+    its ROADMAP item, and never falls back to another attention."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as tsw
+    dev = _cuda()
+    q = torch.randn((1, 2, 128, 64), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn((1, 1, 128, 64), device=dev, dtype=torch.bfloat16)
+    before = tsw.launches
+    with pytest.raises(NotImplementedError, match="item 15"):
+        ops.swa_attention(q, kv, kv, window=16)
+    assert tsw.launches == before
+    with torch.no_grad():
+        ops.swa_attention(q, kv, kv, window=16)
+    assert tsw.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_train_moe_never_launches_grouped_gemm_under_grad():
+    """mixtral's smoke config on the card: the loss's gradient takes the
+    einsum expert path (no ``grouped_moe_gemm`` launch), the forward
+    without grad the grouped kernel."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.kernels import kraken_moe_gemm as tmg
+    from repro_torch.models.model import Model
+    dev = _cuda()
+    model = Model(smoke_config(get_arch("mixtral-8x22b")))
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 16), device=dev)
+    batch = {"tokens": toks, "labels": toks}
+    before = tmg.launches
+    leaves = T.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    assert tmg.launches == before
+    assert all(g is not None and bool(torch.isfinite(g.float()).all())
+               for g in grads)
+    with torch.no_grad():
+        model.loss(params, batch)
+    assert tmg.launches > before
+
+
+@pytest.mark.cuda
+def test_train_autotune_tile_cache_twice(tmp_path, capsys):
+    """``train --smoke --autotune --tile-cache F`` twice: the second run
+    finds every train cell in the file."""
+    from repro_torch import tuning
+    from repro_torch.launch import train
+    _cuda()
+    cache = str(tmp_path / "plans.json")
+    outs = []
+    try:
+        for i in range(2):
+            assert train.main(["--smoke", "--autotune", "--tile-cache", cache,
+                               "--steps", "2", "--batch", "2", "--seq", "16",
+                               "--ckpt-dir", str(tmp_path / f"ck{i}")]) == 0
+            outs.append(capsys.readouterr().out)
+    finally:
+        tuning.set_tile_mode(None)
+        tuning.set_tile_cache(tuning.TileCache(path=None))
+    assert "fully warm" not in outs[0] and "done: 2 steps" in outs[0]
+    assert "train cells hit — fully warm" in outs[1]

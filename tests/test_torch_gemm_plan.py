@@ -88,7 +88,22 @@ def _edge_cases():
     return out
 
 
-PLAN_CASES = _lm_cases() + _conv_cases() + _edge_cases()
+def _train_cases():
+    """Each training product's forward [M, K] @ [K, N] and its backward's
+    two, dA = dY' [M, N] @ b.T [N, K] and dB = a.T [K, M] @ dY' [M, N],
+    every operand a fresh contiguous copy."""
+    rows = [(f"yi-6b {name}", gemm_cases.TRAIN_M, k, n)
+            for name, k, n, *_ in gemm_cases.TRAIN_GEMMS]
+    rows += [(name, m, k, n) for name, m, k, n, *_ in gemm_cases.TRAIN_EDGE]
+    out = []
+    for name, m, k, n in rows:
+        out += [(f"train {name} forward", m, k, n, 16, 16),
+                (f"train {name} dA", m, n, k, 16, 16),
+                (f"train {name} dB", k, m, n, 16, 16)]
+    return out
+
+
+PLAN_CASES = _lm_cases() + _conv_cases() + _edge_cases() + _train_cases()
 
 
 def _plan(case, sms=H100_SMS):
