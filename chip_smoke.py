@@ -228,13 +228,39 @@ default ``build/chip_smoke/``):
    within 1e-4 relative L2 in float32 (gated; bf16 reported).  Last, ``python -m repro_torch.launch.train
    --arch yi-6b --smoke`` on the card: 12 steps with a failure injected at
    step 8 (restored from step 5), then a second invocation resuming from
-   step 12.
+   step 12; its checkpoint is kept for ``mesh``.
+24. ``mesh`` -- a real one-rank NCCL group and a ``(1, 1)`` ``DeviceMesh``
+   on the card.  Full-width bf16 yi-6b (the serve phase's init and seed):
+   a prefill of 4 x 64 tokens and 4 decode steps through
+   ``make_prefill_step`` / ``make_decode_step``, unsharded and with the
+   parameters, caches and inputs as DTensors under ``RULES_SINGLE_POD``:
+   the logits bit for bit, ``kraken_gemm`` launched on the local shards
+   (through ``dense_gemm``'s sharding rule) as many times as the steps
+   need; the unsharded warm decode step timed.  Two train steps at yi-6b's
+   width and 2 layers, unsharded and under the mesh with ZeRO-1 moments:
+   losses and parameters bit for bit, the same launches.
+   ``allreduce_compressed`` over NCCL equals the local compress and
+   decompress; the train phase's checkpoint (written through the launcher
+   when ``train`` did not run) restores onto the mesh equal.
+25. ``roofline`` -- ``repro_torch.launch.dryrun`` walks the yi-6b decode
+   step of ``mesh`` and the full-width train step of ``train`` on a fake
+   ``(1, 1)`` mesh (the plain versions; every GEMM counted as one
+   ``dense_gemm``); beside their measured times: t_compute, t_memory, the
+   bound, its share and MFU against ``PEAK_BF16``, with the card's name
+   and power limit.  Reported, but a share of the bound above 1.05 fails.
+26. ``dryrun`` -- ``repro_torch.launch.dryrun`` on yi-6b ``train_4k`` and
+   ``decode_32k`` over 16x16 and mixtral-8x22b ``train_4k`` over 2x16x16
+   (the train cells cut to ``DRYRUN_TRAIN_LAYERS`` layers), three
+   processes at once on the host's CPU (started with ``roofline``'s two
+   when both phases run), each with a fake process group of 256 or 512
+   ranks: per-device bytes, collectives, the bottleneck and the roofline
+   fraction; a ``"status": "fail"`` fails the phase.
 
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
 swa_kernels, conv_kernels, recurrence, serve, serve_features, e2e,
 profile, tune, dense_serve, dense_e2e, moe_serve, moe_e2e, swa_forward,
 conv_nets, rwkv_serve, rwkv_e2e, zamba_serve, zamba_e2e, vlm_serve,
-vlm_e2e, audio_serve, audio_e2e, train``.
+vlm_e2e, audio_serve, audio_e2e, train, mesh, roofline, dryrun``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -253,13 +279,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 outside
-# them, and HBM3 bandwidth
-PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12
-PEAK_INT8 = 1979e12
-PEAK_BYTES = 3.35e12
+# them, int8, and HBM3 bandwidth; their one home is the port's roofline
+from repro_torch.roofline.analysis import (  # noqa: E402
+    PEAK_BF16, PEAK_BYTES, PEAK_FP32, PEAK_INT8)
 
 # yi-6b main-path widths: d_model 4096, 32 heads / 4 KV heads of 128,
 # d_ff 11008, vocab 64000; serving at 4 slots x chunk 64
@@ -4161,7 +4186,8 @@ def train_cli(out_dir: Path) -> dict:
             raise AssertionError(f"train cli {label}: rc {res.returncode}, "
                                  f"missing {missing}: {res.stderr[-2000:]}")
         runs[label] = {"seconds": secs, "stdout": res.stdout}
-    shutil.rmtree(ck, ignore_errors=True)
+    # kept for the mesh phase, which restores it onto its mesh
+    runs["ckpt_dir"] = str(ck)
     return runs
 
 
@@ -4295,6 +4321,423 @@ def phase_train(rec: dict, state: dict) -> None:
     torch.cuda.empty_cache()
     res["cli"] = train_cli(ROOT / "build")
     rec["train"] = res
+
+
+# ---------------------------------------------------------------------------
+# the multi-device code: the dry run, a one-rank NCCL mesh, the roofline
+# ---------------------------------------------------------------------------
+
+# the dry run's cells (arch, shape, --multi-pod, extra flags): full width on
+# the production meshes; the train cells cut to DRYRUN_TRAIN_LAYERS layers
+# (their microbatches stay), decode at full depth; each prints the 8 ops
+# that move the most bytes
+DRYRUN_TRAIN_LAYERS = 2
+DRYRUN_CELLS = (
+    ("yi-6b", "train_4k", "off",
+     ["--layers", str(DRYRUN_TRAIN_LAYERS), "--ops", "8"]),
+    ("yi-6b", "decode_32k", "off", ["--ops", "8"]),
+    ("mixtral-8x22b", "train_4k", "on",
+     ["--layers", str(DRYRUN_TRAIN_LAYERS), "--ops", "8"]))
+# the mesh phase: yi-6b at full width, MESH_SLOTS prompts of MESH_PROMPT
+# tokens into caches of MESH_CACHE, MESH_DECODE decode steps; two train
+# steps at MESH_TRAIN_LAYERS layers
+MESH_SLOTS, MESH_PROMPT, MESH_CACHE, MESH_DECODE = 4, 64, 128, 4
+MESH_TRAIN_LAYERS = 2
+# a share of the bound above this means the count is wrong
+ROOFLINE_SHARE_MAX = 1.05
+
+
+# dry-run processes started ahead of their phase (``dryrun``'s start with
+# ``roofline``'s, so the host traces both at once), by phase
+_STARTED: dict = {}
+
+
+def _start_dryrun(cells, out: Path) -> tuple:
+    """Start every cell of ``cells`` through ``python -m
+    repro_torch.launch.dryrun`` in a process of its own (the fake group is
+    its default group), all at once; their output goes to files beside
+    ``out``.  Returns (start time, [(record path, process)])."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, (arch, shape, pod, extra) in enumerate(cells):
+        path = out.with_name(f"{out.stem}_{i}.jsonl")
+        path.unlink(missing_ok=True)
+        with open(path.with_suffix(".out"), "w") as so, \
+                open(path.with_suffix(".err"), "w") as se:
+            procs.append((path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--multi-pod", pod,
+                 "--out", str(path), *extra], env=env, stdout=so,
+                stderr=se)))
+    return time.perf_counter(), procs
+
+
+def _collect_dryrun(started, timeout: int = 900) -> list:
+    """Wait for the processes of :func:`_start_dryrun`; returns their
+    records, and raises if a process fails."""
+    _, procs = started
+    recs = []
+    for path, proc in procs:
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        for ln in path.with_suffix(".out").read_text().splitlines():
+            log(f"  dryrun: {ln}")
+        got = [json.loads(ln) for ln in path.read_text().splitlines()] \
+            if path.exists() else []
+        if proc.returncode or not got:
+            err = path.with_suffix(".err").read_text()
+            raise AssertionError(f"dryrun: rc {proc.returncode}: "
+                                 f"{err[-3000:]}")
+        recs += got
+    return recs
+
+
+def _stop_dryruns() -> None:
+    """Kill the started dry-run processes no phase collected."""
+    for _, procs in _STARTED.values():
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    _STARTED.clear()
+
+
+def _run_dryrun(cells, out: Path, timeout: int = 900) -> list:
+    """:func:`_start_dryrun` and :func:`_collect_dryrun` of ``cells``."""
+    return _collect_dryrun(_start_dryrun(cells, out), timeout)
+
+
+def phase_dryrun(rec: dict, state: dict) -> None:
+    """``repro_torch.launch.dryrun`` at full width on the production meshes:
+    yi-6b ``train_4k`` and ``decode_32k`` on 16x16 and mixtral-8x22b
+    ``train_4k`` on 2x16x16, each on a fake process group of 256 or 512
+    ranks, traced on fake tensors (the host's CPU; nothing of it runs on
+    the card).  Per-device bytes, the bottleneck and the roofline fraction
+    of each; any ``"status": "fail"`` fails the phase."""
+    card = card_line()
+    started = _STARTED.pop("dryrun", None) or _start_dryrun(
+        DRYRUN_CELLS, ROOT / "build" / "dryrun.jsonl")
+    recs = _collect_dryrun(started)
+    for r in recs:
+        if r["status"] != "ok":
+            raise AssertionError(f"dryrun: {r['arch']} x {r['shape']} x "
+                                 f"{r['mesh']}: {r.get('error')}")
+        m, roof = r["memory"], r["roofline"]
+        log(f"  dryrun {r['arch']} x {r['shape']} x {r['mesh']} "
+            f"({r.get('cuts', {})}): per device args "
+            f"{m['argument_bytes'] / 2**30:.2f} GiB, temp "
+            f"{m['temp_bytes'] / 2**30:.2f} GiB, peak "
+            f"{m['peak_per_device_bytes'] / 2**30:.2f} GiB; collectives "
+            f"{r['collectives']['counts']}; bottleneck {roof['bottleneck']}, "
+            f"roofline fraction {roof['roofline_fraction']:.4f} (bound "
+            f"{max(roof['t_compute_s'], roof['t_memory_s'], roof['t_collective_s']) * 1e3:.3f} ms "
+            f"against the peaks of {card}); traced in {r['compile_s']} s")
+    rec["dryrun"] = {"cells": recs,
+                     "seconds": time.perf_counter() - started[0],
+                     "card": card}
+
+
+def _dtensors_whole(tree):
+    from repro_torch import sharding as Sh
+    from repro_torch import tree as T
+    return [t.full_tensor() if Sh.is_dtensor(t) else t
+            for t in T.leaves(tree)]
+
+
+def _mesh_serve(torch, mesh, res: dict) -> None:
+    """Prefill and decode of full-width bf16 yi-6b (the serve phase's
+    weights: the same init and seed) unsharded and under the mesh: the
+    logits bit for bit; the unsharded warm decode step timed for the
+    roofline phase."""
+    import gc
+    from repro_torch import sharding as Sh
+    from repro_torch.checkpoint.elastic import reshard_tree
+    from repro_torch.launch import steps as S
+    model = _yi6b()
+    cfg = model.cfg
+    rules = Sh.RULES_SINGLE_POD
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_SLOTS, MESH_PROMPT),
+                           generator=g, device="cuda", dtype=torch.int32)
+    steps_tok = torch.randint(0, cfg.vocab_size, (MESH_DECODE, MESH_SLOTS, 1),
+                              generator=g, device="cuda", dtype=torch.int32)
+    prefill, decode = S.make_prefill_step(model), S.make_decode_step(model)
+
+    def run(p, caches, dist_in):
+        out = []
+        batch = {"tokens": dist_in(tokens, ("batch", "seq"))}
+        logits, caches = prefill(p, caches, batch)
+        out.append(logits)
+        for i in range(MESH_DECODE):
+            pos = torch.full((MESH_SLOTS,), MESH_PROMPT + i,
+                             dtype=torch.int32, device="cuda")
+            logits, caches = decode(p, caches,
+                                    dist_in(steps_tok[i], ("batch", None)),
+                                    dist_in(pos, ("batch",)))
+            out.append(logits)
+        return out
+
+    plain = run(params, model.init_caches(MESH_SLOTS, MESH_CACHE),
+                lambda t, ax: t)
+    # the unsharded warm decode step, for the roofline phase
+    caches = model.init_caches(MESH_SLOTS, MESH_CACHE)
+    prefill(params, caches, {"tokens": tokens})
+    pos = torch.full((MESH_SLOTS,), MESH_PROMPT, dtype=torch.int32,
+                     device="cuda")
+    res["decode_step_ms"] = time_ms(
+        lambda: decode(params, caches, steps_tok[0], pos), 20)
+    del caches
+    with Sh.use_mesh_and_rules(mesh, rules):
+        pd = reshard_tree(params, model.param_axes(), mesh, rules)
+        axes = iter(model.cache_axes_list(MESH_SLOTS, MESH_CACHE))
+        cd = S.map_cache(model.init_caches(MESH_SLOTS, MESH_CACHE),
+                         lambda _, t: Sh.distribute(t, mesh, Sh.placements(
+                             mesh, Sh.partition_spec(t.shape, next(axes)))))
+
+        def dist_in(t, ax):
+            return Sh.distribute(t, mesh, Sh.placements(
+                mesh, Sh.partition_spec(t.shape, ax)))
+        _zero_counts()
+        sharded = run(pd, cd, dist_in)
+        counts = _read_counts()
+    got = [t.full_tensor() for t in sharded]
+    same = all(torch.equal(a, b) for a, b in zip(got, plain))
+    res["serve"] = {"steps": 1 + MESH_DECODE, "bit_equal": same,
+                    "launches": counts,
+                    "max_abs_diff": max(float((a.float() - b.float()).abs()
+                                              .max()) for a, b in
+                                        zip(got, plain))}
+    log(f"  mesh serve: yi-6b full width bf16, {MESH_SLOTS} x "
+        f"{MESH_PROMPT} prefill + {MESH_DECODE} decode steps under a (1, 1) "
+        f"NCCL mesh: logits bit-equal to unsharded {same}; kraken_gemm "
+        f"{counts['kraken_gemm']} launches in the sharded pass; unsharded "
+        f"warm decode step {res['decode_step_ms']:.3f} ms")
+    if not same:
+        raise AssertionError(f"mesh: sharded logits differ: {res['serve']}")
+    if counts["kraken_gemm"] == 0:
+        raise AssertionError("mesh: no kraken_gemm launch in the sharded "
+                             "pass")
+    del params, pd, cd, plain, sharded, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mesh_train(torch, mesh, res: dict) -> None:
+    """Two train steps at yi-6b's width and MESH_TRAIN_LAYERS layers,
+    unsharded and under the mesh with ZeRO-1 moments: losses and updated
+    parameters bit for bit."""
+    import gc
+    from repro_torch import sharding as Sh
+    from repro_torch.checkpoint.elastic import reshard_tree
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.sharding_rules import zero1_param_rules
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    model = _full_width("yi-6b", layers=MESH_TRAIN_LAYERS)
+    cfg = model.cfg
+    rules = Sh.RULES_SINGLE_POD
+    axes = model.param_axes()
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=20, total=100))
+    step = S.make_train_step(model, opt, num_microbatches=1, remat="full")
+    out = {}
+    for label in ("plain", "mesh"):
+        params = model.init(torch.Generator(device="cuda").manual_seed(7))
+        if label == "mesh":
+            params = reshard_tree(params, axes, mesh, rules)
+            ost = opt.init(params, axes=axes, mesh=mesh,
+                           rules=zero1_param_rules(rules))
+        else:
+            ost = opt.init(params)
+        losses = []
+        _zero_counts()
+        for i in range(2):
+            batch = _train_batch(torch, cfg, i)
+            if label == "mesh":
+                batch = {k: Sh.distribute(v, mesh, Sh.placements(
+                    mesh, Sh.partition_spec_of(mesh, rules, v.shape,
+                                               ("batch", "seq"))))
+                         for k, v in batch.items()}
+            with Sh.use_mesh_and_rules(mesh if label == "mesh" else None,
+                                       rules):
+                params, ost, m = step(params, ost, batch)
+            losses.append(m["loss"].detach().clone())
+        out[label] = (losses, [t.detach().clone()
+                               for t in _dtensors_whole(params)],
+                      _read_counts()["kraken_gemm"])
+        del params, ost
+        gc.collect()
+    same_loss = all(torch.equal(a, b) for a, b in zip(out["mesh"][0],
+                                                      out["plain"][0]))
+    same_params = all(torch.equal(a, b) for a, b in zip(out["mesh"][1],
+                                                        out["plain"][1]))
+    res["train"] = {"layers": MESH_TRAIN_LAYERS,
+                    "losses": [float(x) for x in out["mesh"][0]],
+                    "losses_plain": [float(x) for x in out["plain"][0]],
+                    "losses_bit_equal": same_loss,
+                    "params_bit_equal": same_params,
+                    "kraken_gemm": out["mesh"][2],
+                    "kraken_gemm_plain": out["plain"][2]}
+    log(f"  mesh train: yi-6b full width, {MESH_TRAIN_LAYERS} layers, two "
+        f"steps, ZeRO-1 moments: losses {res['train']['losses']} bit-equal "
+        f"{same_loss}, parameters bit-equal {same_params}; kraken_gemm "
+        f"{out['mesh'][2]} launches (unsharded {out['plain'][2]})")
+    if not (same_loss and same_params):
+        raise AssertionError(f"mesh: sharded train steps differ: "
+                             f"{res['train']}")
+    if out["mesh"][2] != out["plain"][2] or out["mesh"][2] == 0:
+        raise AssertionError(f"mesh: sharded train steps launched "
+                             f"{out['mesh'][2]} kraken_gemm, unsharded "
+                             f"{out['plain'][2]}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(rec: dict, state: dict) -> None:
+    """A real one-rank NCCL group and a ``(1, 1)`` ``DeviceMesh`` on the
+    card: prefill/decode and ZeRO-1 train steps of full-width yi-6b through
+    DTensor and ``dense_gemm``'s sharding rule (``kraken_gemm`` on each
+    rank's local shards) equal the unsharded steps bit for bit;
+    ``allreduce_compressed`` over NCCL equals the local compress and
+    decompress; the train phase's checkpoint restores onto the mesh equal."""
+    import datetime
+    import gc
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as Sh
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.checkpoint.elastic import elastic_restore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import compress
+    # the train phase's checkpoint (run alone, the phase writes one through
+    # the same launcher)
+    ck = Path((rec.get("train", {}).get("cli")
+               or train_cli(ROOT / "build"))["ckpt_dir"])
+    if ckpt.latest_step(str(ck)) is None:
+        raise RuntimeError(f"mesh: no checkpoint in {ck}")
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = ROOT / "build" / "mesh_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300))
+    res: dict = {}
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"mesh: backend {dist.get_backend()}")
+        mesh = make_host_mesh(1, 1)
+        if mesh.device_type != "cuda":
+            raise AssertionError(f"mesh on {mesh.device_type}")
+        _mesh_serve(torch, mesh, res)
+        _mesh_train(torch, mesh, res)
+
+        # the compressed all-reduce over NCCL: one rank's mean is its own
+        # compress and decompress
+        g = torch.Generator(device="cuda").manual_seed(11)
+        grads = {"a": torch.randn(4096, 1024, generator=g, device="cuda"),
+                 "b": torch.randn(11008, generator=g, device="cuda")}
+        with Sh.use_mesh_and_rules(mesh, Sh.RULES_SINGLE_POD):
+            mean, _ = compress.allreduce_compressed(
+                grads, compress.init_state(grads), "model")
+        q, sc, _ = compress.compress_grads(grads, compress.init_state(grads))
+        local = compress.decompress_grads(q, sc)
+        res["compress_equal"] = all(torch.equal(mean[k], local[k])
+                                    for k in grads)
+        log(f"  mesh allreduce_compressed over NCCL equals the local "
+            f"compress + decompress: {res['compress_equal']}")
+        if not res["compress_equal"]:
+            raise AssertionError("mesh: allreduce_compressed differs")
+
+        # the train phase's checkpoint, restored onto the mesh
+        from repro_torch.configs import get_arch, smoke_config
+        from repro_torch.models.model import Model
+        model = Model(smoke_config(get_arch("yi-6b")))
+        specs = model.param_specs(lambda s: torch.empty(
+            s.shape, dtype=getattr(torch, model.cfg.dtype), device="meta"))
+        tree, step, _ = ckpt.restore(str(ck), {"params": specs})
+        placed, step2, _ = elastic_restore(
+            str(ck), {"params": specs}, {"params": model.param_axes()},
+            mesh, Sh.RULES_SINGLE_POD)
+        ok = step == step2 and all(
+            a.device.type == "cuda" and torch.equal(a.full_tensor().cpu(), b)
+            for a, b in zip(T.leaves(placed), T.leaves(tree)))
+        res["elastic"] = {"step": step2, "equal": ok,
+                          "leaves": len(T.leaves(tree))}
+        log(f"  mesh elastic_restore of the train phase's checkpoint (step "
+            f"{step2}, {res['elastic']['leaves']} leaves) onto the mesh: "
+            f"equal {ok}")
+        if not ok:
+            raise AssertionError("mesh: elastic_restore differs")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+        shutil.rmtree(ck, ignore_errors=True)
+    rec["mesh"] = res
+
+
+def phase_roofline(rec: dict, state: dict) -> None:
+    """The op walk of the yi-6b warm decode step (the mesh phase's shapes)
+    and of the full-width train step (the train phase's), each traced by
+    the dry run on a fake one-rank ``(1, 1)`` mesh with the plain versions,
+    beside the times the card measured: t_compute, t_memory, the bound,
+    the share of the bound and MFU against 989 TFLOP/s.  Reported, not
+    gated, but a share of the bound above ROOFLINE_SHARE_MAX means the
+    count is wrong and fails."""
+    from repro_torch.configs import get_arch
+    from repro_torch.roofline.analysis import PEAK_FLOPS
+    card = card_line()
+    layers = get_arch("yi-6b").num_layers
+    tr = rec.get("train", {}).get("full_width")
+    dec = rec.get("mesh", {}).get("decode_step_ms")
+    if tr is None or dec is None:
+        raise RuntimeError("the roofline phase needs the train and mesh "
+                           "phases")
+    cells = (("yi-6b", "decode_32k", "off",
+              ["--mesh", "1x1", "--batch", str(MESH_SLOTS), "--seq",
+               str(MESH_CACHE)]),
+             ("yi-6b", "train_4k", "off",
+              ["--mesh", "1x1", "--batch", str(tr["batch"]), "--seq",
+               str(tr["seq"]), "--microbatches", "1", "--remat", "full"]))
+    if "dryrun" in rec["phases"] and "dryrun" not in _STARTED:
+        _STARTED["dryrun"] = _start_dryrun(DRYRUN_CELLS,
+                                           ROOT / "build" / "dryrun.jsonl")
+    recs = _run_dryrun(cells, ROOT / "build" / "roofline.jsonl")
+    out = {}
+    for r, (what, secs) in zip(recs, (("decode step", dec / 1e3),
+                                      ("train step", tr["warm_step_s"]))):
+        if r["status"] != "ok":
+            raise AssertionError(f"roofline: {what}: {r.get('error')}")
+        roof = r["roofline"]
+        bound = max(roof["t_compute_s"], roof["t_memory_s"],
+                    roof["t_collective_s"])
+        share = bound / secs
+        mfu = roof["model_flops"] / (secs * PEAK_FLOPS)
+        out[what] = {"t_compute_s": roof["t_compute_s"],
+                     "t_memory_s": roof["t_memory_s"], "bound_s": bound,
+                     "measured_s": secs, "share_of_bound": share, "mfu": mfu,
+                     "flops": roof["flops"], "hbm_bytes": roof["hbm_bytes"],
+                     "model_flops": roof["model_flops"],
+                     "layers": layers, "walked_in_s": r["compile_s"]}
+        log(f"  roofline yi-6b {what} ({card}): t_compute "
+            f"{roof['t_compute_s'] * 1e3:.3f} ms, t_memory "
+            f"{roof['t_memory_s'] * 1e3:.3f} ms, bound {bound * 1e3:.3f} ms "
+            f"({roof['bottleneck']}), measured {secs * 1e3:.3f} ms, share of "
+            f"the bound {share:.3f}, MFU {mfu:.4f}")
+        if share > ROOFLINE_SHARE_MAX:
+            raise AssertionError(f"roofline: {what} runs at {share:.3f} of "
+                                 "its bound: the count is wrong")
+    out["card"] = card
+    rec["roofline"] = out
 
 
 def conv_entry(rec: dict, by_path) -> dict:
@@ -4534,7 +4977,10 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
              for what, fn in (("serve", frontend_serve),
                               ("e2e", frontend_e2e))},
           # last: it releases every earlier phase's model
-          "train": phase_train}
+          "train": phase_train,
+          # after train: its checkpoint and its warm step
+          "mesh": phase_mesh, "roofline": phase_roofline,
+          "dryrun": phase_dryrun}
 
 
 def main(argv=None) -> int:
@@ -4564,6 +5010,7 @@ def main(argv=None) -> int:
                 PHASES[name](rec, state)
                 log(f"phase {name}: ok ({time.perf_counter() - ts:.1f} s)")
     finally:   # the record of the phases that ran, passed or not
+        _stop_dryruns()
         rec["seconds"] = time.perf_counter() - t0
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(rec, indent=1))

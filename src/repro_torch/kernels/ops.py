@@ -4,6 +4,11 @@ The dispatch has exactly two cases, decided by where the input lies: a CUDA
 tensor launches the hand-written kernel (or the wrapper raises); a CPU
 tensor runs the kernel's plain version from :mod:`ref`.  There is no
 fallback from one to the other, and no TPU tile plan.
+
+Under a mesh the operands are DTensors.  The dense GEMM reaches its kernel
+through the :func:`dense_gemm` op, whose DTensor sharding rule
+(:func:`register_dense_gemm_sharding`) runs the kernel on each rank's local
+shards; every other kernel refuses a DTensor on the card.
 """
 
 from __future__ import annotations
@@ -18,10 +23,15 @@ from repro_torch.kernels import kraken_moe_gemm as _moe
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels import ref
+from repro_torch.sharding import is_dtensor
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
+        if is_dtensor(t):
+            raise NotImplementedError(
+                "this kernel has no DTensor sharding rule: under a mesh only "
+                "the dense GEMM (through dense_gemm) runs on the card")
         return True
     if t.device.type == "cpu":
         return False
@@ -84,6 +94,54 @@ def dense_gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None,
     return _MATMULS[route](a, b, bias=bias, activation=activation)
 
 
+@dense_gemm.register_fake
+def _dense_gemm_fake(a, b, bias, activation, route):
+    return a.new_empty((a.shape[0], b.shape[1]))
+
+
+_SHARDING_REGISTERED = False
+
+
+def register_dense_gemm_sharding() -> None:
+    """Register :func:`dense_gemm`'s DTensor sharding rule (once a
+    process; the model code calls it when it meets a DTensor).  Per mesh
+    dimension: everything replicated; ``a`` on rows and ``b`` replicated
+    give the output on rows; ``a`` replicated and ``b`` on columns give the
+    output on columns, the bias on the same columns; without a bias or an
+    activation, ``a`` and ``b`` both on K give a ``Partial`` output (the
+    epilogue is not linear in a partial sum, so with one K is gathered).
+    DTensor then calls the op on each rank's local shards, so the kernel
+    never sees a gathered global operand."""
+    global _SHARDING_REGISTERED
+    if _SHARDING_REGISTERED:
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.dense_gemm.default)
+    def _dense_gemm_sharding(a, b, bias, activation, route):
+        r, has_bias = Replicate(), bias is not None
+        out = [([r], [r, r, r if has_bias else None, None, None]),
+               ([Shard(0)], [Shard(0), r, r if has_bias else None, None,
+                             None]),
+               ([Shard(1)], [r, Shard(1), Shard(0) if has_bias else None,
+                             None, None])]
+        if not has_bias and activation is None:
+            out.append(([Partial()], [Shard(1), Shard(0), None, None, None]))
+        return out
+
+    _SHARDING_REGISTERED = True
+
+
+def gemm(a, b, *, bias=None, activation=None, matmul=kraken_matmul):
+    """``matmul(a, b, bias=, activation=)``; DTensor operands go through
+    :func:`dense_gemm` and its sharding rule."""
+    if is_dtensor(a) or is_dtensor(b):
+        register_dense_gemm_sharding()
+        return dense_gemm(a, b, bias, activation, _route(matmul))
+    return matmul(a, b, bias=bias, activation=activation)
+
+
 def save_dots(ctx, op, *args, **kwargs):
     """The selective-checkpoint policy of ``remat="dots"``: the dense
     GEMMs' outputs are saved, everything else is recomputed (JAX's
@@ -111,6 +169,8 @@ class KrakenMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, bias, activation, matmul):
+        if is_dtensor(a) or is_dtensor(b):
+            register_dense_gemm_sharding()
         out = dense_gemm(a, b, bias, activation, _route(matmul))
         ctx.save_for_backward(a, b, bias)
         ctx.activation, ctx.matmul = activation, matmul
@@ -119,7 +179,10 @@ class KrakenMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         a, b, bias = ctx.saved_tensors
-        mm = ctx.matmul
+
+        def mm(x, y, bias=None):
+            return gemm(x, y, bias=bias, matmul=ctx.matmul)
+
         dyp = dy.to(torch.float32)
         if ctx.activation is not None:
             z = mm(a, b, bias=bias)

@@ -1,5 +1,5 @@
 """Training launcher: supervised, checkpointed, restartable (a port of
-``repro.launch.train`` for one device).
+``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
         --device cpu --steps 20 --ckpt-dir build/ckpt
@@ -17,9 +17,18 @@ backward go through ``kraken_gemm`` on the card, the plain versions on the
 CPU.  Weights are drawn from a generator seeded 0 on the device.
 ``--autotune --tile-cache F`` measures the forward GEMM cells of a
 microbatch on the card before training (refused on the CPU, where no
-kernel runs); ``--tile-cache F`` alone replays them.  A ``--data-model``
-mesh other than ``1 1`` needs the multi-device code (ROADMAP Queue 1 item
-14) and is refused.
+kernel runs); ``--tile-cache F`` alone replays them.
+
+``--data-model d m`` trains on a ``(d, m)`` mesh with
+``RULES_SINGLE_POD``, one rank a device, under ``torchrun``:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --device cpu --data-model 2 2 --steps 4
+
+(gloo on the CPU, NCCL on the card, device ``cuda:LOCAL_RANK``).  The
+parameters, moments and batch are DTensors; rank 0 prints, writes the
+checkpoints (gathered whole, in the same format) and restores them onto
+the mesh.  A world size other than ``d * m`` is refused.
 """
 
 from __future__ import annotations
@@ -61,11 +70,16 @@ def main(argv=None) -> int:
                         "without --autotune, replays it read-only")
     args = p.parse_args(argv)
 
-    if tuple(args.data_model) != (1, 1):
-        p.error(f"--data-model {args.data_model[0]} {args.data_model[1]}: a "
-                "mesh needs the multi-device code (ROADMAP Queue 1 item 14); "
-                "this launcher trains on one device")
+    dm, tm = args.data_model
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dm * tm != world:
+        p.error(f"--data-model {dm} {tm}: a ({dm}, {tm}) mesh needs "
+                f"{dm * tm} ranks (run under torchrun --nproc-per-node "
+                f"{dm * tm}); this run has {world}")
     dev = _device.resolve(args.device)
+    rank = int(os.environ.get("RANK", "0"))
+    if dm * tm > 1 and dev.type == "cuda":
+        dev = _device.resolve(f"cuda:{os.environ.get('LOCAL_RANK', '0')}")
     if args.autotune and dev.type != "cuda":
         p.error(f"--autotune measures the hand-written kernels on the card; "
                 f"on --device {args.device} no kernel runs to measure (the "
@@ -79,6 +93,7 @@ def main(argv=None) -> int:
                               "expandable_segments:True")
     import torch
 
+    from repro_torch import sharding as Sh
     from repro_torch import tree as T
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.data.pipeline import PipelineState, SyntheticLM
@@ -108,17 +123,49 @@ def main(argv=None) -> int:
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=20, total=args.steps))
     pipe = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
 
+    mesh = rules = None
+    if dm * tm > 1:
+        import torch.distributed as dist
+        from repro_torch.checkpoint.elastic import reshard_tree
+        from repro_torch.launch.mesh import make_host_mesh
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        mesh = make_host_mesh(dm, tm)
+        rules = Sh.RULES_SINGLE_POD
+    axes = model.param_axes()
+
+    def place(params, ostate=None):
+        """The parameters (and moments) as DTensors on the mesh: every
+        rank holds them whole and keeps its shards."""
+        if mesh is None:
+            return params, ostate
+        params = reshard_tree(params, axes, mesh, rules)
+        if ostate is not None:
+            ostate = AdamWState(step=ostate.step,
+                                m=reshard_tree(ostate.m, axes, mesh, rules),
+                                v=reshard_tree(ostate.v, axes, mesh, rules))
+        return params, ostate
+
+    def whole(tree):
+        """Every DTensor leaf gathered (a collective: every rank calls)."""
+        return T.map_leaves(lambda t: t.full_tensor() if Sh.is_dtensor(t)
+                            else t, tree)
+
     train_step = S.make_train_step(model, opt,
                                    num_microbatches=args.microbatches,
                                    remat=args.remat)
 
-    hb = Heartbeat(os.path.join(args.ckpt_dir, "heartbeat.json"), interval_s=5)
+    hb = Heartbeat(os.path.join(
+        args.ckpt_dir, "heartbeat.json" if rank == 0
+        else f"heartbeat_{rank}.json"), interval_s=5)
     straggler = StragglerDetector()
     writer = ckpt.AsyncCheckpointer(args.ckpt_dir, keep=3)
     injected = {"done": False}
 
     def make_state():
         params = model.init(torch.Generator(device=dev).manual_seed(0))
+        params, _ = place(params)
         return {"params": params, "opt": opt.init(params),
                 "pipe": PipelineState(0)}
 
@@ -129,17 +176,24 @@ def main(argv=None) -> int:
         batch_np, pstate = pipe(state["pipe"])
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in batch_np.items()}
-        params, ostate, metrics = train_step(state["params"], state["opt"],
-                                             batch)
-        if step % args.log_every == 0:
+        if mesh is not None:
+            batch = {k: Sh.distribute(v, mesh, Sh.placements(
+                mesh, Sh.partition_spec_of(mesh, rules, v.shape,
+                                           ("batch", "seq"))))
+                     for k, v in batch.items()}
+        with Sh.use_mesh_and_rules(mesh, rules):
+            params, ostate, metrics = train_step(state["params"],
+                                                 state["opt"], batch)
+        if step % args.log_every == 0 and rank == 0:
             print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
                   f"ce {float(metrics['ce']):.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f}")
         return {"params": params, "opt": ostate, "pipe": pstate}
 
     def save_state(step, state):
-        writer.save(step, {"params": state["params"], "opt": state["opt"]},
-                    extra={"pipe_step": state["pipe"].step})
+        tree = whole({"params": state["params"], "opt": state["opt"]})
+        if rank == 0:
+            writer.save(step, tree, extra={"pipe_step": state["pipe"].step})
 
     def restore_state():
         # Drain any in-flight async save first: a failure right after a
@@ -163,8 +217,10 @@ def main(argv=None) -> int:
             m=fspecs, v=fspecs)}
         tree, step, extra = ckpt.restore(args.ckpt_dir, specs)
         tree = T.map_leaves(lambda t: t.to(dev), tree)
-        print(f"[restore] resumed from step {step}")
-        return ({"params": tree["params"], "opt": tree["opt"],
+        params, ostate = place(tree["params"], tree["opt"])
+        if rank == 0:
+            print(f"[restore] resumed from step {step}")
+        return ({"params": params, "opt": ostate,
                  "pipe": PipelineState(extra["pipe_step"])}, step)
 
     sup = Supervisor(make_state=make_state, step_fn=run_one,
@@ -175,8 +231,13 @@ def main(argv=None) -> int:
     report = sup.run(args.steps)
     writer.wait()
     dt = time.time() - t0
-    print(f"done: {report.steps_done} steps in {dt:.1f}s "
-          f"({report.restarts} restarts, {report.straggler_steps} straggler steps)")
+    if rank == 0:
+        print(f"done: {report.steps_done} steps in {dt:.1f}s "
+              f"({report.restarts} restarts, {report.straggler_steps} "
+              "straggler steps)")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

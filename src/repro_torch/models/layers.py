@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import quantize_kv
 
@@ -170,13 +171,15 @@ def dense(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None,
     two products are ``kernels.matmul`` too; otherwise it is the direct
     call the serving paths make."""
     lead = x.shape[:-1]
-    a = x.reshape(-1, x.shape[-1]).contiguous()
+    a = sharding.gather_inner(x).reshape(-1, x.shape[-1]).contiguous()
     if not needs_grad(x, w, bias):
-        out = kernels.matmul(a, w, bias=bias, activation=activation)
+        out = ops.gemm(a, w, bias=bias, activation=activation,
+                       matmul=kernels.matmul)
         return out.reshape(*lead, w.shape[-1])
     out = ops.kraken_matmul_grad(a, w, bias=bias, activation=activation,
                                  matmul=kernels.matmul)
-    return out.reshape(*lead, w.shape[-1])
+    out = out.reshape(*lead, w.shape[-1])
+    return sharding.gather_inner_grad(out)
 
 
 # ---------------------------------------------------------------------------
@@ -200,16 +203,18 @@ def attention_specs(cfg, prefix: str = "attn") -> dict[str, Spec]:
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     b, s, _ = x.shape
+    x = sharding.fit_split(x, 2, n)
     return x.reshape(b, s, n, hd).transpose(1, 2)   # [B, H, S, D]
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, s, d = x.shape
-    return x.transpose(1, 2).reshape(b, s, h * d)
+    return sharding.fit_split_grad(x.transpose(1, 2).reshape(b, s, h * d),
+                                   2, h)
 
 
 def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos,
-                     mask_mode: str = "causal") -> torch.Tensor:
+                     mask_mode: str = "causal", return_state: bool = False):
     """Attention by position: q [B,H,Sq,D], k/v [B,KV,Sk,D], fp32 scores.
     With ``mask_mode="causal"`` key ``j`` is visible to query ``i`` when
     ``0 <= kv_pos[j] <= q_pos[i]`` (and inside ``window`` when one is set);
@@ -218,6 +223,9 @@ def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos,
     Masked scores are -1e30, not -inf, so a row with nothing to attend to
     (an idle slot) stays finite, as in the JAX version.  The probabilities
     are rounded to the compute dtype before the value product, as there.
+    With ``return_state`` the softmax comes back unnormalized, as the
+    chunked form keeps it: ``(acc [B,KV,G,Sq,D], m, l [B,KV,G,Sq,1])``,
+    fp32, a kv shard's part for the combine across shards.
     """
     b, h, sq, d = q.shape
     kvh = k.shape[1]
@@ -233,6 +241,12 @@ def _gqa_sdpa_direct(q, k, v, *, window: int, q_pos, kv_pos,
         if window:
             mask = mask & (kp > qp - window)
         logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    if return_state:
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        acc = torch.einsum("bkgqs,bksd->bkgqd",
+                           p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+        return acc, m, p.sum(dim=-1, keepdim=True)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd",
                        probs.to(v.dtype).to(torch.float32), v.to(torch.float32))
@@ -243,12 +257,11 @@ _CHUNK_Q = 1024
 _CHUNK_KV = 1024
 
 
-def _gqa_sdpa_chunked(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
+def _gqa_sdpa_chunked(q, k, v, *, window: int, q_pos, kv_pos,
+                      return_state: bool = False,
+                      allow_window_slice: bool = True):
     """Flash-style double-chunked causal attention in torch ops, for long
-    prefill sequences (JAX ``_gqa_sdpa_chunked`` with ``causal=True``,
-    ``return_state=False``, ``allow_window_slice=True``; the
-    context-parallel state comes with the multi-device code, ROADMAP Queue 1
-    item 14).
+    prefill sequences (JAX ``_gqa_sdpa_chunked`` with ``causal=True``).
 
     q [B,H,Sq,D], k/v [B,KV,Skv,D], shared positions q_pos [Sq] and kv_pos
     [Skv].  An online softmax over kv chunks inside a loop over q chunks
@@ -258,6 +271,13 @@ def _gqa_sdpa_chunked(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
     carry position 2^30 and padded kv slots -2^30, so the mask drops them.
     Scores are fp32 and the probabilities are rounded to V's dtype before
     the value product, as there.
+
+    ``return_state=True`` returns the *unnormalized* softmax state ``(acc
+    [B,KV,G,Sq,D], m, l [B,KV,G,Sq,1])``, fp32, instead of the output: the
+    context-parallel attention combines states across kv shards.
+    ``allow_window_slice=False`` reads every kv chunk (the positions are
+    global there and the kv a local shard, so the mask does the
+    windowing).
     """
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -274,7 +294,8 @@ def _gqa_sdpa_chunked(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
     vpad = torch.nn.functional.pad(v, (0, 0, 0, pad_kv))
     kvp = torch.nn.functional.pad(kv_pos, (0, pad_kv), value=POS_EMPTY)
     skv_p = kpad.shape[2]
-    use_window_slice = bool(window) and (window + cq) * 2 <= skv_p
+    use_window_slice = (allow_window_slice and bool(window)
+                        and (window + cq) * 2 <= skv_p)
     wlen = -(-(window + cq) // ckv) * ckv if use_window_slice else skv_p
 
     qr = qpad.reshape(b, kvh, group, nq, cq, d)
@@ -306,19 +327,223 @@ def _gqa_sdpa_chunked(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
                 "bkgqs,bksd->bkgqd", p.to(v.dtype).to(torch.float32),
                 vck.to(torch.float32))
             m = m_new
-        outs.append((acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype))
+        if return_state:
+            outs.append((acc, m, l))
+        else:
+            outs.append((acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype))
+    if return_state:
+        return tuple(torch.cat([o[i] for o in outs], dim=3)[:, :, :, :sq]
+                     for i in range(3))
     out = torch.cat(outs, dim=3).reshape(b, h, nq * cq, d)
     return out[:, :, :sq]
 
 
+class _SumAcross(torch.autograd.Function):
+    """An all-reduce sum over ``group`` whose output every rank holds in
+    full: its gradient is the output's, unchanged (the cotangent of a
+    replicated output is counted once)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _gqa_sdpa_context_parallel(q, k, v, *, window: int, q_pos, kv_pos,
+                               axis: str) -> torch.Tensor:
+    """Context-parallel flash attention under ``local_map``.
+
+    For heads that do not divide the model axis (llama4 / llama-3.2: 40 H,
+    8 KV on a 16-way axis), the kv *sequence* is sharded over ``axis``
+    instead: each rank runs :func:`_gqa_sdpa_chunked` over its kv shard
+    with its softmax state returned, and the states are combined across the
+    shards as JAX combines them -- an all-reduce max of ``m`` (detached: it
+    is a pure shift that cancels in the quotient), then sums of ``l * a``
+    and ``acc * a`` with ``a = exp(m - m_max)`` -- ring attention's combine
+    without the ring.  Plain tensors count as replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    c = sharding.current()
+    mesh = c["mesh"]
+    batch_axes = c["rules"].get("batch") or None
+    bspec = tuple(batch_axes) if batch_axes else None
+    group = mesh.get_group(axis)
+
+    def dt(x):
+        return x if isinstance(x, DTensor) else DTensor.from_local(
+            x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    def pl(*spec):
+        return sharding.placements(mesh, spec)
+
+    def body(ql, kl, vl, qpl, kpl):
+        acc, m, l = _gqa_sdpa_chunked(
+            ql, kl, vl, window=window, q_pos=qpl, kv_pos=kpl,
+            return_state=True, allow_window_slice=False)
+        out = _combine_states(acc, m, l, [group])
+        b, kvh, g, s, d = out.shape
+        return out.reshape(b, kvh * g, s, d).to(ql.dtype)
+
+    q_in, kv_in = pl(bspec, None, None, None), pl(bspec, None, (axis,), None)
+    # each kv shard gives q a partial gradient
+    q_grad = tuple(Partial() if name == axis else p
+                   for name, p in zip(sharding.mesh_shape(mesh), q_in))
+    ins = (q_in, kv_in, kv_in, pl(None), pl((axis,)))
+    f = local_map(body, out_placements=(q_in,), in_placements=ins,
+                  in_grad_placements=(q_grad,) + ins[1:], device_mesh=mesh,
+                  redistribute_inputs=True)
+    return f(dt(q), dt(k), dt(v), dt(q_pos), dt(kv_pos))
+
+
+def _combine_states(acc, m, l, groups):
+    """The softmax states of kv shards combined over ``groups`` (JAX's
+    context-parallel combine): a detached all-reduce max of ``m``, then
+    sums of ``l * a`` and ``acc * a`` with ``a = exp(m - m_max)``, and
+    the quotient."""
+    import torch.distributed as dist
+    m_g = m.detach().clone()
+    for g in groups:
+        dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=g)
+    alpha = torch.exp(m - m_g)
+    l_g, acc_g = l * alpha, acc * alpha
+    for g in groups:
+        l_g = _SumAcross.apply(l_g, g)
+        acc_g = _SumAcross.apply(acc_g, g)
+    return acc_g / torch.where(l_g == 0.0, 1.0, l_g)
+
+
+def _gqa_sdpa_sharded(q, k, v, *, window: int, q_pos, kv_pos,
+                      mask_mode: str = "causal", fn=None) -> torch.Tensor:
+    """GQA attention over DTensors, run on each rank's local (batch, head)
+    blocks under ``local_map``: attention is independent per row and per
+    head, so the rows stay on their batch shards and the query heads on
+    their model shards when they divide (else they are gathered); the KV
+    heads shard with them when they divide too, else each rank holds them
+    all and takes the one each of its query heads reads.  A KV sequence sharded
+    over mesh dims (decode's ``kv_seq``) stays sharded: each rank attends
+    over its entries and the softmax states are combined across them.  A
+    mesh dim of size 1 shards nothing, so a one-rank mesh runs the
+    unsharded arithmetic.  ``fn`` (default the direct or chunked form, as
+    :func:`_gqa_sdpa` picks) takes ``(q, k, v, q_pos, kv_pos)``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ref = next(t for t in (q, k, v) if isinstance(t, DTensor))
+    mesh = ref.device_mesh
+    n = mesh.ndim
+    sizes = list(mesh.shape)
+
+    def dims(t, d):
+        if not isinstance(t, DTensor):
+            return []
+        return [i for i, p in enumerate(t.placements)
+                if isinstance(p, Shard) and p.dim == d and sizes[i] > 1]
+
+    bd = dims(q, 0)
+    hd = sorted(set(dims(q, 1)) | set(dims(k, 1)))
+    hsize = math.prod(sizes[i] for i in hd)
+    if q.shape[1] % hsize:
+        hd = []
+    # the query heads shard; the KV heads too when they divide, else every
+    # rank holds them all and takes the ones its query heads read
+    kv_hd = [] if k.shape[1] % hsize else hd
+    pick = None
+    if hd and not kv_hd:
+        coord, idx = mesh.get_coordinate(), 0
+        for i in hd:
+            idx = idx * sizes[i] + coord[i]
+        hl, group = q.shape[1] // hsize, q.shape[1] // k.shape[1]
+        pick = (idx * hl + torch.arange(hl)) // group
+    sd = dims(k, 2)
+
+    def pl(**by):
+        out = [Replicate()] * n
+        for d, mdims in by.items():
+            for i in mdims:
+                out[i] = Shard(int(d[1:]))
+        return tuple(out)
+
+    q_pl = pl(d0=bd, d1=hd)
+    kv_pl = pl(d0=bd, d1=kv_hd, d2=sd)
+    qp_pl = pl(d0=bd) if q_pos.dim() == 2 else pl()
+    kp_pl = pl(d0=bd, d1=sd) if kv_pos.dim() == 2 else pl(d0=sd)
+    groups = [mesh.get_group(i) for i in sd]
+    sq = q.shape[2]
+
+    def body(ql, kl, vl, qpl, kpl):
+        if pick is not None:
+            kl, vl = kl[:, pick.to(kl.device)], vl[:, pick.to(vl.device)]
+        if groups:
+            acc, m, l = _gqa_sdpa_direct(ql, kl, vl, window=window,
+                                         q_pos=qpl, kv_pos=kpl,
+                                         mask_mode=mask_mode,
+                                         return_state=True)
+            out = _combine_states(acc, m, l, groups)
+            b, kvh, g, s, d = out.shape
+            return out.reshape(b, kvh * g, s, d).to(ql.dtype)
+        if fn is not None:
+            return fn(ql, kl, vl, qpl, kpl)
+        if sq >= 2048 and mask_mode != "none":
+            return _gqa_sdpa_chunked(ql, kl, vl, window=window, q_pos=qpl,
+                                     kv_pos=kpl)
+        return _gqa_sdpa_direct(ql, kl, vl, window=window, q_pos=qpl,
+                                kv_pos=kpl, mask_mode=mask_mode)
+
+    rep = (Replicate(),) * n
+
+    def dt(x):
+        return x if isinstance(x, DTensor) else DTensor.from_local(
+            x, mesh, rep, run_check=False)
+
+    ins = (q_pl, kv_pl, kv_pl, qp_pl, kp_pl)
+    # held whole, the KV heads get a partial gradient from each head shard
+    kv_grad = tuple(Partial() if pick is not None and i in hd else p
+                    for i, p in enumerate(kv_pl))
+    f = local_map(body, out_placements=(q_pl,), in_placements=ins,
+                  in_grad_placements=(q_pl, kv_grad, kv_grad) + ins[3:],
+                  device_mesh=mesh, redistribute_inputs=True)
+    return f(dt(q), dt(k), dt(v), dt(q_pos), dt(kv_pos))
+
+
+def _context_parallel_axis(skv: int) -> str | None:
+    """The mesh axis for context-parallel attention, if the rules enable it
+    and the kv length divides."""
+    c = sharding.current()
+    if not c or c["mesh"] is None:
+        return None
+    axis = c["rules"].get("attn_context_parallel")
+    if not axis:
+        return None
+    if skv % sharding.mesh_shape(c["mesh"]).get(axis, 1) != 0:
+        return None
+    return axis
+
+
 def _gqa_sdpa(q, k, v, *, window: int, q_pos, kv_pos,
               mask_mode: str = "causal") -> torch.Tensor:
-    """GQA attention as JAX ``_gqa_sdpa`` dispatches it: the chunked form
-    for a masked mode at 2048 queries or more (it takes shared [S]
-    positions), the direct form otherwise, so an unmasked (cross) prefill
-    of any length stays direct.  (JAX's context-parallel branch comes with
-    the multi-device code, ROADMAP Queue 1 item 14.)"""
-    if q.shape[2] >= 2048 and mask_mode != "none":
+    """GQA attention as JAX ``_gqa_sdpa`` dispatches it: for a masked mode
+    at 2048 queries or more (shared [S] positions) the context-parallel
+    form when the rules ask for it and the kv sequence divides, else the
+    chunked form; the direct form otherwise, so an unmasked (cross)
+    prefill of any length stays direct.  DTensors (under a mesh) go
+    through :func:`_gqa_sdpa_sharded`."""
+    sq, skv = q.shape[2], k.shape[2]
+    if sq >= 2048 and mask_mode != "none":
+        axis = _context_parallel_axis(skv)
+        if axis is not None and sq == skv:
+            return _gqa_sdpa_context_parallel(q, k, v, window=window,
+                                              q_pos=q_pos, kv_pos=kv_pos,
+                                              axis=axis)
+    if any(sharding.is_dtensor(t) for t in (q, k, v)):
+        return _gqa_sdpa_sharded(q, k, v, window=window, q_pos=q_pos,
+                                 kv_pos=kv_pos, mask_mode=mask_mode)
+    if sq >= 2048 and mask_mode != "none":
         return _gqa_sdpa_chunked(q, k, v, window=window, q_pos=q_pos,
                                  kv_pos=kv_pos)
     return _gqa_sdpa_direct(q, k, v, window=window, q_pos=q_pos,
@@ -533,6 +758,9 @@ def _dense_prefill(cache: KVCache, k, v, *, positions) -> None:
     p_last = positions[-keep:].to(torch.int32)
     slot = torch.arange(s_cache, device=k.device)
     src = (slot - p_last[0].long()) % s_cache     # torch.roll by p_last[0]
+    if sharding.is_dtensor(cache.k):
+        _dense_prefill_sharded(cache, k_last, v_last, p_last, src, keep)
+        return
     if cache.quantized:
         k_last, ks_new = quantize_kv(k_last)
         v_last, vs_new = quantize_kv(v_last)
@@ -544,6 +772,77 @@ def _dense_prefill(cache: KVCache, k, v, *, positions) -> None:
         leaf.copy_(leaf.index_select(2, src))
     cache.pos[:, :keep] = p_last
     cache.pos.copy_(cache.pos.index_select(1, src))
+
+
+def _assign(leaf, new) -> None:
+    """``leaf.copy_(new)``, a DTensor ``new`` placed as ``leaf`` first."""
+    if sharding.is_dtensor(leaf) and sharding.is_dtensor(new) and tuple(
+            new.placements) != tuple(leaf.placements):
+        new = new.redistribute(leaf.device_mesh, leaf.placements)
+    leaf.copy_(new)
+
+
+def _dense_prefill_sharded(cache: KVCache, k_last, v_last, p_last, src,
+                           keep: int) -> None:
+    """:func:`_dense_prefill`'s writes on DTensor caches, out of place and
+    then copied in (DTensor takes no in-place write that changes a
+    placement): the same values."""
+    news = [(cache.k, k_last), (cache.v, v_last)]
+    if cache.quantized:
+        k_last, ks_new = quantize_kv(k_last)
+        v_last, vs_new = quantize_kv(v_last)
+        news = [(cache.k, k_last), (cache.v, v_last),
+                (cache.k_scale, ks_new), (cache.v_scale, vs_new)]
+    for leaf, new in news:
+        full = torch.cat([new.to(leaf.dtype), leaf[:, :, keep:]], dim=2)
+        _assign(leaf, full.index_select(2, src))
+    pos = torch.cat([p_last[None].expand(cache.pos.shape[0], keep),
+                     cache.pos[:, keep:]], dim=1)
+    _assign(cache.pos, pos.index_select(1, src))
+
+
+def _put_slots(leaf, new, slots) -> None:
+    """``leaf[rows, :, slots] = new`` (``leaf[rows, slots]`` for a [B, S]
+    leaf), in place.  On a DTensor ``leaf`` the write is made on this
+    rank's shard: ``new`` and ``slots`` are placed as the leaf's rows and
+    heads, whole along the sequence, each slot is shifted by the shard's
+    first entry, and a row whose slot another shard holds keeps its entry
+    (O(B*KV*D) a step, as the unsharded write)."""
+    sdim = min(2, leaf.dim() - 1)
+    if not sharding.is_dtensor(leaf):
+        rows = torch.arange(slots.shape[0], device=slots.device)
+        leaf[(rows,) + (slice(None),) * (sdim - 1) + (slots,)] = new.to(
+            leaf.dtype)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, pl = leaf.device_mesh, leaf.placements
+    # this shard's first entry and length along the sequence, split as
+    # torch.chunk splits, mesh dim by mesh dim
+    lo, n, coord = 0, leaf.shape[sdim], mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == sdim:
+            c = -(-n // mesh.size(i))
+            lo += min(coord[i] * c, n)
+            n = max(0, min(c, n - coord[i] * c))
+    if n == 0:
+        return
+
+    def local(t, want):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, want).to_local()
+
+    new_l = local(new, [Shard(p.dim - (p.dim > sdim))
+                        if isinstance(p, Shard) and p.dim != sdim
+                        else Replicate() for p in pl]).to(leaf.dtype)
+    sl = local(slots, [p if isinstance(p, Shard) and p.dim == 0
+                       else Replicate() for p in pl]) - lo
+    hit = ((sl >= 0) & (sl < n)).view(-1, *([1] * (new_l.dim() - 1)))
+    rows = torch.arange(sl.shape[0], device=sl.device)
+    idx = (rows,) + (slice(None),) * (sdim - 1) + (sl.clamp(0, n - 1),)
+    ll = leaf.to_local()
+    ll[idx] = torch.where(hit, new_l, ll[idx])
 
 
 def _dense_decode(cache: KVCache, q, k, v, *, positions, window: int,
@@ -562,18 +861,17 @@ def _dense_decode(cache: KVCache, q, k, v, *, positions, window: int,
     s_cache = cache.k.shape[2]
     pvec = positions[:, 0].to(torch.int32)                        # [B]
     slots = (pvec % s_cache).long()
-    rows = torch.arange(q.shape[0], device=q.device)
     # two advanced indices around a slice: the broadcast [B] dim comes
     # first, so the target is [B, KV, D] ([B, KV] for the scales), as in
     # JAX's ``.at[rows, :, slots]``
     if cache.quantized:
         k, ks_new = quantize_kv(k)
         v, vs_new = quantize_kv(v)
-        cache.k_scale[rows, :, slots] = ks_new[:, :, 0]
-        cache.v_scale[rows, :, slots] = vs_new[:, :, 0]
-    cache.k[rows, :, slots] = k[:, :, 0].to(cache.k.dtype)
-    cache.v[rows, :, slots] = v[:, :, 0].to(cache.v.dtype)
-    cache.pos[rows, slots] = pvec
+        _put_slots(cache.k_scale, ks_new[:, :, 0], slots)
+        _put_slots(cache.v_scale, vs_new[:, :, 0], slots)
+    _put_slots(cache.k, k[:, :, 0], slots)
+    _put_slots(cache.v, v[:, :, 0], slots)
+    _put_slots(cache.pos, pvec, slots)
     if cache.quantized:
         return kernels.decode_attention(
             q[:, :, 0].contiguous(), cache.k, cache.v, kv_pos=cache.pos,
@@ -636,11 +934,15 @@ def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
         # _gqa_sdpa otherwise.  The kernel masks by the implicit arange(S),
         # as the Pallas kernel does: this branch only has shared [S]
         # positions, and the mask depends on their differences alone.
-        out = kernels.swa_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), window=window)
+        swa = lambda a, b, c, *_: kernels.swa_attention(  # noqa: E731
+            a.contiguous(), b.contiguous(), c.contiguous(), window=window)
+        out = (_gqa_sdpa_sharded(q, k, v, window=window, q_pos=positions,
+                                 kv_pos=positions, fn=swa)
+               if sharding.is_dtensor(q) else swa(q, k, v))
     else:
         out = _gqa_sdpa(q, k, v, window=window, q_pos=positions,
                         kv_pos=positions)
+    out = sharding.shard(out, "batch", "heads", "seq", "head_dim")
     y = dense(_merge_heads(out), params[f"{prefix}_wo"], kernels=kernels)
     return y, cache
 
@@ -674,8 +976,10 @@ def mlp(cfg, params: Params, prefix: str, x: torch.Tensor, *,
         gate = dense(x, params[f"{prefix}_wi_gate"], activation="silu",
                      kernels=kernels)
         up = dense(x, params[f"{prefix}_wi_up"], kernels=kernels)
-        return dense(gate * up, params[f"{prefix}_wo"], kernels=kernels)
+        h = sharding.shard(gate * up, "batch", "seq", "mlp")
+        return dense(h, params[f"{prefix}_wo"], kernels=kernels)
     h = dense(x, params[f"{prefix}_wi"], bias=params[f"{prefix}_bi"],
               activation="gelu", kernels=kernels)
+    h = sharding.shard(h, "batch", "seq", "mlp")
     return dense(h, params[f"{prefix}_wo"], bias=params[f"{prefix}_bo"],
                  kernels=kernels)

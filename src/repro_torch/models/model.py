@@ -11,12 +11,14 @@ their plain versions on CPU tensors).
 
 from __future__ import annotations
 
+import math
 import weakref
 from typing import Any
 
 import torch
 
 from repro_torch import device as _device
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Spec
@@ -73,6 +75,17 @@ class Model:
         Specs themselves without it."""
         return _map_specs(self._spec_tree(), fn or (lambda s: s))
 
+    def param_axes(self):
+        """The logical axes of every parameter, in the parameter tree."""
+        return _map_specs(self._spec_tree(), lambda s: s.axes)
+
+    def param_shardings(self, mesh, rules):
+        """``(mesh, placements)`` of every parameter under (mesh, rules),
+        in the parameter tree (JAX's ``NamedSharding`` tree)."""
+        with sharding.use_mesh_and_rules(mesh, rules):
+            return _map_specs(self._spec_tree(), lambda s:
+                              sharding.logical_to_sharding(s.shape, s.axes))
+
     def param_numels(self) -> list[tuple[str, int]]:
         """(path, element count) for every parameter; allocates nothing."""
         out = []
@@ -103,7 +116,7 @@ class Model:
         the frame embeddings, in JAX's order (in bf16 another order rounds
         apart)."""
         cfg = self.cfg
-        x = params["embed"][tokens.long()]
+        x = sharding.gather_rows(params["embed"], tokens.long())
         if cfg.positional == "sinusoidal":
             pos = L.sinusoidal_pos_emb(positions, cfg.d_model)
             if positions.dim() == 1:   # shared [S] -> broadcast over batch
@@ -111,7 +124,7 @@ class Model:
             x = x + pos.to(x.dtype)
         if cfg.frontend == "audio_frames" and frontend is not None:
             x = x + frontend.to(x.dtype)
-        return x
+        return sharding.shard(x, "batch", "seq", "embed")
 
     def tied_unembed(self, embed: torch.Tensor) -> torch.Tensor:
         """``embed.T`` as the contiguous [d_model, vocab] operand of the
@@ -134,7 +147,8 @@ class Model:
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         w = (self.tied_unembed(params["embed"]) if self.cfg.tie_embeddings
              else params["unembed"])
-        return L.dense(x, w, kernels=self.kernels)
+        logits = L.dense(x, w, kernels=self.kernels)
+        return sharding.shard(logits, "batch", "seq", "vocab")
 
     # ------------------------------------------------------------------ forward
     def forward(self, params: Params, batch: dict, *, mode: str = "train",
@@ -147,8 +161,16 @@ class Model:
         d_model], optional) holds the precomputed image patches the cross
         layers attend over, or the audio frames added to the embeddings.
         Differentiable when the parameters require grad; ``remat`` ('none',
-        'full' or 'dots', see ``LayerStack.apply``) applies then.
+        'full' or 'dots', see ``LayerStack.apply``) applies then.  With
+        DTensor parameters (under a mesh) the plain tensors the step makes
+        (positions, masks) count as replicated.
         """
+        with sharding.mixing(params["embed"]):
+            return self._forward(params, batch, mode=mode, caches=caches,
+                                 remat=remat)
+
+    def _forward(self, params: Params, batch: dict, *, mode: str, caches,
+                 remat: str):
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
@@ -172,9 +194,7 @@ class Model:
         every position), plus ``0.01 * aux``.  Returns (total, {"ce",
         "aux"}), differentiable in the parameters that require grad."""
         logits, _, aux = self.forward(params, batch, remat=remat)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        labels = batch["labels"].long()
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        nll = _nll(logits, batch["labels"].long())
         mask = batch.get("mask")
         mask = (torch.ones_like(nll) if mask is None
                 else mask.to(torch.float32))
@@ -193,6 +213,36 @@ class Model:
         return self.stack.cache_tree(
             batch, cache_len, getattr(torch, self.cfg.dtype),
             device=_device.resolve(device))
+
+    def cache_specs(self, batch: int, cache_len: int, *, flat: bool = True):
+        """:meth:`init_caches`'s tree on the ``meta`` device: nothing is
+        allocated.  The port keeps JAX's ``flat=True`` layout only."""
+        if not flat:
+            raise ValueError("the port keeps one cache per layer (JAX's "
+                             "flat=True layout) only")
+        return self.stack.cache_tree(batch, cache_len,
+                                     getattr(torch, self.cfg.dtype),
+                                     device=torch.device("meta"))
+
+    def cache_axes_list(self, batch: int = 1, cache_len: int = 2, *,
+                        flat: bool = True) -> list:
+        """Logical axes aligned with :func:`cache_leaves` of
+        ``cache_specs(...)``, as JAX's ``cache_axes_list(flat=True)``
+        names them: a position row is ``("batch", "kv_seq")``, a K or V
+        block ``("batch", "kv_heads", "kv_seq", "head_dim")``, anything
+        else is sharded over the batch only."""
+        out = []
+        for names, leaf in cache_leaves(self.cache_specs(batch, cache_len,
+                                                         flat=flat)):
+            rank = leaf.dim()
+            if "pos" in names:
+                out.append(("batch", "kv_seq"))
+            elif rank >= 3 and ("k" in names or "v" in names):
+                out.append(("batch", "kv_heads", "kv_seq",
+                            "head_dim")[-rank:])
+            else:
+                out.append(tuple(["batch"] + [None] * (rank - 1)))
+        return out
 
     @torch.no_grad()
     def prefill(self, params: Params, batch: dict, caches):
@@ -256,3 +306,106 @@ class Model:
             greedy = torch.argmax(logits, dim=-1).to(torch.int32)
             return last, greedy, caches
         return last, caches
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``-log_softmax(logits)[labels]`` in fp32, [B, S].  Logits sharded
+    over the vocab (a DTensor on mesh dims of size > 1) stay sharded: each
+    rank takes its vocab slice's max, sum of exponentials and label logit,
+    and the three are combined across the slices (a vocab-parallel
+    cross-entropy, where gathering the vocab would hold [B, S, V] fp32
+    tensors whole on every rank)."""
+    vdims = []
+    if sharding.is_dtensor(logits):
+        from torch.distributed.tensor import Shard
+        vdims = [i for i, p in enumerate(logits.placements)
+                 if isinstance(p, Shard) and p.dim == 2
+                 and logits.device_mesh.size(i) > 1]
+    if not vdims:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        return -torch.gather(logp, -1, labels[..., None])[..., 0]
+    return _nll_vocab_parallel(logits, labels, vdims)
+
+
+def _nll_vocab_parallel(logits, labels, vdims) -> torch.Tensor:
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    bd = [i for i, p in enumerate(logits.placements)
+          if isinstance(p, Shard) and p.dim == 0]
+    groups = [mesh.get_group(i) for i in vdims]
+    coord, idx = mesh.get_coordinate(), 0
+    for i in vdims:
+        idx = idx * mesh.size(i) + coord[i]
+    n = logits.shape[-1] // math.prod(mesh.size(i) for i in vdims)
+    lo = idx * n
+
+    def pl(**by):
+        out = [Replicate()] * mesh.ndim
+        for d, mdims in by.items():
+            for i in mdims:
+                out[i] = Shard(int(d[1:]))
+        return tuple(out)
+
+    def body(xl, yl):
+        x = xl.to(torch.float32)
+        m = x.amax(dim=-1, keepdim=True).detach()
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        z = x - m
+        se, mine = torch.exp(z).sum(dim=-1), (yl >= lo) & (yl < lo + n)
+        tz = torch.where(mine, torch.gather(
+            z, -1, torch.where(mine, yl - lo, 0)[..., None])[..., 0], 0.0)
+        for g in groups:
+            se, tz = L._SumAcross.apply(se, g), L._SumAcross.apply(tz, g)
+        return torch.log(se) - tz
+
+    f = local_map(body, out_placements=(pl(d0=bd),),
+                  in_placements=(pl(d0=bd, d2=vdims), pl(d0=bd)),
+                  device_mesh=mesh, redistribute_inputs=True)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    return f(logits, labels)
+
+
+def cache_leaves(caches) -> list:
+    """(path names, tensor) of every cache leaf in ``jax.tree.leaves``
+    order: dicts by sorted key, lists in order, a ``KVCache``'s fields as
+    JAX registers them (k, v, pos, k_scale, v_scale; None skipped), a
+    NamedTuple state's fields in order."""
+    out = []
+
+    def walk(node, names):
+        if node is None:
+            return
+        if isinstance(node, torch.Tensor):
+            out.append((names, node))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], names + [k])
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for f, v in zip(node._fields, node):
+                walk(v, names + [f])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, names + [f"[{i}]"])
+        elif isinstance(node, L.KVCache):
+            for f in ("k", "v", "pos", "k_scale", "v_scale"):
+                walk(getattr(node, f), names + [f])
+        else:
+            raise TypeError(f"cache leaf of type {type(node).__name__}")
+
+    walk(caches, [])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FLOPs model (roofline MODEL_FLOPS = 6*N*D for train, 2*N*D for inference)
+# ---------------------------------------------------------------------------
+
+def model_flops(cfg: ArchConfig, tokens: int, kind: str) -> float:
+    n_active = cfg.active_param_count()
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n_active * tokens

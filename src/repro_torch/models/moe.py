@@ -1,6 +1,6 @@
 """Mixture-of-Experts: top-k routing with capacity-based dispatch.
 
-A port of ``repro.models.moe`` for one device:
+A port of ``repro.models.moe``:
 
 * router -> top-k experts per token (fp32 logits and softmax, the top-k
   weights renormalised for k > 1) and the Switch auxiliary loss,
@@ -16,9 +16,11 @@ A port of ``repro.models.moe`` for one device:
 * a gather back to token order and the weighted top-k sum, plus the shared
   expert through :func:`~repro_torch.models.layers.dense`.
 
-The JAX version splits the tokens into one dispatch group per data shard of
-a mesh; the port has no mesh, so there is one group, and the JAX einsum
-branch is the plain version of the FFN (``kernels.ref.grouped_expert_ffn``).
+As in the JAX version the tokens split into one dispatch group per shard
+of the token batch under a mesh (:func:`_dispatch_groups`), each group
+routed with its own capacity on the rank that holds its tokens; without a
+mesh there is one group.  The JAX einsum branch is the plain version of
+the FFN (``kernels.ref.grouped_expert_ffn``).
 
 Nothing here reads a device value on the host (no ``.item()``, no boolean
 mask indexing), so a step on the card never waits for it.  JAX drops the
@@ -33,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Spec
 
@@ -57,6 +60,27 @@ def moe_specs(cfg, prefix: str = "moe") -> dict[str, Spec]:
 class MoEOut(NamedTuple):
     y: torch.Tensor
     aux_loss: torch.Tensor
+
+
+def _dispatch_groups(t: int) -> int:
+    """Number of dispatch groups: the size of the mesh axes the token
+    batch is sharded over (``moe_groups``, else ``batch``), 1 without a
+    mesh or when it does not divide the ``t`` tokens.  Each data shard
+    routes and scatters its own tokens into a ``[G, E, C_g, d]`` buffer
+    whose group dim is sharded like the tokens (JAX's ``_dispatch_groups``)."""
+    c = sharding.current()
+    if not c or c["mesh"] is None:
+        return 1
+    mapped = c["rules"].get("moe_groups") or c["rules"].get("batch")
+    if mapped is None:
+        return 1
+    if isinstance(mapped, str):
+        mapped = (mapped,)
+    sizes = sharding.mesh_shape(c["mesh"])
+    g = 1
+    for a in mapped:
+        g *= sizes.get(a, 1)
+    return g if (g > 0 and t % g == 0) else 1
 
 
 def expert_capacity(tokens: int, cfg) -> int:
@@ -116,29 +140,74 @@ def _combine(out_buf: torch.Tensor, info, t: int, k: int,
     return torch.einsum("tkd,tk->td", gathered, gate_vals.to(dtype))
 
 
+def _route_groups(cfg, router_w, xg: torch.Tensor):
+    """:func:`_route_and_dispatch` of each group of ``xg`` [G, Tg, d]:
+    (buf [G, E, Cg, d], lin, keep [G, Tg*k], gate_vals [G, Tg, k], aux [G],
+    sizes [G, E])."""
+    outs = []
+    for xi in xg.unbind(0):
+        buf, (lin, keep, gv), aux, sizes = _route_and_dispatch(
+            cfg, router_w, xi)
+        outs.append((buf, lin, keep, gv, aux, sizes))
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _combine_groups(out_buf, lin, keep, gate_vals, k: int, dtype):
+    """:func:`_combine` of each group: [G, Tg, d]."""
+    return torch.stack([
+        _combine(ob, (li, kp, gv), gv.shape[0], k, dtype)
+        for ob, li, kp, gv in zip(out_buf, lin, keep, gate_vals)])
+
+
 def moe_block(cfg, params: Params, prefix: str, x: torch.Tensor, *,
               kernels: L.Kernels = L.DEFAULT_KERNELS) -> MoEOut:
-    """x: [B, S, d] -> (y [B, S, d], aux loss)."""
+    """x: [B, S, d] -> (y [B, S, d], aux loss, the groups' mean).
+
+    Under a mesh the tokens split into the dispatch groups of
+    :func:`_dispatch_groups`; each rank routes, dispatches and combines its
+    own groups on local rows, and the expert GEMMs run on the group- and
+    expert-sharded buffer, as JAX's ``moe_block``."""
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
-    buf, info, aux, sizes = _route_and_dispatch(
-        cfg, params[f"{prefix}_router"], xt)
+    k = cfg.experts_per_token
+    xt = sharding.shard(x.reshape(t, d), "moe_groups", "embed")
+    g = _dispatch_groups(t)
+    xg = sharding.shard(xt.reshape(g, t // g, d), "moe_groups", None,
+                        "embed")
+    buf, lin, keep, gate_vals, aux, sizes = sharding.by_rows(
+        lambda w, xs: _route_groups(cfg, w, xs), params[f"{prefix}_router"],
+        xg, shared=(0,), n_out=6)
+    aux = aux.mean()
+    buf = sharding.shard(buf, "moe_groups", "experts", "expert_capacity",
+                         "embed")
     wi_gate, wi_up, wo = (params[f"{prefix}_{n}"]
                           for n in ("wi_gate", "wi_up", "wo"))
-    if L.needs_grad(buf, wi_gate, wi_up, wo):
-        # the reference's einsum branch, the one with a VJP: the grouped
-        # kernel serves inference only, there as here
+    if L.needs_grad(buf, wi_gate, wi_up, wo) or sharding.is_dtensor(buf) \
+            or g > 1:
+        # the reference's einsum branch, the one with a VJP and the mesh
+        # story: the grouped kernel serves unsharded inference only, there
+        # as here
+        wi_gate = sharding.shard(wi_gate, "experts", None, "mlp")
+        wi_up = sharding.shard(wi_up, "experts", None, "mlp")
+        wo = sharding.shard(wo, "experts", "mlp", None)
         h = torch.nn.functional.silu(
-            torch.einsum("ecd,edf->ecf", buf, wi_gate)) * torch.einsum(
-            "ecd,edf->ecf", buf, wi_up)
-        out_buf = torch.einsum("ecf,efd->ecd", h, wo)
+            torch.einsum("gecd,edf->gecf", buf, wi_gate)) * torch.einsum(
+            "gecd,edf->gecf", buf, wi_up)
+        h = sharding.shard(h, "moe_groups", "experts", "expert_capacity",
+                           "mlp")
+        out_buf = torch.einsum("gecf,efd->gecd", h, wo)
+        out_buf = sharding.shard(out_buf, "moe_groups", "experts",
+                                 "expert_capacity", "moe_out_embed")
     else:
-        out_buf = kernels.moe_ffn(buf, sizes, wi_gate, wi_up, wo)
-    y = _combine(out_buf, info, t, cfg.experts_per_token, x.dtype)
+        out_buf = kernels.moe_ffn(buf[0], sizes[0], wi_gate, wi_up, wo)[None]
+    y = sharding.by_rows(
+        lambda *a: _combine_groups(*a, k, x.dtype),
+        out_buf, lin, keep, gate_vals).reshape(t, d)
     if cfg.shared_expert:
-        g = L.dense(xt, params[f"{prefix}_shared_wi_gate"], activation="silu",
-                    kernels=kernels)
+        g_ = L.dense(xt, params[f"{prefix}_shared_wi_gate"],
+                     activation="silu", kernels=kernels)
         u = L.dense(xt, params[f"{prefix}_shared_wi_up"], kernels=kernels)
-        y = y + L.dense(g * u, params[f"{prefix}_shared_wo"], kernels=kernels)
-    return MoEOut(y=y.reshape(b, s, d), aux_loss=aux)
+        y = y + L.dense(g_ * u, params[f"{prefix}_shared_wo"],
+                        kernels=kernels)
+    return MoEOut(y=sharding.gather_inner_grad(y.reshape(b, s, d)),
+                  aux_loss=aux)

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.models.layers import DEFAULT_KERNELS, Kernels, Spec, dense
 
 Params = dict
@@ -113,7 +114,9 @@ def _rwkv_project(cfg, params: Params, prefix: str, x: torch.Tensor,
     # the LoRA's second factor is a plain fp32 product, as in the reference
     w = torch.exp(-torch.exp(params[f"{prefix}_w0"].to(torch.float32)
                              + lora @ params[f"{prefix}_wb"].to(torch.float32)))
-    return r, k, v, g, w                                # w: [B,S,d] in (0,1)
+    # w: [B,S,d] in (0,1); under a mesh the recurrence runs on batch
+    # shards only
+    return tuple(sharding.keep_batch(t) for t in (r, k, v, g, w))
 
 
 def _valid_mask(lengths: torch.Tensor | None, s: int, device):
@@ -245,13 +248,21 @@ def rwkv_mix(cfg, params: Params, prefix: str, x: torch.Tensor,
         wh = torch.where(valid[:, :, None, None], wh, 1.0)
     u = params[f"{prefix}_bonus"].to(torch.float32).reshape(h, dh)
     with _span():
-        y, s_final = _rwkv_scan(rh, kh, vh, wh, u, state.s)
+        y, s_final = sharding.by_rows(_rwkv_scan, rh, kh, vh, wh, u,
+                                      state.s, shared=(4,), n_out=2)
     # group norm over heads, then gate + output projection
-    y = (_group_norm(y).reshape(b, s, d)
+    y = (sharding.fit_split_grad(_group_norm(y).reshape(b, s, d), 2, h)
          * params[f"{prefix}_ln_gamma"]).to(x.dtype)
     out = dense(y * g, params[f"{prefix}_wo"], kernels=kernels)
     return out, RwkvState(s=s_final,
                           x_prev=_last_valid(x, lengths, state.x_prev))
+
+
+def _rwkv_step_core(rh, kh, vh, wh, uh, s):
+    """One token of the recurrence: (y [B,H,Dh], the new state)."""
+    kv = kh[..., :, None] * vh[..., None, :]                 # [B,H,Dh,Dh]
+    y = (rh[..., None, :] @ (s + uh[None, :, :, None] * kv))[..., 0, :]
+    return y, wh[..., None] * s + kv
 
 
 def rwkv_step(cfg, params: Params, prefix: str, x: torch.Tensor,
@@ -267,15 +278,14 @@ def rwkv_step(cfg, params: Params, prefix: str, x: torch.Tensor,
     rh, kh, vh, wh = head(r), head(k), head(v), head(w)
     uh = params[f"{prefix}_bonus"].to(torch.float32).reshape(h, dh)
     with _span():
-        kv = kh[..., :, None] * vh[..., None, :]             # [B,H,Dh,Dh]
-        y = (rh[..., None, :] @ (state.s + uh[None, :, :, None] * kv))[..., 0, :]
-        s_new = wh[..., None] * state.s + kv
+        y, s_new = sharding.by_rows(_rwkv_step_core, rh, kh, vh, wh, uh,
+                                    state.s, shared=(4,), n_out=2)
     x_last = x[:, -1, :]
     if lengths is not None:
         live = lengths.to(torch.int32) > 0
         s_new = torch.where(live[:, None, None, None], s_new, state.s)
         x_last = torch.where(live[:, None], x_last, state.x_prev)
-    yflat = (_group_norm(y).reshape(b, 1, d)
+    yflat = (sharding.fit_split_grad(_group_norm(y).reshape(b, 1, d), 2, h)
              * params[f"{prefix}_ln_gamma"]).to(x.dtype)
     out = dense(yflat * g, params[f"{prefix}_wo"], kernels=kernels)
     return out, RwkvState(s=s_new, x_prev=x_last)
@@ -304,6 +314,7 @@ def rwkv_channel_mix(cfg, params: Params, prefix: str, x: torch.Tensor,
     mr = x + (xs - x) * params[f"{prefix}_mix_r"]
     k = dense(mk, params[f"{prefix}_wk"], activation="relu",
               kernels=kernels) ** 2
+    k = sharding.shard(k, "batch", "seq", "mlp")
     r = torch.sigmoid(dense(mr, params[f"{prefix}_wr"], kernels=kernels))
     return (r * dense(k, params[f"{prefix}_wv"], kernels=kernels),
             _last_valid(x, lengths, x_prev))
@@ -361,7 +372,9 @@ def _mamba_project(cfg, params, prefix, x, conv_state, lengths=None, *,
     b, s, d = x.shape
     h, _, n, conv_dim = _mamba_dims(cfg)
     din = 2 * d
-    zxbcdt = dense(x, params[f"{prefix}_in_proj"], kernels=kernels)
+    # under a mesh the recurrence runs on batch shards only
+    zxbcdt = sharding.keep_batch(dense(x, params[f"{prefix}_in_proj"],
+                                       kernels=kernels))
     z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * n, h], dim=-1)
     # causal depthwise conv over the sequence with a rolling window
     kk = cfg.conv_kernel
@@ -427,7 +440,8 @@ def _mamba_out(cfg, params, prefix, y, xh, z, x, kernels):
     """D skip, gated RMSNorm and the out projection of one Mamba block."""
     b, s, h, dh = y.shape
     y = y + xh * params[f"{prefix}_d_skip"].to(torch.float32)[None, None, :, None]
-    y = y.reshape(b, s, h * dh).to(x.dtype) * F.silu(z)
+    y = sharding.fit_split_grad(y.reshape(b, s, h * dh), 2, h).to(
+        x.dtype) * F.silu(z)
     var = torch.mean(torch.square(y.to(torch.float32)), -1, keepdim=True)
     y = (y * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype)
     y = y * params[f"{prefix}_norm_gamma"]
@@ -455,11 +469,22 @@ def mamba_mix(cfg, params: Params, prefix: str, x: torch.Tensor,
     if valid is not None:
         dtf = dtf * valid[:, :, None]
     with _span():
-        y, s_final = _mamba_scan(xh, bmat.to(torch.float32),
-                                 cmat.to(torch.float32), dtf,
-                                 dtf * a[None, None, :], state.ssm)
+        y, s_final = sharding.by_rows(
+            _mamba_scan, xh, bmat.to(torch.float32), cmat.to(torch.float32),
+            dtf, dtf * a[None, None, :], state.ssm, n_out=2)
     out = _mamba_out(cfg, params, prefix, y, xh, z, x, kernels)
     return out, MambaState(ssm=s_final, conv=new_conv)
+
+
+def _mamba_step_core(xh, dtf, bm, cm, s, live, a):
+    """One token of the SSD recurrence (rows whose ``live`` is False keep
+    their state): (y [B,H,Dh], the new state)."""
+    decay = torch.exp(dtf * a[None])                        # [B, H]
+    kv = (xh * dtf[..., None])[..., :, None] * bm[:, None, None, :]
+    s_new = decay[..., None, None] * s + kv
+    if live is not None:
+        s_new = torch.where(live[:, None, None, None], s_new, s)
+    return (s_new @ cm[:, None, :, None])[..., 0], s_new
 
 
 def mamba_step(cfg, params: Params, prefix: str, x: torch.Tensor,
@@ -474,16 +499,14 @@ def mamba_step(cfg, params: Params, prefix: str, x: torch.Tensor,
     a = -torch.exp(params[f"{prefix}_a_log"].to(torch.float32))
     xh = xs.reshape(b, h, dh).to(torch.float32)
     dtf = dt[:, 0].to(torch.float32)                        # [B, H]
+    live = lengths.to(torch.int32) > 0 if lengths is not None else None
     with _span():
-        decay = torch.exp(dtf * a[None])                    # [B, H]
-        kv = ((xh * dtf[..., None])[..., :, None]
-              * bmat[:, 0].to(torch.float32)[:, None, None, :])
-        s_new = decay[..., None, None] * state.ssm + kv
-        if lengths is not None:
-            live = lengths.to(torch.int32) > 0
-            s_new = torch.where(live[:, None, None, None], s_new, state.ssm)
+        y, s_new = sharding.by_rows(
+            _mamba_step_core, xh, dtf, bmat[:, 0].to(torch.float32),
+            cmat[:, 0].to(torch.float32), state.ssm, live, a, shared=(6,),
+            n_out=2)
+        if live is not None:
             new_conv = torch.where(live[:, None, None], new_conv, state.conv)
-        y = (s_new @ cmat[:, 0].to(torch.float32)[:, None, :, None])[..., 0]
     out = _mamba_out(cfg, params, prefix, y[:, None], xh[:, None], z, x,
                      kernels)
     return out, MambaState(ssm=s_new, conv=new_conv)

@@ -20,6 +20,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -215,19 +216,37 @@ def _cross_from_cache(cfg, params: Params, h: torch.Tensor, kv,
     return L.dense(L._merge_heads(out), params["attn_wo"], kernels=kernels)
 
 
+def _sp(x):
+    """Residual-stream constraint: sequence parallel over the model axis
+    (Megatron-SP) under rules that map ``act_seq``; replicated (a no-op)
+    otherwise."""
+    return sharding.shard(x, "batch", "act_seq", "embed")
+
+
+def _gather_seq(h):
+    """The SP boundary: the sequence gathered again before a TP block."""
+    return sharding.shard(h, "batch", "seq", "embed")
+
+
+def _residual(x, y):
+    return _sp(x + y)
+
+
 def apply_slot(cfg, slot: Slot, params: Params, x: torch.Tensor, cache,
                ctx: Ctx):
     """Returns (x, new_cache, aux_loss); aux_loss is None for a slot
-    without MoE."""
-    h = L.apply_norm(cfg, params, "attn_norm", x)
+    without MoE.  The residual stream and the blocks' inputs carry JAX's
+    sharding constraints."""
+    x = _sp(x)
+    h = _gather_seq(L.apply_norm(cfg, params, "attn_norm", x))
     y, new_cache = _mixer(cfg, slot, params, h, cache, ctx)
-    x = x + y
+    x = _residual(x, y)
     if slot.ffn == "none":
         return x, new_cache, None
-    h = L.apply_norm(cfg, params, "mlp_norm", x)
+    h = _gather_seq(L.apply_norm(cfg, params, "mlp_norm", x))
     if slot.ffn == "moe":
         out = MOE.moe_block(cfg, params, "moe", h, kernels=ctx.kernels)
-        return x + out.y, new_cache, out.aux_loss
+        return _residual(x, out.y), new_cache, out.aux_loss
     if slot.ffn == "cmix":
         xp = (cache["cmix_x_prev"] if cache is not None else
               torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
@@ -237,8 +256,8 @@ def apply_slot(cfg, slot: Slot, params: Params, x: torch.Tensor, cache,
                                          kernels=ctx.kernels)
         if cache is not None:
             xp.copy_(xp_new)
-        return x + y, new_cache, None
-    x = x + L.mlp(cfg, params, "mlp", h, kernels=ctx.kernels)
+        return _residual(x, y), new_cache, None
+    x = _residual(x, L.mlp(cfg, params, "mlp", h, kernels=ctx.kernels))
     return x, new_cache, None
 
 
@@ -246,14 +265,15 @@ def apply_shared_attn(cfg, params: Params, x: torch.Tensor, cache,
                       ctx: Ctx):
     """zamba2's shared block: attention over its own cache of this call,
     then the SwiGLU MLP.  Returns (x, new_cache)."""
-    h = L.apply_norm(cfg, params, "shared_attn_norm", x)
+    x = _sp(x)
+    h = _gather_seq(L.apply_norm(cfg, params, "shared_attn_norm", x))
     y, new_cache = L.attention(cfg, params, "shared_attn", h,
                                positions=ctx.positions, cache=cache,
                                lengths=ctx.lengths, kernels=ctx.kernels)
-    x = x + y
-    h = L.apply_norm(cfg, params, "shared_mlp_norm", x)
-    return x + L.mlp(cfg, params, "shared_mlp", h, kernels=ctx.kernels), \
-        new_cache
+    x = _residual(x, y)
+    h = _gather_seq(L.apply_norm(cfg, params, "shared_mlp_norm", x))
+    return _residual(x, L.mlp(cfg, params, "shared_mlp", h,
+                              kernels=ctx.kernels)), new_cache
 
 
 class LayerStack:
@@ -318,6 +338,13 @@ class LayerStack:
                   for k, w in sp.items()} for sp in params["slots"]]
 
         def period(i, x, aux):
+            # a remat's recompute runs in the backward, outside the
+            # forward's contexts: under a mesh it mixes plain tensors with
+            # DTensors again
+            with sharding.mixing(x):
+                return _period(i, x, aux)
+
+        def _period(i, x, aux):
             for s, slot in enumerate(self.pattern):
                 sp = {k: w[i] for k, w in slots[s].items()}
                 c = caches["slots"][s][i] if use_cache else None

@@ -1,8 +1,8 @@
 """The port's training launcher on the CPU: the counterparts of
 ``tests/test_system.py``'s four tests (an injected failure and restart,
 resume across invocations, microbatching with remat) with ``--device
-cpu``, run in this process; ``--autotune`` and a ``--data-model`` mesh are
-refused."""
+cpu``, run in this process; ``--autotune``, and a ``--data-model`` mesh
+without as many ranks, are refused."""
 
 import os
 
@@ -60,7 +60,7 @@ def test_train_with_microbatching_and_remat(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags, words", [
     (["--autotune"], "--autotune measures the hand-written kernels"),
-    (["--data-model", "2", "1"], "ROADMAP Queue 1 item 14")])
+    (["--data-model", "2", "1"], "a (2, 1) mesh needs 2 ranks")])
 def test_train_refuses(tmp_path, capsys, flags, words):
     with pytest.raises(SystemExit) as e:
         train.main(["--smoke", "--device", "cpu", "--ckpt-dir",
