@@ -121,7 +121,16 @@ default ``build/chip_smoke/``):
    class (D 40, 64, 128, 240) under windows 1, 16, 100, 1024 and 4096.
    Each case's plan is logged; timed, event-timed and device-only, beside
    the plain version, one ``F.scaled_dot_product_attention`` with a boolean
-   band mask and the bound.
+   band mask and the bound.  Then the backward, ``swa_attention_bwd``, on
+   the forward kernel's own output and lse at every ``SWA_BWD_CASES`` entry
+   (gemma3-12b's local layer at B 2, mixtral's at S 8192 past its window,
+   windows 1, 16, 100 and past S, a ragged S, D 40, 64, 128 and 240), in
+   bfloat16 and float32: dq, dk and dv against the plain backward within
+   ``SWA_BWD_TOL``, the plain backward against autograd through the plain
+   forward, two calls with the same bits, the forward's output with the same
+   bits with and without the lse and its lse against the plain one; the two
+   train shapes in bf16 timed beside the plain backward, SDPA's backward and
+   the bound.
 13. ``swa_forward`` -- release every earlier model, then gemma3-12b's
    cache-less forward at full width and all 48 layers (11.6 B parameters,
    bf16, seeded random weights) on 4096 random tokens: ``Model.forward``
@@ -229,6 +238,21 @@ default ``build/chip_smoke/``):
    --arch yi-6b --smoke`` on the card: 12 steps with a failure injected at
    step 8 (restored from step 5), then a second invocation resuming from
    step 12; its checkpoint is kept for ``mesh``.
+    ``swa_train`` -- release every earlier model, then gemma3-12b at
+   full width and one period (5 local + 1 global layer, 2.33 B parameters,
+   bf16, fp32 AdamW moments) takes 3 steps of batch 2 x seq 4096 from
+   ``SyntheticLM`` through ``make_train_step`` (remat ``"full"``): every
+   loss and grad norm finite, exactly 177 ``kraken_gemm``, 10
+   ``swa_attention`` (5 and 5 recomputed) and 5 ``swa_attention_bwd``
+   launches a step, the step time and the peak (4 GB left free); one more
+   step traced.  The float32 gate: that period's gradients at batch 1 x
+   seq 2048, kernels (remat "none" and "full") against plain versions,
+   each leaf within 1e-4 relative L2.  mixtral-8x22b at full width and one
+   layer (2.9 B) takes 2 steps of batch 1 x seq 8192, past its 4096
+   window: finite, 19 ``kraken_gemm``, 2 + 1 swa launches and no
+   ``grouped_moe_gemm`` (the einsum experts under grad).  Last,
+   ``launch/train.py --arch gemma3-12b --smoke`` (seq 128, window 8) for 6
+   steps and again resuming from step 6.
 24. ``mesh`` -- a real one-rank NCCL group and a ``(1, 1)`` ``DeviceMesh``
    on the card.  Full-width bf16 yi-6b (the serve phase's init and seed):
    a prefill of 4 x 64 tokens and 4 decode steps through
@@ -260,7 +284,8 @@ Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
 swa_kernels, conv_kernels, recurrence, serve, serve_features, e2e,
 profile, tune, dense_serve, dense_e2e, moe_serve, moe_e2e, swa_forward,
 conv_nets, rwkv_serve, rwkv_e2e, zamba_serve, zamba_e2e, vlm_serve,
-vlm_e2e, audio_serve, audio_e2e, train, mesh, roofline, dryrun``.
+vlm_e2e, audio_serve, audio_e2e, train, swa_train, mesh, roofline,
+dryrun``.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Any failure raises and the exit code is not 0; without a
@@ -436,7 +461,8 @@ def phase_build(rec: dict, state: dict) -> None:
     t0 = time.perf_counter()
     report = _build.build(["kraken_gemm", "paged_attention",
                            "grouped_moe_gemm", "decode_attention",
-                           "swa_attention", "kraken_conv"], force=True)
+                           "swa_attention", "swa_attention_bwd",
+                           "kraken_conv"], force=True)
     secs = time.perf_counter() - t0
     for name, r in report.items():
         regs = [ln.strip() for ln in r["log"].splitlines()
@@ -506,6 +532,14 @@ def phase_build(rec: dict, state: dict) -> None:
     rec["build"]["grouped_moe_gemm"]["wgmma_serialised"] = moe_serial
     for ln in moe_serial:
         log(f"  ptxas grouped_moe_gemm C7520: {ln.strip()}")
+    # swa_attention_bwd's six kernels (the delta pass in f32 and bf16, the
+    # f32 FMA grid, the bf16 mma.sync grid at DP 64, 128 and 256, which hold
+    # their dq or dk/dv accumulators in registers): no spill
+    bwd = ptxas_by_function(report["swa_attention_bwd"]["log"])
+    rec["build"]["swa_attention_bwd"]["kernels"] = bwd
+    if len(bwd) != 6 or any(" 0 bytes spill stores" not in " ".join(v)
+                            for v in bwd.values()):
+        raise AssertionError(f"swa_attention_bwd kernels: {bwd}")
     dec = ptxas_by_function(report["decode_attention"]["log"])
     if len(dec) != 10 or any(" 0 bytes spill stores" not in " ".join(v)
                              for v in dec.values()):
@@ -532,7 +566,8 @@ def phase_build(rec: dict, state: dict) -> None:
         f"{'SERIALISED by ptxas (C7520)' if serial else 'not serialised'}; "
         "kraken_gemm_wgmma's 6 variants spill nothing, wgmma not "
         "serialised; swa_wgmma's 3 variants at 168 registers, no spill, "
-        "wgmma not serialised; decode_attention's 10 kernels spill nothing; "
+        "wgmma not serialised; swa_attention_bwd's 6 kernels spill "
+        "nothing; decode_attention's 10 kernels spill nothing; "
         "paged_decode_attention's 2 served tma variants spill nothing; "
         "grouped_moe_gemm's 2 wgmma tiles and its sum spill nothing, the "
         "128 x 128 one at 168 registers, wgmma "
@@ -1608,7 +1643,7 @@ PORTED_GROUPS = ("kraken_conv2d_direct",
                  "kraken_conv2d_direct: the weights' K-major copy",
                  "kraken_conv2d_direct: the split's fixed-order sum",
                  "grouped_moe_gemm", "kraken_gemm", "paged_decode_attention",
-                 "swa_attention", "decode_attention")
+                 "swa_attention", "swa_attention_bwd", "decode_attention")
 
 
 def _kernels_under(evt):
@@ -1678,6 +1713,8 @@ def device_trace(run, label: str, ranges: tuple = ()) -> dict:
         # which "paged_decode_attention_combine" meets
         if "paged_decode_attention" in key:
             return "paged_decode_attention"
+        if "swa_bwd" in key:   # the delta pass and the dQ/dK/dV grid
+            return "swa_attention_bwd"
         if "swa_wgmma" in key or "swa_fma" in key:
             return "swa_attention"
         if "decode_attention_" in key:   # the split kernel and the combine
@@ -2487,18 +2524,23 @@ def _counters():
     from repro_torch.kernels import kraken_moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import swa_attention as sw
-    return {"kraken_gemm": kg, "paged_decode_attention": pa,
-            "grouped_moe_gemm": mg, "decode_attention": dec,
-            "swa_attention": sw, "kraken_conv2d_direct": kc}
+    return {"kraken_gemm": (kg, "launches"),
+            "paged_decode_attention": (pa, "launches"),
+            "grouped_moe_gemm": (mg, "launches"),
+            "decode_attention": (dec, "launches"),
+            "swa_attention": (sw, "launches"),
+            "swa_attention_bwd": (sw, "bwd_launches"),
+            "kraken_conv2d_direct": (kc, "launches")}
 
 
 def _zero_counts() -> None:
-    for mod in _counters().values():
-        mod.launches = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def _read_counts() -> dict:
-    return {name: mod.launches for name, mod in _counters().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _counters().items()}
 
 
 def phase_dense_serve(rec: dict, state: dict) -> None:
@@ -2520,14 +2562,11 @@ def phase_dense_serve(rec: dict, state: dict) -> None:
     launches = _read_counts()
     toks = sum(len(o) for o in outs)
     dec_steps = len(prompts) * (SERVE_NEW - 1)
-    want = {"kraken_gemm": (LAYERS * 7 + 1) * (len(prompts) + dec_steps),
-            "paged_decode_attention": 0, "grouped_moe_gemm": 0,
-            "decode_attention": LAYERS * dec_steps, "swa_attention": 0,
-            "kraken_conv2d_direct": 0}
-    if launches != want:
-        raise AssertionError(f"dense path launch counts {launches} do not "
-                             f"match {len(prompts)} prefills + {dec_steps} "
-                             f"decode steps: {want}")
+    _check_launches(f"dense path ({len(prompts)} prefills + {dec_steps} "
+                    "decode steps)", launches,
+                    {"kraken_gemm": (LAYERS * 7 + 1) * (len(prompts)
+                                                        + dec_steps),
+                     "decode_attention": LAYERS * dec_steps})
     bad = [i for i, o in enumerate(outs)
            if len(o) != SERVE_NEW
            or not all(0 <= t < model.cfg.vocab_size for t in o)]
@@ -3116,6 +3155,137 @@ def swa_case(torch, sw, ref, *, name, b, h, kvh, s, d, window, dtype, timed,
     return row
 
 
+def _unit_err(got, want, tol, floor: float = 1e-30) -> tuple[float, float]:
+    """(max |got - want| / max |want|, the least atol at that unit scale
+    that passes with ``tol``'s rtol): the gradients' comparison.  The scale
+    is at least ``floor``."""
+    import torch
+    scale = want.float().abs().max().clamp_min(floor)
+    g, w = got.float() / scale, want.float() / scale
+    if not bool(torch.isfinite(g).all()):
+        return math.inf, math.inf
+    err = (g - w).abs()
+    need = (err - tol[1] * w.abs()).clamp(min=0).max()
+    return float(err.max()), float(need)
+
+
+def swa_bwd_case(torch, sw, ref, *, name, b, h, kvh, s, d, window, dtype,
+                 timed, seed):
+    """One ``swa_attention_bwd`` call on the forward kernel's own out and
+    lse: dq, dk and dv against ``ref.sliding_window_attention_bwd`` on the
+    same inputs under ``SWA_BWD_TOL`` at unit scale (each divided by its
+    largest |entry|, at least a hundredth of the three's), a second call with the
+    same bits, the forward's output with the same bits with the lse on and
+    off and its lse within ``SWA_LSE_TOL`` of the plain one's; the plain
+    backward against autograd through the plain forward in float32 (on the
+    first KV group of the first row when the [S, S] scores of the whole
+    call pass 2 GB).  When ``timed``: the kernel event-timed and
+    device-only (``graph_ms``), the plain backward, one SDPA backward (a
+    boolean band mask, ``enable_gqa``, the graph kept for repeated
+    backwards) and the bound: the backward's operations taken as 2.5 times
+    the forward's on in-window pairs, the inputs, lse and gradients moved
+    once.  A miss does not raise: the row says ``ok`` False."""
+    import torch.nn.functional as F
+    from repro_torch.core.attention_cases import SWA_BWD_TOL, SWA_LSE_TOL
+    dt = str(dtype).split(".")[-1]
+    tol = SWA_BWD_TOL[dt]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    q, k, v, dout = (draw(b, h, s, d), draw(b, kvh, s, d), draw(b, kvh, s, d),
+                     draw(b, h, s, d))
+    out, lse = sw.swa_attention(q, k, v, window=window, return_lse=True)
+    fwd_bits = torch.equal(out, sw.swa_attention(q, k, v, window=window))
+    _, want_lse = ref.sliding_window_attention(q, k, v, window=window,
+                                               return_lse=True)
+    lse_err = float((lse - want_lse).abs().max())
+    del want_lse
+    got = sw.swa_attention_bwd(q, k, v, out, dout, lse, window=window)
+    again = sw.swa_attention_bwd(q, k, v, out, dout, lse, window=window)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    want = ref.sliding_window_attention_bwd(q, k, v, out, dout, lse,
+                                            window=window)
+    # each gradient at its own scale, at least a hundredth of the three's
+    # largest entry: under window 1 dq and dk are zero up to rounding
+    floor = 0.01 * max(float(y.float().abs().max()) for y in want)
+    errs = {lab: _unit_err(x, y, tol, floor)
+            for lab, x, y in zip(("dq", "dk", "dv"), got, want)}
+    max_abs = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got, want))
+    del got, want
+    # the plain backward against autograd through the plain forward, f32
+    grp = h // kvh
+    part = (b * h * s * s * 4 > 2e9)
+    sl = (slice(0, 1), slice(0, grp)) if part else (slice(None),) * 2
+    kv_sl = (slice(0, 1), slice(0, 1)) if part else (slice(None),) * 2
+    xs = [t[sl].float().contiguous() for t in (q, dout)]
+    ys = [t[kv_sl].float().contiguous() for t in (k, v)]
+    leaves = [xs[0].requires_grad_(), ys[0].requires_grad_(),
+              ys[1].requires_grad_()]
+    with torch.enable_grad():
+        o32 = ref.sliding_window_attention(*leaves, window=window)
+        auto = torch.autograd.grad(o32, leaves, xs[1])
+    with torch.no_grad():
+        o32, l32 = ref.sliding_window_attention(*leaves, window=window,
+                                                return_lse=True)
+        plain = ref.sliding_window_attention_bwd(*leaves, o32, xs[1], l32,
+                                                 window=window)
+    floor = 0.01 * max(float(y.abs().max()) for y in auto)
+    auto_err = max(_unit_err(x, y, SWA_BWD_TOL["float32"], floor)[1]
+                   for x, y in zip(plain, auto))
+    del xs, ys, leaves, o32, auto, l32, plain
+    need = max(e[1] for e in errs.values())
+    row = {"name": name, "dtype": dt, "b": b, "h": h, "kv": kvh, "s": s,
+           "d": d, "window": window, "max_abs_err": max_abs,
+           "rel_err": {lab: e[0] for lab, e in errs.items()},
+           "atol_needed": need, "lse_err": lse_err,
+           "fwd_bits_same_with_lse": fwd_bits, "same_bits": same,
+           "plain_vs_autograd_atol_needed": auto_err,
+           "autograd_on": "one KV group" if part else "the whole call",
+           "ok": (need <= tol[0] and same and fwd_bits
+                  and lse_err <= SWA_LSE_TOL
+                  and auto_err <= SWA_BWD_TOL["float32"][0]),
+           "plan_text": sw.describe_bwd(sw.plan_bwd(b, h, kvh, s, d, window,
+                                                    dtype)),
+           "ms": None, "plain_ms": None, "library_ms": None,
+           "bound_ms": None, "bound_by": None}
+    if timed:
+        def kernel():
+            return sw.swa_attention_bwd(q, k, v, out, dout, lse,
+                                        window=window)
+        row["ms"] = time_ms(kernel, 3)
+        row["device_ms"] = graph_ms(kernel, 1, replays=2)
+        row["plain_ms"] = time_ms(lambda: ref.sliding_window_attention_bwd(
+            q, k, v, out, dout, lse, window=window), 2)
+        i = torch.arange(s, device="cuda")[:, None]
+        j = torch.arange(s, device="cuda")[None, :]
+        band = (j <= i) & (j > i - window)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=band,
+                                               enable_gqa=True)
+            row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                o, leaves, dout, retain_graph=True), 3)
+        del o, leaves, band
+        pairs = window_pairs(s, window)
+        flops = 2.5 * 4.0 * b * h * d * pairs
+        nbytes = ((4 * h + 4 * kvh) * b * s * d * q.element_size()
+                  + 4 * b * h * s)
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, peak)
+        # the operations the kernel does: 22 a pair and dim on the bf16
+        # mma path (S and dP in both passes, twice over DP's halves), 14 on
+        # the fp32 FMA path
+        row["kernel_flops"] = (22.0 if dtype == torch.bfloat16 else 14.0) \
+            * b * h * d * pairs
+        row["tflop_s"] = row["kernel_flops"] / row["ms"] / 1e9
+    del q, k, v, dout, out, lse
+    return row
+
+
 def phase_swa_kernels(rec: dict, state: dict) -> None:
     import torch
     from repro_torch.core.attention_cases import SWA_CASES, SWA_EDGE
@@ -3153,6 +3323,51 @@ def phase_swa_kernels(rec: dict, state: dict) -> None:
         f"x_sdpa {served['ms'] / served['library_ms']:.2f}, bound "
         f"{served['bound_ms']:.4f} by {served['bound_by']}); device (graph) "
         f"{served['device_ms']:.4f} (sdpa {served['device_library_ms']:.4f})")
+
+    # the backward on the forward kernel's out and lse
+    from repro_torch.core.attention_cases import SWA_BWD_CASES
+    t0 = time.perf_counter()
+    bwd = []
+    for name, b, h, kvh, s, d, window, timed in SWA_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = swa_bwd_case(torch, sw, ref, name=name, b=b, h=h, kvh=kvh,
+                             s=s, d=d, window=window, dtype=dtype,
+                             timed=timed and dtype == torch.bfloat16,
+                             seed=100 + len(bwd))
+            bwd.append(r)
+            times = ("" if r["ms"] is None else
+                     f" ms={r['ms']:.3f} ({r['tflop_s']:.1f} TFLOP/s done) "
+                     f"device={r['device_ms']:.3f} plain={r['plain_ms']:.3f}"
+                     f" sdpa_bwd={r['library_ms']:.3f} bound="
+                     f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            log(f"  swa_attention_bwd {name:22s} {r['dtype']:8s} B={b} "
+                f"H={h}/{kvh} S={s} D={d} W={window} err/max dq "
+                f"{r['rel_err']['dq']:.2e} dk {r['rel_err']['dk']:.2e} dv "
+                f"{r['rel_err']['dv']:.2e} atol_needed "
+                f"{r['atol_needed']:.2e} lse {r['lse_err']:.1e} plain-vs-"
+                f"autograd {r['plain_vs_autograd_atol_needed']:.1e} "
+                f"({r['autograd_on']})"
+                + ("" if r["same_bits"] else " BITS DIFFER")
+                + ("" if r["fwd_bits_same_with_lse"] else
+                   " FORWARD BITS MOVE WITH LSE")
+                + f" [{r['plan_text']}]{times}")
+            torch.cuda.empty_cache()
+    rec["swa_attention_bwd"] = bwd
+    bad = [r for r in bwd if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            "swa_kernels: swa_attention_bwd fails "
+            + "; ".join(f"{r['name']} {r['dtype']} need {r['atol_needed']}"
+                        f" lse {r['lse_err']} bits {r['same_bits']}/"
+                        f"{r['fwd_bits_same_with_lse']} autograd "
+                        f"{r['plain_vs_autograd_atol_needed']}" for r in bad))
+    g3 = next(r for r in bwd if r["name"] == "gemma3 local train"
+              and r["dtype"] == "bfloat16")
+    log(f"swa_kernels: swa_attention_bwd matches plain in {len(bwd)} cases "
+        f"({time.perf_counter() - t0:.1f} s); gemma3 local train bf16 "
+        f"{g3['ms']:.3f} ms per call (device {g3['device_ms']:.3f}, plain "
+        f"{g3['plain_ms']:.3f}, sdpa bwd {g3['library_ms']:.3f}, bound "
+        f"{g3['bound_ms']:.4f} by {g3['bound_by']})")
 
     # the gemma3 forward's kraken_gemm shapes, bf16 (the forward) and f32
     # (the float32 period), against the plain version: both sides of every
@@ -4098,9 +4313,10 @@ def _param_grads(model, params, batch, remat="none"):
     return loss.detach(), grads
 
 
-def _train_batch(torch, cfg, step: int) -> dict:
+def _train_batch(torch, cfg, step: int, batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ) -> dict:
     from repro_torch.data.pipeline import SyntheticLM
-    pipe = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    pipe = SyntheticLM(cfg.vocab_size, seq, batch)
     return {k: torch.as_tensor(v, device="cuda")
             for k, v in pipe.batch_at(step).items()}
 
@@ -4321,6 +4537,224 @@ def phase_train(rec: dict, state: dict) -> None:
     torch.cuda.empty_cache()
     res["cli"] = train_cli(ROOT / "build")
     rec["train"] = res
+
+
+# ---------------------------------------------------------------------------
+# phase: swa_train -- the windowed archs trained through swa_attention's
+# forward and backward kernels
+# ---------------------------------------------------------------------------
+
+# gemma3-12b at full width and one period (5 local layers of window 1024 +
+# 1 global), batch x seq from SyntheticLM, remat "full"; its float32
+# gradient gate at batch 1 x SWA_GATE_SEQ (past the window); mixtral-8x22b
+# at full width and one layer at MIXTRAL_TRAIN_SEQ, past its 4096 window
+SWA_TRAIN_BATCH, SWA_TRAIN_SEQ, SWA_TRAIN_STEPS = 2, 4096, 3
+SWA_GATE_SEQ = 2048
+MIXTRAL_TRAIN_SEQ, MIXTRAL_TRAIN_STEPS = 8192, 2
+
+
+def windowed_steps(torch, label: str, model, *, batch: int, seq: int,
+                   steps: int, want: dict, trace: bool = False) -> dict:
+    """``steps`` train steps of ``model`` (bf16 parameters, fp32 AdamW
+    moments, seeded weights) through ``launch/steps.make_train_step`` with
+    remat ``"full"``: every loss and grad norm finite, exactly ``want``
+    launches a step (0 of every other kernel), the step times and the peak
+    allocation, which must leave ``TRAIN_HEADROOM`` free; with ``trace``
+    one more step under ``device_trace`` (AdamW's kernels apart)."""
+    from repro_torch import tree as T
+    from repro_torch.launch import steps as S
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=20, total=100))
+    step_fn = S.make_train_step(model, opt, num_microbatches=1,
+                                remat="full")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ostate = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in T.leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(steps):
+        b = _train_batch(torch, model.cfg, i, batch, seq)
+        _zero_counts()
+        t0 = time.perf_counter()
+        params, ostate, m = step_fn(params, ostate, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        rows.append({"loss": loss, "ce": float(m["ce"]), "grad_norm": gn,
+                     "seconds": dt, "launches": counts})
+        log(f"  {label} train step {i}: loss {loss:.4f} gnorm {gn:.3f} "
+            f"{dt * 1e3:.1f} ms, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"swa_train: {label} step {i} loss {loss} "
+                                 f"gnorm {gn}")
+        _check_launches(f"swa_train: {label} step {i}", counts, want)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    res = {"params": n_params, "layers": model.cfg.num_layers,
+           "batch": batch, "seq": seq, "init_s": init_s, "steps": rows,
+           "peak_bytes": peak, "total_bytes": total,
+           "launches_per_step": want,
+           "warm_step_s": min(r["seconds"] for r in rows[1:])}
+    if trace:
+        res["trace"] = device_trace(
+            lambda: step_fn(params, ostate,
+                            _train_batch(torch, model.cfg, steps, batch,
+                                         seq)),
+            f"{label} train step", ranges=("adamw",))
+    log(f"  {label} full width ({n_params / 1e9:.2f} B params, "
+        f"{model.cfg.num_layers} layers, batch {batch} x seq {seq}, remat "
+        f"full): warm step {res['warm_step_s'] * 1e3:.1f} ms, peak "
+        f"{peak / 1e9:.2f} GB of {total / 1e9:.2f}, launches a step {want}")
+    if total - peak < TRAIN_HEADROOM:
+        raise AssertionError(f"swa_train: {label} peak {peak / 1e9:.2f} GB "
+                             f"leaves less than {TRAIN_HEADROOM / 1e9:.0f} "
+                             "GB free")
+    return res
+
+
+def swa_gradient_gate(torch) -> dict:
+    """gemma3-12b's one period at full width in float32, batch 1 x
+    ``SWA_GATE_SEQ`` (past the 1024 window, so the kernels' window edges
+    count): one step's gradients with the kernels (remat ``"none"`` and
+    ``"full"``, each local layer through the swa forward and backward
+    kernels) against the plain versions everywhere, each leaf within
+    ``TRAIN_GATE_TOL`` relative L2."""
+    import gc
+    from repro_torch import tree as T
+    from repro_torch.core.gemm_cases import windowed_train_launches
+    base = _gemma3(layers=GEMMA_PERIOD, dtype="float32")
+    params = base.init(torch.Generator(device="cuda").manual_seed(5))
+    batch = _train_batch(torch, base.cfg, 0, 1, SWA_GATE_SEQ)
+    _zero_counts()
+    loss_p, want = _param_grads(_gemma3(_plain_kernels(), GEMMA_PERIOD,
+                                        "float32"), params, batch)
+    _check_launches("swa_train gate: plain", _read_counts(), {})
+    out = {"loss_plain": float(loss_p)}
+    for remat in ("none", "full"):
+        _zero_counts()
+        loss, grads = _param_grads(_gemma3(None, GEMMA_PERIOD, "float32"),
+                                   params, batch, remat)
+        counts = _read_counts()
+        need = windowed_train_launches(GEMMA_PERIOD, GEMMA_PERIOD - 1, remat)
+        # the gradient alone: no AdamW, and the z relaunches are the
+        # backward's (so the train step's count)
+        _check_launches(f"swa_train gate: remat {remat}", counts, need)
+        worst, where = 0.0, ""
+        for (path, _), g, w in zip(T.leaves_with_path(params), grads, want):
+            rel = float((g.float() - w.float()).norm()
+                        / w.float().norm().clamp_min(1e-30))
+            if rel > worst:
+                worst, where = rel, path
+        out[remat] = {"loss_kernels": float(loss), "worst_rel_l2": worst,
+                      "worst_leaf": where, "launches": counts}
+        log(f"  gradient gate float32, gemma3-12b {GEMMA_PERIOD} layers, "
+            f"seq {SWA_GATE_SEQ}, remat {remat}: loss {float(loss):.6f} / "
+            f"plain {float(loss_p):.6f}, worst leaf {where} relative L2 "
+            f"{worst:.3e} (gate {TRAIN_GATE_TOL})")
+        del grads
+        gc.collect()
+    del want, params
+    bad = {r: out[r] for r in ("none", "full")
+           if not out[r]["worst_rel_l2"] <= TRAIN_GATE_TOL}
+    if bad:
+        raise AssertionError(f"swa_train: float32 gradients, kernels vs "
+                             f"plain, {bad}")
+    return out
+
+
+def swa_train_cli(out_dir: Path) -> dict:
+    """``launch/train.py --arch gemma3-12b --smoke`` on the card at its
+    default seq 128 (the swa branch, smoke window 8): 6 steps with a
+    checkpoint at step 3 and 6, then a second invocation resuming from step
+    6; every logged loss finite."""
+    import os
+    import shutil
+    ck = out_dir / "swa_train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "gemma3-12b", "--smoke", "--ckpt-dir", str(ck), "--ckpt-every",
+            "3", "--log-every", "1"]
+    runs = {}
+    for label, extra, want in (
+            ("first", ["--steps", "6"], ["done: 6 steps"]),
+            ("resume", ["--steps", "9"],
+             ["[restore] resumed from step 6", "done: 9 steps"])):
+        t0 = time.perf_counter()
+        res = subprocess.run(base + extra, capture_output=True, text=True,
+                             env=env, timeout=300)
+        secs = time.perf_counter() - t0
+        for ln in res.stdout.splitlines():
+            log(f"  swa train cli {label}: {ln}")
+        losses = [float(ln.split(" loss ")[1].split()[0])
+                  for ln in res.stdout.splitlines() if " loss " in ln]
+        missing = [w for w in want if w not in res.stdout]
+        if res.returncode or missing or not losses or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"swa train cli {label}: rc "
+                                 f"{res.returncode}, missing {missing}, "
+                                 f"losses {losses}: {res.stderr[-2000:]}")
+        runs[label] = {"seconds": secs, "losses": losses}
+    shutil.rmtree(ck, ignore_errors=True)
+    return runs
+
+
+def phase_swa_train(rec: dict, state: dict) -> None:
+    """gemma3-12b (one period) and mixtral-8x22b (one layer) trained at
+    full width through swa_attention's forward and backward kernels, the
+    float32 gradient gate, and the launcher on gemma3's smoke config."""
+    import gc
+    import torch
+    from repro_torch.core.gemm_cases import windowed_train_launches
+    state.clear()                       # every earlier phase's model
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_alloc = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                        torch.cuda.memory._set_allocator_settings)
+    set_alloc("expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {}
+    t0 = time.perf_counter()
+    res["gemma3"] = windowed_steps(
+        torch, "gemma3-12b", _gemma3(layers=GEMMA_PERIOD),
+        batch=SWA_TRAIN_BATCH, seq=SWA_TRAIN_SEQ, steps=SWA_TRAIN_STEPS,
+        want=windowed_train_launches(GEMMA_PERIOD, GEMMA_PERIOD - 1),
+        trace=True)
+    res["gemma3"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["gate"] = swa_gradient_gate(torch)
+    res["gate"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the experts run the einsum path under grad, as JAX's do: no
+    # grouped_moe_gemm launch (the launch check wants 0 of it)
+    res["mixtral"] = windowed_steps(
+        torch, "mixtral-8x22b", _mixtral(layers=1),
+        batch=1, seq=MIXTRAL_TRAIN_SEQ, steps=MIXTRAL_TRAIN_STEPS,
+        want=windowed_train_launches(1, 1, dense=4, gated=0))
+    res["mixtral"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["cli"] = swa_train_cli(ROOT / "build")
+    res["cli"]["seconds"] = time.perf_counter() - t0
+    rec["swa_train"] = res
+    g, m = res["gemma3"], res["mixtral"]
+    log(f"swa_train: gemma3-12b {g['layers']} layers ({g['params'] / 1e9:.2f}"
+        f" B) batch {g['batch']} x {g['seq']}: warm step "
+        f"{g['warm_step_s'] * 1e3:.1f} ms, peak {g['peak_bytes'] / 1e9:.2f} "
+        f"GB; gate within {TRAIN_GATE_TOL}; mixtral-8x22b 1 layer "
+        f"({m['params'] / 1e9:.2f} B) seq {m['seq']}: warm step "
+        f"{m['warm_step_s'] * 1e3:.1f} ms, peak {m['peak_bytes'] / 1e9:.2f} "
+        f"GB; the smoke launcher resumed")
 
 
 # ---------------------------------------------------------------------------
@@ -4871,7 +5305,12 @@ def kernels_line(rec: dict) -> dict:
                    for key, r in rec.get("conv_nets", {}).items()},
                 "yi-6b train step": next(iter(
                     rec.get("train", {}).get("steps", [])), {}).get(
-                    "launches", {}).get(name)}
+                    "launches", {}).get(name),
+                **{f"{arch} train step": next(iter(
+                    rec.get("swa_train", {}).get(key, {}).get("steps", [])),
+                    {}).get("launches", {}).get(name)
+                   for key, arch in (("gemma3", "gemma3-12b"),
+                                     ("mixtral", "mixtral-8x22b"))}}
 
     entries = []
     if "gemm" in rec:
@@ -4950,6 +5389,40 @@ def kernels_line(rec: dict) -> dict:
              "shape": f"one gemma3-12b forward: {GEMMA_LOCAL} local layers x "
                       f"(B 1, 16/8 heads, D 240, S {SWA_SEQ}, window 1024), "
                       "bf16; library = SDPA with a boolean band mask"})
+    if "swa_attention_bwd" in rec:
+        rows = rec["swa_attention_bwd"]
+        g3 = next(r for r in rows if r["name"] == "gemma3 local train"
+                  and r["dtype"] == "bfloat16")
+        mx = next(r for r in rows if r["name"] == "mixtral train"
+                  and r["dtype"] == "bfloat16")
+        local = GEMMA_PERIOD - 1
+
+        def step(key):   # one gemma3 train step: 5 local layers
+            return local * g3[key]
+
+        entries.append(
+            {"name": "swa_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/csrc/swa_attention_bwd.cu",
+             "replaces": "none: the gradient of "
+                         "src/repro/kernels/swa_attention.py:74, whose "
+                         "pallas_call (:124) has no transpose",
+             "launches": next(iter(rec.get("swa_train", {}).get(
+                 "gemma3", {}).get("steps", [])), {}).get(
+                 "launches", {}).get("swa_attention_bwd"),
+             "launches_by_path": by_path("swa_attention_bwd"),
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": step("ms"), "plain_ms": step("plain_ms"),
+             "bound_ms": step("bound_ms"), "bound_by": g3["bound_by"],
+             "library_ms": step("library_ms"),
+             "device_ms": step("device_ms"), "plan": g3["plan_text"],
+             "mixtral_train_step": {key: mx[key] for key in (
+                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+             "shape": f"one gemma3-12b train step: {local} local layers x "
+                      "(B 2, 16/8 heads, D 240, S 4096, window 1024), "
+                      "bf16; mixtral_train_step: one call at B 1, 48/8 "
+                      "heads of 128, S 8192, window 4096; library = the "
+                      "backward of SDPA with a boolean band mask, "
+                      "enable_gqa"})
     if "conv_kernels" in rec:
         entries.append(conv_entry(rec, by_path))
     return {"kernels": entries}
@@ -4978,6 +5451,8 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
                               ("e2e", frontend_e2e))},
           # last: it releases every earlier phase's model
           "train": phase_train,
+          # after train, which it follows in releasing every earlier model
+          "swa_train": phase_swa_train,
           # after train: its checkpoint and its warm step
           "mesh": phase_mesh, "roofline": phase_roofline,
           "dryrun": phase_dryrun}

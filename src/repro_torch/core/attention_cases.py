@@ -218,3 +218,37 @@ SWA_EDGE = [(f"D {d} window {w}", 1, 4, 2, 1200, d, w)
 # sums in another order, ~1.5e-6.
 SWA_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-5, 1e-5)}
 SWA_ROW_KEYS = 25
+
+# ---- swa_attention_bwd: the windowed archs' training ------------------------
+
+# (name, B, H, KV, S, D, window, timed): the local layers of a gemma3-12b
+# train step (B 2, S 4096) and mixtral-8x22b's (S 8192, past its 4096
+# window), then windows 1, 16 and 100, a window past S, a ragged S with D
+# 40, and D 64, 128 and 240 over a ragged S 1200; each in bf16 and f32
+SWA_BWD_CASES = [
+    ("gemma3 local train", 2, 16, 8, GEMMA_SEQ, 240, 1024, True),
+    ("mixtral train", 1, 48, 8, 8192, 128, 4096, True),
+    ("edge window 1", 2, 4, 2, 256, 64, 1, False),
+    ("edge window 16", 2, 4, 2, 256, 64, 16, False),
+    ("edge window 100", 2, 4, 2, 256, 64, 100, False),
+    ("window past S", 1, 8, 2, 512, 128, 4096, False),
+    ("ragged S 200, D 40", 2, 4, 2, 200, 40, 16, False),
+    ("D 64, ragged S 1200", 1, 4, 2, 1200, 64, 100, False),
+    ("D 128, ragged S 1200", 1, 4, 2, 1200, 128, 1024, False),
+    ("D 240, ragged S 1200", 1, 4, 2, 1200, 240, 1024, False),
+]
+# swa_attention_bwd's dq, dk and dv against the plain backward on the same
+# inputs (the kernel's own out and lse), (atol, rtol) by dtype on each
+# gradient divided by its largest |entry| (at least a hundredth of the
+# three gradients' largest: under window 1 dq and dk are zero up to
+# rounding).  bf16: the kernel rounds P and dS to bf16 as its second
+# products' operands (relative 2^-9 a term, which falls as 1/sqrt(terms)
+# in a sum: ~1e-3 of the largest entry) and both sides round the output
+# once (an ulp, 2^-8 relative, within rtol).  f32: both sum fp32 products
+# of the same inputs in another order, over up to G * W = 24576 terms.
+# The plain backward is held to autograd through the plain forward in
+# float32 under the float32 tolerance.
+SWA_BWD_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-4, 1e-4)}
+# the forward's lse against the plain version's, absolute: both take fp32
+# sums of the same (exact) products in another order
+SWA_LSE_TOL = 1e-4

@@ -152,5 +152,21 @@ def train_launches(layers: int = YI_LAYERS, remat: str = "full") -> int:
     layer + the unembed, under ``remat="full"`` every layer's again (the
     unembed is outside the checkpointed periods), two backward products a
     call and one recomputed z a silu gate."""
-    fwd = 7 * layers + 1
-    return fwd + (fwd - 1 if remat == "full" else 0) + 2 * fwd + layers
+    return windowed_train_launches(layers, 0, remat)["kraken_gemm"]
+
+
+def windowed_train_launches(layers: int, local: int, remat: str = "full", *,
+                            dense: int = 7, gated: int = 1) -> dict:
+    """Launches of one train step of a windowed arch at ``layers`` layers,
+    ``local`` of them through ``swa_attention``: ``kraken_gemm``'s as
+    :func:`train_launches` counts them for ``dense`` products a layer (7:
+    q, k, v, o, the gate, up, down; mixtral's 4, its experts on the einsum
+    path under grad) and ``gated`` silu gates a layer whose z is
+    recomputed; the forward kernel once a local layer and again in the
+    recompute of remat ``"full"`` or ``"dots"`` (which keeps the GEMMs'
+    outputs, not the attention's), and the backward kernel once."""
+    fwd = dense * layers + 1
+    gemm = fwd + (fwd - 1 if remat == "full" else 0) + 2 * fwd + gated * layers
+    return {"kraken_gemm": gemm,
+            "swa_attention": local * (1 if remat == "none" else 2),
+            "swa_attention_bwd": local}

@@ -22,6 +22,13 @@
 // p.astype(v_ref.dtype) does there, while l sums the unrounded ones; the
 // output is acc / l in q's dtype.
 //
+// The row log-sum-exp (training): given an fp32 `lse` [B, H, S], each row
+// also writes lse_i = log(sum_j exp(s_ij)) of its scaled scores in natural
+// log units on both paths (the FMA kernel keeps m in natural units, the
+// wgmma kernel in log2 units and converts: (m + log2 l) * ln 2), so that
+// swa_attention_bwd.cu recomputes P = exp(s - lse).  A null `lse` writes
+// nothing and leaves the output's bits as they are.
+//
 // What bounds it on an H100: per q tile it does 4 * BQ * BKV * D operations
 // on every kv tile it loads, so at gemma3's D 240 and W 1024 it is bound by
 // the tensor cores (989 TFLOP/s bf16), not by memory.
@@ -149,7 +156,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 swa_fma(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-        float* __restrict__ out, int H, int KV, int S, int D, int W, float scale) {
+        float* __restrict__ out, float* __restrict__ lse, int H, int KV, int S, int D, int W,
+        float scale) {
   const Geometry g(D);
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
@@ -242,10 +250,13 @@ swa_fma(const float* __restrict__ q, const float* __restrict__ k, const float* _
     const float lr = l[idx / D];
     o[idx] = acc[idx] / (lr == 0.f ? 1.f : lr);
   }
+  if (lse != nullptr)
+    for (int r = threadIdx.x; r < nq; r += NTHREADS)
+      lse[static_cast<size_t>(bh) * S + q0 + r] = m[r] + logf(l[r]);
 }
 
-int launch(const void* q, const void* k, const void* v, void* out, const Plan& p, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, const Plan& p,
+           float scale, cudaStream_t stream) {
   const Geometry g(p.D);
   if (static_cast<long long>(g.bytes) != p.smem || p.smem > SMEM_MAX ||
       p.qtiles != (p.S + BQ - 1) / BQ || p.blocks != p.qtiles * p.B * p.H ||
@@ -257,7 +268,7 @@ int launch(const void* q, const void* k, const void* v, void* out, const Plan& p
   const dim3 grid(p.qtiles, p.B * p.H);
   swa_fma<<<grid, NTHREADS, p.smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), p.H, p.KV, p.S, p.D, p.W, scale);
+      static_cast<float*>(out), lse, p.H, p.KV, p.S, p.D, p.W, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -280,6 +291,7 @@ constexpr int STAGES_MAX = 4;
 constexpr int RESERVED = 2048;       // the 1024-byte alignment and the barriers
 constexpr int THREADS = 384;         // consumer warpgroups 0 and 1, producer 2
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int N>
 __device__ __forceinline__ void mma_pv(float (&o)[N / 2], const uint32_t (&a)[4], uint64_t db);
@@ -357,7 +369,7 @@ template <int DB>
 __global__ void __launch_bounds__(THREADS, 1)
 swa_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-          const Plan p, float scale_log2) {
+          float* __restrict__ lse, const Plan p, float scale_log2) {
   constexpr int Q_BYTES = DB * QBOX, KV_BYTES = DB * KVBOX, STAGE = 2 * KV_BYTES;
   constexpr int NPV = 64 * DB;   // the PV product's N: D padded to 64, 128 or 256
   extern __shared__ unsigned char smem_raw[];
@@ -499,6 +511,9 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
         *reinterpret_cast<__nv_bfloat162*>(dst + c) =
             __floats2bfloat162_rn(o[4 * i + 2 * hh] * inv, o[4 * i + 2 * hh + 1] * inv);
     }
+    // the row's log-sum-exp in natural units: m and the scores are in log2
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<size_t>(bh) * p.S + r] = (m[hh] + log2f(l[hh])) * LN2;
   }
 }
 
@@ -515,8 +530,8 @@ bool plan_ok(const Plan& p) {
 }
 
 template <int DB>
-int launch(const void* q, const void* k, const void* v, void* out, const Plan& p, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, const Plan& p,
+           float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   memset(&qmap, 0, sizeof qmap);
   memset(&kmap, 0, sizeof kmap);
@@ -544,8 +559,8 @@ int launch(const void* q, const void* k, const void* v, void* out, const Plan& p
     if (dev < 64) sized[dev] = true;
   }
   kernel<<<p.blocks, THREADS, p.smem, stream>>>(qmap, kmap, vmap,
-                                                static_cast<__nv_bfloat16*>(out), p,
-                                                scale * LOG2E);
+                                                static_cast<__nv_bfloat16*>(out), lse,
+                                                p, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -557,13 +572,14 @@ int launch(const void* q, const void* k, const void* v, void* out, const Plan& p
 extern "C" const char* swa_attention_plan_fields() { return SWA_ATTENTION_PLAN(PLAN_NAME); }
 
 // q and out [B, H, S, D], k and v [B, KV, S, D], all of one dtype, contiguous
-// and 16-byte aligned; `plan` holds `nplan` ints in the order of
+// and 16-byte aligned; `lse` an fp32 [B, H, S] for the rows' log-sum-exp, or
+// null; `plan` holds `nplan` ints in the order of
 // kernels/swa_attention.py's PLAN_FIELDS: path 0 is float32 (the FMA
 // kernel), path 1 bfloat16 (wgmma).  H % KV == 0, D % 8 == 0 and D <= 256,
 // window W >= 1.  Launches on `stream` and returns cudaGetLastError() (0 on
 // success); a plan it does not take returns cudaErrorInvalidValue without
 // launching, a failed tensor-map encoding its CUresult.
-extern "C" int swa_attention(const void* q, const void* k, const void* v, void* out,
+extern "C" int swa_attention(const void* q, const void* k, const void* v, void* out, void* lse,
                              const int* plan, int nplan, float scale, void* stream) {
   if (nplan != PLAN_INTS) return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
@@ -572,9 +588,10 @@ extern "C" int swa_attention(const void* q, const void* k, const void* v, void* 
       p.D % 8 != 0 || p.D > 256 || p.W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.path == 0) return fp32::launch(q, k, v, out, p, scale, s);
+  float* l = static_cast<float*>(lse);
+  if (p.path == 0) return fp32::launch(q, k, v, out, l, p, scale, s);
   if (p.path != 1 || !bf16::plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
-  if (p.DB == 1) return bf16::launch<1>(q, k, v, out, p, scale, s);
-  if (p.DB == 2) return bf16::launch<2>(q, k, v, out, p, scale, s);
-  return bf16::launch<4>(q, k, v, out, p, scale, s);
+  if (p.DB == 1) return bf16::launch<1>(q, k, v, out, l, p, scale, s);
+  if (p.DB == 2) return bf16::launch<2>(q, k, v, out, l, p, scale, s);
+  return bf16::launch<4>(q, k, v, out, l, p, scale, s);
 }

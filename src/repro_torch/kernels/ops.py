@@ -278,19 +278,50 @@ def kraken_decode_attention(q, k, v, *, kv_pos, q_pos, k_scale=None,
                                 window=window)
 
 
+class SwaAttention(torch.autograd.Function):
+    """:func:`swa_attention` with a gradient, modelled on
+    :class:`KrakenMatmul`.  On CUDA tensors the forward launches the
+    ``swa_attention`` kernel with the rows' log-sum-exp and saves q, k, v,
+    the output and the lse; the backward launches the hand-written
+    ``swa_attention_bwd`` kernel on a contiguous ``dout`` (autograd may hand
+    an expanded one).  On CPU tensors both halves are the plain versions
+    (``ref.sliding_window_attention`` with ``return_lse``,
+    ``ref.sliding_window_attention_bwd``).  A call the kernels do not take
+    raises: nothing gives way to the plain version or to another
+    attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        if _on_cuda(q):
+            out, lse = _swa.swa_attention(q, k, v, window=window,
+                                          return_lse=True)
+        else:
+            out, lse = ref.sliding_window_attention(q, k, v, window=window,
+                                                    return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = (_swa.swa_attention_bwd if _on_cuda(q)
+               else ref.sliding_window_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse,
+                         window=ctx.window)
+        return dq, dk, dv, None
+
+
 def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
     """Causal sliding-window attention over a whole sequence: q
     [B, H, S, D], k/v [B, KV, S, D]; token ``i`` attends to ``j`` iff
-    ``i - window < j <= i``.  The kernel has no backward: under grad on
-    the card it raises (ROADMAP Queue 1 item 15); on the CPU the plain
-    version is differentiable."""
+    ``i - window < j <= i``.  When autograd records (grad enabled and an
+    operand requiring it) the call goes through :class:`SwaAttention`,
+    whose backward is a kernel too; otherwise it is the direct call the
+    serving paths make."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return SwaAttention.apply(q, k, v, window)
     if _on_cuda(q):
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "swa_attention has no gradient on the card yet (ROADMAP "
-                "Queue 1 item 15: training the windowed archs); it never "
-                "falls back to another attention")
         return _swa.swa_attention(q, k, v, window=window)
     return ref.sliding_window_attention(q, k, v, window=window)
 

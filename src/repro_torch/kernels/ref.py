@@ -106,7 +106,8 @@ def grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo) -> torch.Tensor:
 
 
 def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, *, window: int) -> torch.Tensor:
+                             v: torch.Tensor, *, window: int,
+                             return_lse: bool = False):
     """Plain ``swa_attention``: causal sliding-window attention over a whole
     sequence in fp32 (``repro.kernels.ref.sliding_window_attention``).
 
@@ -114,20 +115,62 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     ``h // (H // KV)``, as ``jnp.repeat`` of the KV heads and the Pallas
     kernel's ``kv_head`` map both give.  Token ``i`` attends to key ``j``
     iff ``i - window < j <= i``.  Scores, softmax and the value product are
-    fp32; the output is in q's dtype.
+    fp32; the output is in q's dtype.  With ``return_lse`` also each row's
+    log-sum-exp of its scaled scores, fp32 [B, H, S].
     """
     b, h, s, d = q.shape
     kvh = k.shape[1]
     qg = q.reshape(b, kvh, h // kvh, s, d).to(torch.float32)
     logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) \
         * (1.0 / math.sqrt(d))
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
-    mask = (j <= i) & (j > i - window)
-    logits = logits.masked_fill(~mask, float("-inf"))
+    logits = logits.masked_fill(~_window_mask(s, window, q.device),
+                                float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(torch.float32))
-    return out.reshape(b, h, s, d).to(q.dtype)
+    out = out.reshape(b, h, s, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, h, s)
+
+
+def _window_mask(s: int, window: int, device) -> torch.Tensor:
+    """[S, S]: key ``j`` is inside query ``i``'s causal window."""
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    return (j <= i) & (j > i - window)
+
+
+def sliding_window_attention_bwd(q, k, v, out, dout, lse, *, window: int):
+    """Plain ``swa_attention_bwd``: the gradient of
+    :func:`sliding_window_attention` with respect to q, k and v, the
+    probabilities recomputed from the forward's ``lse`` (fp32 [B, H, S]), in
+    fp32: ``P = exp(s - lse)`` inside the window, ``dS = P (dP - delta)``
+    with ``dP = dout v^T`` and ``delta = rowsum(dout * out)``; ``dq = scale
+    dS k``, ``dk = scale dS^T q`` and ``dv = P^T dout`` summed over the
+    group's query heads.  One KV head's group at a time, so that the [S, S]
+    tiles of one group are the most it holds.  Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    mask = _window_mask(s, window, q.device)
+    delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for c in range(kvh):
+        hs = slice(c * g, (c + 1) * g)
+        qf, do = q[:, hs].to(torch.float32), dout[:, hs].to(torch.float32)
+        kf, vf = k[:, c].to(torch.float32), v[:, c].to(torch.float32)
+        logits = torch.einsum("bgqd,bsd->bgqs", qf, kf) * scale
+        p = torch.where(mask, torch.exp(logits - lse[:, hs, :, None]), 0.0)
+        dp = torch.einsum("bgqd,bsd->bgqs", do, vf)
+        ds = p * (dp - delta[:, hs, :, None])
+        dq[:, hs] = (torch.einsum("bgqs,bsd->bgqd", ds, kf)
+                     * scale).to(q.dtype)
+        dk[:, c] = (torch.einsum("bgqs,bgqd->bsd", ds, qf)
+                    * scale).to(k.dtype)
+        dv[:, c] = torch.einsum("bgqs,bgqd->bsd", p, do).to(v.dtype)
+    return dq, dk, dv
 
 
 def paged_decode_attention(q, k_pages, v_pages, *, pos_pages, page_table,

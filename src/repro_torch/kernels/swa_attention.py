@@ -16,9 +16,22 @@ tiles read in ``DB`` boxes of 64 columns of D, scores and the online softmax
 in registers, the probabilities rounded to bf16 before the PV product as the
 Pallas kernel does; :func:`tile_walk` lists the kv tiles each warpgroup
 takes and which of them evaluate the mask.  float32 keeps the first port's
-FMA kernel.  The wrapper takes CUDA tensors only and launches the kernel or
-raises; the plain version is
-:func:`repro_torch.kernels.ref.sliding_window_attention`.
+FMA kernel.  With ``return_lse`` the kernel also writes each row's
+log-sum-exp (fp32, natural log units), which training saves.
+
+:func:`swa_attention_bwd` is the gradient, the hand-written
+``csrc/swa_attention_bwd.cu`` (no TPU kernel has one): a delta pass, then
+one grid of dQ blocks (one per (batch x head, q tile), walking its
+window's kv tiles) and dK/dV blocks (one per (batch x KV head, key tile),
+walking the q tiles that see those keys for each query head of the group
+in order), no atomics.  bfloat16 runs on the tensor cores (``mma.sync``,
+64-row q tiles, 64-key tiles, 32-row steps of a dK/dV block, D padded to
+``DP``), float32 on FMA (32-row tiles).  :func:`plan_bwd` lays a call out
+(:data:`BWD_PLAN_FIELDS`), :func:`bwd_tile_walk` lists both walks.
+
+The wrappers take CUDA tensors only and launch the kernel or raise; the
+plain versions are :func:`repro_torch.kernels.ref.sliding_window_attention`
+and :func:`~repro_torch.kernels.ref.sliding_window_attention_bwd`.
 """
 
 from __future__ import annotations
@@ -32,8 +45,10 @@ import torch
 from repro_torch.core.elastic import SMEM_BUDGET, ceil_div, round_up
 from repro_torch.kernels import _build
 
-#: launches of the kernel in this process; callers may reset it to 0
+#: launches of the forward kernel and of the backward (its delta pass and
+#: its dQ/dK/dV grid count as one) in this process; callers may reset them
 launches = 0
+bwd_launches = 0
 
 #: bfloat16: q rows a block (two warpgroups of 64), keys a kv tile, bytes of
 #: a 64-element swizzled row, ring stages at most, bytes kept for the
@@ -53,8 +68,21 @@ PLAN_FIELDS = ("path", "B", "H", "KV", "S", "D", "W",
                # bfloat16: the wgmma kernel
                "DB", "stages", "qtiles", "blocks", "smem")
 
+#: the backward's paths (float32 on FMA, bfloat16 on mma.sync) and their
+#: tiles: (a dQ block's q rows, keys of a kv tile, q rows of a dK/dV
+#: block's step)
+PATH_MMA = 1
+BWD_TILES = {PATH_FMA: (32, 32, 32), PATH_MMA: (64, 64, 32)}
+#: the backward kernel's plan, in this order (``SWA_ATTENTION_BWD_PLAN`` in
+#: swa_attention_bwd.cu, checked on load like :data:`PLAN_FIELDS`)
+BWD_PLAN_FIELDS = ("path", "B", "H", "KV", "S", "D", "W",
+                   # bfloat16: D padded to DP columns
+                   "DP", "qtiles", "kvtiles", "dq_blocks", "dkv_blocks",
+                   "smem")
+
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+_bwd_lib = None
 
 
 def _library():
@@ -62,7 +90,7 @@ def _library():
     if _lib is None:
         lib = _build.load("swa_attention")
         fn = lib.swa_attention
-        fn.argtypes = ([ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                           ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -156,15 +184,11 @@ def _launch_plan(b, h, kv, s, d, window, dtype):
     return q, (ctypes.c_int * len(PLAN_FIELDS))(*(q[f] for f in PLAN_FIELDS))
 
 
-def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int) -> torch.Tensor:
-    """q: [B, H, S, D]; k/v: [B, KV, S, D] in q's dtype (float32 or
-    bfloat16), contiguous, ``H % KV == 0``, ``D % 8 == 0`` and ``D <= 256``;
-    ``window >= 1``.  Returns [B, H, S, D] in q's dtype."""
-    global launches
-    window = int(window)
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+           what: str = "swa_attention") -> None:
+    """Raise ValueError for operands the kernels do not take."""
     if window < 1:
-        raise ValueError(f"swa_attention needs a window >= 1, got {window}")
+        raise ValueError(f"{what} needs a window >= 1, got {window}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q/k must be [B, H, S, D], got {tuple(q.shape)} and "
                          f"{tuple(k.shape)}")
@@ -176,37 +200,202 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v {tuple(v.shape)}: need k/v [B, KV, S, D] with "
                          "H % KV == 0")
     if d % 8 or d > 256:
-        raise ValueError(f"swa_attention takes a head dim D % 8 == 0 up to "
+        raise ValueError(f"{what} takes a head dim D % 8 == 0 up to "
                          f"256, got D={d}")
     if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}: "
                          "need one of float32, bfloat16")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"swa_attention needs CUDA tensors on one "
+            raise ValueError(f"{what} needs CUDA tensors on one "
                              f"device, got {name} on {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
-    out = torch.empty_like(q)
-    if b == 0 or s == 0:
-        return out
-    pl, fields = _launch_plan(b, h, kvh, s, d, window, q.dtype)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), fields,
-            len(PLAN_FIELDS), 1.0 / math.sqrt(d))
-    lib = _library()
-    # the raw current stream, as PyTorch's own Triton launcher reads it
-    dev = q.get_device()
+
+
+def _call(fn, dev: int, *args) -> int:
+    """``fn(*args, stream)`` on device ``dev``'s current raw stream (as
+    PyTorch's own Triton launcher reads it)."""
     if dev == torch._C._cuda_getDevice():
-        err = lib.swa_attention(*args, torch._C._cuda_getCurrentRawStream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = lib.swa_attention(*args,
-                                    torch._C._cuda_getCurrentRawStream(dev))
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int, return_lse: bool = False):
+    """q: [B, H, S, D]; k/v: [B, KV, S, D] in q's dtype (float32 or
+    bfloat16), contiguous, ``H % KV == 0``, ``D % 8 == 0`` and ``D <= 256``;
+    ``window >= 1``.  Returns [B, H, S, D] in q's dtype, and with
+    ``return_lse`` also each row's log-sum-exp of its scaled scores, fp32
+    [B, H, S] in natural log units (the output's bits are the same)."""
+    global launches
+    window = int(window)
+    _check(q, k, v, window)
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if b == 0 or s == 0:
+        return (out, lse) if return_lse else out
+    pl, fields = _launch_plan(b, h, kvh, s, d, window, q.dtype)
+    err = _call(_library().swa_attention, q.get_device(), q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), fields,
+                len(PLAN_FIELDS), 1.0 / math.sqrt(d))
     if err:
         raise RuntimeError(f"swa_attention launch failed: CUDA error {err} "
                            f"(B={b} H={h} KV={kvh} S={s} D={d} W={window} "
                            f"{q.dtype}; plan {describe(pl)})")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("swa_attention_bwd")
+        fn = lib.swa_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 10
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.swa_attention_bwd_plan_fields.restype = ctypes.c_char_p
+        theirs = lib.swa_attention_bwd_plan_fields().decode().rstrip(",")
+        if theirs != ",".join(BWD_PLAN_FIELDS):
+            raise RuntimeError(
+                "swa_attention_bwd.cu's plan fields differ from "
+                f"BWD_PLAN_FIELDS: {theirs} != {','.join(BWD_PLAN_FIELDS)}")
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _bwd_smem(d: int, dp: int) -> int:
+    """The backward kernel's shared memory.  float32 (``fp32::Geometry``
+    in swa_attention_bwd.cu): the Q, dO, K and V tiles of 32 rows at stride
+    D + 1, the P and dS tiles at stride 33, two [32, D] accumulators and the
+    rows' lse and delta, each region 128-byte aligned.  bfloat16
+    (``mma::Geometry``, ``dp`` > 0): four bf16 tiles of 64 rows at stride
+    DP + 8 and 64 lse and delta."""
+    if dp:
+        return 4 * 2 * 64 * (dp + 8) + 4 * 2 * 64
+    tile = round_up(4 * 32 * (d + 1), 128)
+    ptile = round_up(4 * 32 * 33, 128)
+    acc = round_up(4 * 32 * d, 128)
+    return 4 * tile + 2 * ptile + 2 * acc + round_up(4 * 2 * 32, 128)
+
+
+def plan_bwd(b: int, h: int, kv: int, s: int, d: int, window: int,
+             dtype=torch.bfloat16) -> dict:
+    """How one backward call runs on the card: every field of
+    :data:`BWD_PLAN_FIELDS`.  One dK/dV block per (b * KV, key tile) and
+    one dQ block per (b * H, q tile), in one grid, the dK/dV blocks first;
+    ``smem`` is what both kinds share.  bfloat16 takes the ``mma.sync``
+    path with D padded to DP = 64, 128 or 256 columns, float32 the FMA
+    path (:data:`BWD_TILES`).  Raises ValueError for a call the kernel does
+    not take."""
+    if dtype not in _DTYPE:
+        raise ValueError(f"swa_attention_bwd dtype {dtype}: needs float32 or "
+                         "bfloat16")
+    if (b < 1 or kv < 1 or h % kv or s < 1 or d < 8 or d % 8 or d > 256
+            or window < 1):
+        raise ValueError(f"swa_attention_bwd shape B={b} H={h} KV={kv} S={s} "
+                         f"D={d} W={window}")
+    path = PATH_MMA if dtype == torch.bfloat16 else PATH_FMA
+    dp = (64 if d <= 64 else 128 if d <= 128 else 256) if path else 0
+    bq, bkv, _ = BWD_TILES[path]
+    qtiles, kvtiles = ceil_div(s, bq), ceil_div(s, bkv)
+    q = dict(path=path, B=b, H=h, KV=kv, S=s, D=d, W=int(window), DP=dp,
+             qtiles=qtiles, kvtiles=kvtiles, dq_blocks=b * h * qtiles,
+             dkv_blocks=b * kv * kvtiles, smem=_bwd_smem(d, dp))
+    if q["smem"] > SMEM_BUDGET:
+        raise ValueError(f"swa_attention_bwd needs {q['smem']} bytes of "
+                         f"shared memory at D={d}, over {SMEM_BUDGET}")
+    return q
+
+
+def describe_bwd(q: dict) -> str:
+    """One line for a log: the route, tiles, blocks and shared memory."""
+    bq, bkv, bqs = BWD_TILES[q["path"]]
+    route = (f"mma.sync bf16, D padded to {q['DP']}" if q["path"]
+             else "fp32 FMA")
+    return (f"{route}, dQ {bq} rows x {bkv}-key tiles, dK/dV {bkv} keys x "
+            f"{bqs}-row steps, {q['dkv_blocks']} dK/dV + {q['dq_blocks']} "
+            f"dQ blocks, smem {q['smem']}")
+
+
+def bwd_tile_walk(q: dict) -> tuple[dict, dict]:
+    """Both walks of the backward kernel, as its loops compute them: the dQ
+    walk ``{q tile: [kv tiles]}`` (from the window's first tile of the
+    tile's first row to the diagonal of its last) and the dK/dV walk
+    ``{kv tile: [(query head of the group, q step)]}`` (the group's heads
+    in order, each over the q steps of rows ``k0 .. k0 + BKV - 1 + W - 1``,
+    clipped at S), in the plan's path's :data:`BWD_TILES`."""
+    s, w, g = q["S"], min(q["W"], q["S"]), q["H"] // q["KV"]
+    bq, bkv, bqs = BWD_TILES[q["path"]]
+    dq = {}
+    for qt in range(q["qtiles"]):
+        q0 = qt * bq
+        lo = max(0, q0 - w + 1) // bkv
+        hi = (min(s, q0 + bq) - 1) // bkv
+        dq[qt] = list(range(lo, hi + 1))
+    dkv = {}
+    for kt in range(q["kvtiles"]):
+        k0 = kt * bkv
+        lo = k0 // bqs
+        hi = min(s - 1, k0 + bkv - 1 + w - 1) // bqs
+        dkv[kt] = [(gi, qt) for gi in range(g) for qt in range(lo, hi + 1)]
+    return dq, dkv
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan_bwd(b, h, kv, s, d, window, dtype):
+    q = plan_bwd(b, h, kv, s, d, window, dtype)
+    return q, (ctypes.c_int * len(BWD_PLAN_FIELDS))(
+        *(q[f] for f in BWD_PLAN_FIELDS))
+
+
+def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, dout: torch.Tensor,
+                      lse: torch.Tensor, *, window: int):
+    """The gradient of :func:`swa_attention`: q, out and dout [B, H, S, D],
+    k/v [B, KV, S, D], all of one dtype (float32 or bfloat16) and
+    contiguous on the card; ``lse`` the forward's fp32 [B, H, S].  Returns
+    (dq, dk, dv) in q's dtype, summed in fp32 in a fixed order."""
+    global bwd_launches
+    window = int(window)
+    _check(q, k, v, window, "swa_attention_bwd")
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous fp32 {(b, h, s)} on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b == 0 or s == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    pl, fields = _launch_plan_bwd(b, h, kvh, s, d, window, q.dtype)
+    err = _call(_bwd_library().swa_attention_bwd, q.get_device(),
+                *(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv,
+                                         delta)),
+                fields, len(BWD_PLAN_FIELDS), 1.0 / math.sqrt(d))
+    if err:
+        raise RuntimeError(f"swa_attention_bwd launch failed: CUDA error "
+                           f"{err} (B={b} H={h} KV={kvh} S={s} D={d} "
+                           f"W={window} {q.dtype}; plan {describe_bwd(pl)})")
+    bwd_launches += 1
+    return dq, dk, dv

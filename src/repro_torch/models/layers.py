@@ -933,7 +933,11 @@ def attention(cfg, params: Params, prefix: str, x: torch.Tensor, *,
         # swa_attention kernel (128-row blocks) only when S % 128 == 0 and
         # _gqa_sdpa otherwise.  The kernel masks by the implicit arange(S),
         # as the Pallas kernel does: this branch only has shared [S]
-        # positions, and the mask depends on their differences alone.
+        # positions, and the mask depends on their differences alone.  Under
+        # grad the entry records its own gradient, as ``dense``'s does:
+        # ops.swa_attention through SwaAttention (the backward a kernel on
+        # the card), the plain version through autograd, so a ``Kernels``
+        # with the plain entry is plain both ways.
         swa = lambda a, b, c, *_: kernels.swa_attention(  # noqa: E731
             a.contiguous(), b.contiguous(), c.contiguous(), window=window)
         out = (_gqa_sdpa_sharded(q, k, v, window=window, q_pos=positions,

@@ -29,6 +29,16 @@ and their arithmetic, on the CPU (the kernels themselves have no CPU mode).
 * The plans' field order: each ``PLAN_FIELDS`` against the kernel source's
   list (``DECODE_ATTENTION_PLAN``, ``SWA_ATTENTION_PLAN``,
   ``PAGED_ATTENTION_PLAN``), which the libraries also report when loaded.
+* The backward: :func:`~repro_torch.kernels.swa_attention.plan_bwd` for
+  every ``SWA_BWD_CASES`` entry and the gemma3-12b and mixtral-8x22b train
+  shapes fits 227 KB with one block per tile; ``bwd_tile_walk`` takes every
+  in-window (query, key) pair once in the dQ walk and once per query head
+  of the group in the dK/dV walk, and no tile without one, on both paths'
+  tiles; a numpy emulation of the kernel's two walks (P from lse, dS, the
+  fixed head order; on the bf16 path P and dS rounded for the products)
+  against ``ref.sliding_window_attention_bwd`` and, in float32, JAX's
+  ``jax.vjp``; a skipped window-edge tile in the dK/dV walk must fail it;
+  ``BWD_PLAN_FIELDS`` against ``SWA_ATTENTION_BWD_PLAN``.
 """
 
 import math
@@ -40,6 +50,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -501,3 +512,231 @@ def test_plan_fields_match_the_kernel_source(module, source, macro):
     body = re.search(r"#define " + macro + r"\(X\)(.*?)\n\n", text, re.S)
     names = tuple(re.findall(r"X\((\w+)\)", body.group(1)))
     assert names == module.PLAN_FIELDS
+
+
+# ---------------------------------------------------------------------------
+# swa_attention_bwd: the plan, both walks and the arithmetic in numpy
+# ---------------------------------------------------------------------------
+
+def _swa_bwd_shapes():
+    out = [c[:7] for c in ac.SWA_BWD_CASES]
+    g = get_arch("gemma3-12b")
+    m = get_arch("mixtral-8x22b")
+    for s in (128, 2048, 4096):
+        out.append((f"gemma3-12b train S {s}", 2, g.num_heads,
+                    g.num_kv_heads, s, g.head_dim, g.local_window))
+    out.append(("mixtral-8x22b train S 8192", 1, m.num_heads,
+                m.num_kv_heads, 8192, m.head_dim, m.sliding_window))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", _swa_bwd_shapes(), ids=lambda c: c[0])
+def test_swa_bwd_plan_fits(case, dtype):
+    _, b, h, kv, s, d, w = case
+    q = sw.plan_bwd(b, h, kv, s, d, w, dtype)
+    assert q["smem"] <= SMEM_MAX and set(q) == set(sw.BWD_PLAN_FIELDS)
+    if dtype == torch.float32:
+        assert q["path"] == sw.PATH_FMA and q["DP"] == 0
+    else:
+        assert q["path"] == sw.PATH_MMA and q["DP"] in (64, 128, 256)
+        assert q["DP"] >= d > q["DP"] // 2 or q["DP"] == 64
+        assert q["smem"] == 4 * 2 * 64 * (q["DP"] + 8) + 4 * 2 * 64
+    bq, bkv, _ = sw.BWD_TILES[q["path"]]
+    assert q["qtiles"] == math.ceil(s / bq) and q["kvtiles"] == math.ceil(
+        s / bkv)
+    assert q["dq_blocks"] == b * h * q["qtiles"]
+    assert q["dkv_blocks"] == b * kv * q["kvtiles"]
+
+
+@pytest.mark.parametrize("bad", [dict(d=264), dict(d=60), dict(kv=3),
+                                 dict(window=0), dict(dtype=torch.float16)])
+def test_swa_bwd_plan_refuses(bad):
+    args = dict(b=1, h=4, kv=2, s=128, d=64, window=16, dtype=torch.bfloat16)
+    args.update(bad)
+    with pytest.raises(ValueError):
+        sw.plan_bwd(**args)
+
+
+def _spans(walk_tiles, tile):
+    """The [start, end) of each tile of a walk, and whether they are
+    distinct."""
+    return sorted(walk_tiles) == sorted(set(walk_tiles)), \
+        [(t * tile, (t + 1) * tile) for t in walk_tiles]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", _swa_bwd_shapes(), ids=lambda c: c[0])
+def test_swa_bwd_walks_take_every_window_pair_once(case, dtype):
+    """The dQ walk of each q tile takes distinct kv tiles covering every
+    key in its rows' windows, each tile holding an in-window pair; the
+    dK/dV walk of each kv tile takes every query head of the group once
+    over distinct q steps covering every row that sees its keys, each step
+    holding one: so every in-window (row, key) pair is taken once by the
+    dQ walk and once per head by the dK/dV walk, on both paths' tiles."""
+    _, b, h, kv, s, d, w = case
+    q = sw.plan_bwd(b, h, kv, s, d, w, dtype)
+    dq, dkv = sw.bwd_tile_walk(q)
+    bq, bk, bqs = sw.BWD_TILES[q["path"]]
+    assert sorted(dq) == list(range(q["qtiles"]))
+    assert sorted(dkv) == list(range(q["kvtiles"]))
+    for qt, tiles in dq.items():
+        distinct, spans = _spans(tiles, bk)
+        assert distinct and tiles == sorted(tiles)
+        rows = np.arange(qt * bq, min(s, (qt + 1) * bq))
+        lo, hi = np.maximum(0, rows - w + 1), rows   # each row's keys
+        assert spans[0][0] <= lo.min() and spans[-1][1] > hi.max()
+        assert all(b0 <= hi.max() and b1 - 1 >= lo.min() and b0 < s
+                   for b0, b1 in spans)             # no tile without a pair
+        assert len(tiles) == (hi.max() // bk) - (lo.min() // bk) + 1
+    g = h // kv
+    for kt, walk in dkv.items():
+        assert [gi for gi, _ in walk] == sorted(gi for gi, _ in walk)
+        keys = np.arange(kt * bk, min(s, (kt + 1) * bk))
+        lo, hi = keys, np.minimum(s - 1, keys + w - 1)   # rows that see them
+        for gi in range(g):
+            tiles = [qt for hg, qt in walk if hg == gi]
+            distinct, spans = _spans(tiles, bqs)
+            assert distinct and tiles == sorted(tiles)
+            assert spans[0][0] <= lo.min() and spans[-1][1] > hi.max()
+            assert all(b0 <= hi.max() and b1 - 1 >= lo.min()
+                       for b0, b1 in spans)
+            assert len(tiles) == hi.max() // bqs - lo.min() // bqs + 1
+
+
+def emulate_swa_bwd(q, k, v, out, dout, lse, window, *, dtype, fault=None):
+    """swa_attention_bwd.cu in numpy (fp32 sums): delta = rowsum(dout *
+    out); the dQ blocks over :func:`bwd_tile_walk`'s dQ walk, the dK/dV
+    blocks over its dK/dV walk (the group's heads in order), in the tiles
+    of ``dtype``'s path; each pair inside the window P = exp(s - lse) and
+    dS = P (dP - delta), zero elsewhere; on the bf16 path P and dS rounded
+    to bf16 as the second products' operands and the results rounded to
+    bf16.  ``fault="skip_edge"`` drops each head's last q step of a kv
+    tile's dK/dV walk (the rows at the window's far edge) when it is not
+    also the first."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    g = h // kvh
+    pl = sw.plan_bwd(b, h, kvh, s, d, window, dtype)
+    walk_q, walk_kv = sw.bwd_tile_walk(pl)
+    bq, bk, bqs = sw.BWD_TILES[pl["path"]]
+    rnd = _bf16 if dtype == torch.bfloat16 else (lambda x: x)
+    w = min(window, s)
+    scale = np.float32(1.0 / math.sqrt(d))
+    delta = (dout * out).sum(-1, dtype=np.float32)
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+
+    def tile(bi, hi, rows, keys):
+        kk, vv = k[bi, hi // g, keys], v[bi, hi // g, keys]
+        x = (q[bi, hi, rows] @ kk.T) * scale
+        inside = (keys[None] <= rows[:, None]) & (keys[None] > rows[:, None] - w)
+        p = np.where(inside, np.exp(np.where(inside, x, 0)
+                                    - lse[bi, hi, rows][:, None]), 0)
+        dp = dout[bi, hi, rows] @ vv.T
+        ds = np.where(inside, p * (dp - delta[bi, hi, rows][:, None]), 0)
+        return rnd(p.astype(np.float32)), rnd(ds.astype(np.float32))
+
+    for bi in range(b):
+        for hi in range(h):
+            for qt, tiles in walk_q.items():
+                rows = np.arange(qt * bq, min(s, (qt + 1) * bq))
+                for kt in tiles:
+                    keys = np.arange(kt * bk, min(s, (kt + 1) * bk))
+                    _, ds = tile(bi, hi, rows, keys)
+                    dq[bi, hi, rows] += ds @ k[bi, hi // g, keys] * scale
+        for c in range(kvh):
+            for kt, walk in walk_kv.items():
+                keys = np.arange(kt * bk, min(s, (kt + 1) * bk))
+                for gi in range(g):
+                    steps = [qt for hg, qt in walk if hg == gi]
+                    if fault == "skip_edge" and len(steps) > 1:
+                        steps = steps[:-1]
+                    for qt in steps:
+                        hi = c * g + gi
+                        rows = np.arange(qt * bqs, min(s, (qt + 1) * bqs))
+                        p, ds = tile(bi, hi, rows, keys)
+                        dk[bi, c, keys] += ds.T @ q[bi, hi, rows] * scale
+                        dv[bi, c, keys] += p.T @ dout[bi, hi, rows]
+    return rnd(dq), rnd(dk), rnd(dv)
+
+
+# the small cases of SWA_BWD_CASES and a window that crosses q tiles
+SWA_BWD_EMU = [c[:7] for c in ac.SWA_BWD_CASES if not c[-1]
+               and c[4] <= 512] + [("window 70 across tiles, ragged S 230",
+                                    1, 6, 2, 230, 24, 70)]
+
+
+def _bwd_case_inputs(b, h, kvh, s, d, w, seed, dtype):
+    """Seeded q, k, v, dout (bf16-valued for the bf16 path) and the plain
+    forward's out and lse."""
+    rng = np.random.default_rng(seed)
+    rnd = _bf16 if dtype == torch.bfloat16 else (lambda x: x)
+    q, k, v, dout = (rnd(rng.normal(size=shape).astype(np.float32))
+                     for shape in ((b, h, s, d), (b, kvh, s, d),
+                                   (b, kvh, s, d), (b, h, s, d)))
+    out, lse = ref.sliding_window_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), window=w, return_lse=True)
+    return q, k, v, rnd(out.numpy()), dout, lse.numpy()
+
+
+def _bwd_within(got, want, dt):
+    """``SWA_BWD_TOL`` at unit scale (each gradient over its largest
+    |entry|, at least a hundredth of the three's), as chip_smoke holds the
+    kernel."""
+    atol, rtol = ac.SWA_BWD_TOL[dt]
+    floor = 0.01 * max(np.abs(y).max() for y in want)
+    ok = []
+    for x, y in zip(got, want):
+        scale = max(np.abs(y).max(), floor)
+        ok.append(bool((np.abs(x - y) / scale
+                        <= atol + rtol * np.abs(y) / scale).all()))
+    return ok
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SWA_BWD_EMU, ids=lambda c: c[0])
+def test_swa_bwd_emulation_matches_ref_and_jax(case, dtype):
+    """float32: within 1e-5 of the plain backward and of ``jax.vjp`` of
+    JAX's reference; bfloat16 (P and dS rounded for the products, the
+    outputs rounded): within ``SWA_BWD_TOL`` of the plain backward on the
+    same bf16 inputs."""
+    name, b, h, kvh, s, d, w = case
+    q, k, v, out, dout, lse = _bwd_case_inputs(b, h, kvh, s, d, w, len(name),
+                                               dtype)
+    got = emulate_swa_bwd(q, k, v, out, dout, lse, w, dtype=dtype)
+    want = [y.numpy() for y in ref.sliding_window_attention_bwd(
+        *(torch.from_numpy(x) for x in (q, k, v, out, dout, lse)), window=w)]
+    if dtype == torch.bfloat16:
+        assert all(_bwd_within(got, want, "bfloat16"))
+        return
+    rep = h // kvh
+    _, vjp = jax.vjp(lambda q, k, v: jref.sliding_window_attention(
+        q, jnp.repeat(k, rep, axis=1), jnp.repeat(v, rep, axis=1),
+        window=w), *(jnp.asarray(x) for x in (q, k, v)))
+    for x, y, z in zip(got, want, vjp(jnp.asarray(dout))):
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(x, np.asarray(z), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in SWA_BWD_EMU if c[6] > 1],
+                         ids=lambda c: c[0])
+def test_swa_bwd_skipped_edge_tile_fails_the_emulation(case, dtype):
+    name, b, h, kvh, s, d, w = case
+    q, k, v, out, dout, lse = _bwd_case_inputs(b, h, kvh, s, d, w, len(name),
+                                               dtype)
+    got = emulate_swa_bwd(q, k, v, out, dout, lse, w, dtype=dtype,
+                          fault="skip_edge")
+    want = [y.numpy() for y in ref.sliding_window_attention_bwd(
+        *(torch.from_numpy(x) for x in (q, k, v, out, dout, lse)), window=w)]
+    dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    ok = _bwd_within(got, want, dt)
+    assert ok[0] and not ok[1] and not ok[2]   # dq untouched, dk and dv not
+
+
+def test_swa_bwd_plan_fields_match_the_kernel_source():
+    text = (ROOT / "src/repro_torch/csrc/swa_attention_bwd.cu").read_text()
+    body = re.search(r"#define SWA_ATTENTION_BWD_PLAN\(X\)(.*?)\n\n", text,
+                     re.S)
+    names = tuple(re.findall(r"X\((\w+)\)", body.group(1)))
+    assert names == sw.BWD_PLAN_FIELDS

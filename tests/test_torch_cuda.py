@@ -826,21 +826,78 @@ def test_train_matmul_grad_matches_plain(act, dtype):
 
 @pytest.mark.cuda
 def test_train_swa_attention_under_grad_raises():
-    """The window kernel has no backward: under grad it refuses, naming
-    its ROADMAP item, and never falls back to another attention."""
+    """Under grad ``ops.swa_attention`` is ``SwaAttention``: one forward
+    launch, one backward launch, the gradients of the kernels' own; a call
+    the kernels do not take (float16) raises before any launch and never
+    falls back to the plain version or another attention."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import swa_attention as tsw
     dev = _cuda()
-    q = torch.randn((1, 2, 128, 64), device=dev, dtype=torch.bfloat16,
-                    requires_grad=True)
-    kv = torch.randn((1, 1, 128, 64), device=dev, dtype=torch.bfloat16)
-    before = tsw.launches
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ops.swa_attention(q, kv, kv, window=16)
-    assert tsw.launches == before
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16) for shape in ((1, 2, 128, 64), (1, 1, 128, 64),
+                                      (1, 1, 128, 64), (1, 2, 128, 64)))
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (tsw.launches, tsw.bwd_launches)
+    out = ops.swa_attention(*xs, window=16)
+    got = torch.autograd.grad(out, xs, dout)
+    torch.cuda.synchronize()
+    assert (tsw.launches, tsw.bwd_launches) == (before[0] + 1, before[1] + 1)
+    o, lse = tsw.swa_attention(q, k, v, window=16, return_lse=True)
+    assert torch.equal(out, o)
+    want = tsw.swa_attention_bwd(q, k, v, o, dout, lse, window=16)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    half = [t.detach().half().requires_grad_() for t in xs]
+    before = (tsw.launches, tsw.bwd_launches)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.swa_attention(*half, window=16)
+    assert (tsw.launches, tsw.bwd_launches) == before
     with torch.no_grad():
-        ops.swa_attention(q, kv, kv, window=16)
-    assert tsw.launches == before + 1
+        assert torch.equal(ops.swa_attention(q, k, v, window=16), o)
+    assert tsw.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ac.SWA_BWD_CASES,
+                         ids=[c[0] for c in ac.SWA_BWD_CASES])
+def test_swa_attention_bwd_kernel_matches_plain(case, dtype):
+    """``swa_kernels``' backward cases, one test each: dq, dk and dv of
+    ``swa_attention_bwd`` on the forward kernel's own out and lse against
+    ``ref.sliding_window_attention_bwd`` on the same inputs, within
+    ``SWA_BWD_TOL`` at unit scale (each gradient over its largest |entry|,
+    at least a hundredth of the three's); two calls with the same bits; the
+    forward's output with the same bits with and without the lse, its lse
+    within ``SWA_LSE_TOL`` of the plain one's; the launches counted."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as tsw
+    dev = _cuda()
+    _, b, h, kvh, s, d, window, _ = case
+    atol, rtol = ac.SWA_BWD_TOL[str(dtype).split(".")[-1]]
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, h, s, d), (b, kvh, s, d),
+                                   (b, kvh, s, d), (b, h, s, d)))
+    before = (tsw.launches, tsw.bwd_launches)
+    out, lse = tsw.swa_attention(q, k, v, window=window, return_lse=True)
+    assert torch.equal(out, tsw.swa_attention(q, k, v, window=window))
+    _, want_lse = ref.sliding_window_attention(q, k, v, window=window,
+                                               return_lse=True)
+    assert float((lse - want_lse).abs().max()) <= ac.SWA_LSE_TOL
+    got = tsw.swa_attention_bwd(q, k, v, out, dout, lse, window=window)
+    again = tsw.swa_attention_bwd(q, k, v, out, dout, lse, window=window)
+    torch.cuda.synchronize()
+    assert (tsw.launches, tsw.bwd_launches) == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = ref.sliding_window_attention_bwd(q, k, v, out, dout, lse,
+                                            window=window)
+    floor = 0.01 * max(float(y.float().abs().max()) for y in want)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and torch.isfinite(x.float()).all()
+        scale = max(float(y.float().abs().max()), floor)
+        err = (x.float() - y.float()).abs() / scale
+        assert (err <= atol + rtol * y.float().abs() / scale).all(), \
+            float(err.max())
 
 
 @pytest.mark.cuda

@@ -14,6 +14,15 @@
 * ``ops.swa_attention`` on CPU tensors runs the plain version; the kernel's
   wrapper refuses CPU tensors, a window below 1 and a head dim it does not
   take, before anything is built.
+* The gradient: the plain ``sliding_window_attention_bwd`` (the oracle of
+  the hand-written ``swa_attention_bwd`` kernel, which recomputes P from
+  the forward's ``lse``) against ``jax.vjp`` of JAX's
+  ``repro.kernels.ref.sliding_window_attention`` with the KV heads
+  ``jnp.repeat``ed as ``repro.kernels.ops.swa_attention`` does, on the
+  cases above and a ragged S, float32 within 1e-5; the same against torch
+  autograd through the plain forward; the plain ``lse`` against a float64
+  log-sum-exp; ``ops.swa_attention`` under grad on CPU tensors recording
+  ``SwaAttention``, whose two halves are the plain versions.
 """
 
 import numpy as np
@@ -21,9 +30,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -137,3 +148,103 @@ def test_wrapper_refuses(case, match):
         q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 3, 128, 64))
     with pytest.raises(ValueError, match=match):
         tsw.swa_attention(q, k, v, window=window)
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's swa cases (GQA, a window past S, window 1) and a
+# ragged S with D 40: (B, H, KV, S, D, window)
+BWD_CASES = [(1, 2, 2, 256, 64, 64), (2, 4, 2, 256, 64, 100),
+             (1, 8, 2, 512, 128, 4096), (1, 2, 1, 256, 64, 1),
+             (2, 6, 2, 200, 40, 16)]
+
+
+def _bwd_inputs(b, h, hkv, s, d, seed):
+    q, k, v = _qkv(b, h, hkv, s, d, seed=seed)
+    dout = np.random.default_rng(seed + 1).normal(
+        size=(b, h, s, d)).astype(np.float32)
+    return q, k, v, dout
+
+
+def _plain_bwd(q, k, v, dout, window):
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, dout))
+    out, lse = ref.sliding_window_attention(tq, tk, tv, window=window,
+                                            return_lse=True)
+    return ref.sliding_window_attention_bwd(tq, tk, tv, out, tdo, lse,
+                                            window=window)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_plain_bwd_matches_jax_vjp(case):
+    b, h, hkv, s, d, win = case
+    q, k, v, dout = _bwd_inputs(b, h, hkv, s, d, seed=sum(case))
+
+    def jf(q, k, v):
+        rep = h // hkv
+        return jref.sliding_window_attention(
+            q, jnp.repeat(k, rep, axis=1), jnp.repeat(v, rep, axis=1),
+            window=win)
+    _, vjp = jax.vjp(jf, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    got = _plain_bwd(q, k, v, dout, win)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_plain_bwd_matches_autograd(case):
+    b, h, hkv, s, d, win = case
+    q, k, v, dout = _bwd_inputs(b, h, hkv, s, d, seed=sum(case) + 7)
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = ref.sliding_window_attention(*xs, window=win)
+    want = torch.autograd.grad(out, xs, torch.from_numpy(dout))
+    for g, w in zip(_plain_bwd(q, k, v, dout, win), want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_plain_lse_is_the_rows_log_sum_exp(case):
+    b, h, hkv, s, d, win = case
+    q, k, v = _qkv(b, h, hkv, s, d, seed=3)
+    out, lse = ref.sliding_window_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), window=win,
+        return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    assert torch.equal(out, ref.sliding_window_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), window=win))
+    rep = h // hkv
+    logits = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64),
+                       np.repeat(k, rep, axis=1).astype(np.float64)) / np.sqrt(d)
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    logits = np.where((j <= i) & (j > i - win), logits, -np.inf)
+    mx = logits.max(-1, keepdims=True)
+    want = (mx + np.log(np.exp(logits - mx).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_ops_under_grad_records_swa_attention_function():
+    """On CPU tensors under grad, ``ops.swa_attention`` is
+    ``SwaAttention``: the plain forward (same bits) and the plain backward
+    (same bits as calling it on the saved lse), nothing launched; without
+    grad the direct call."""
+    q, k, v, dout = _bwd_inputs(2, 4, 2, 200, 40, seed=11)
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    before = (tsw.launches, tsw.bwd_launches)
+    out = ops.swa_attention(*xs, window=16)
+    assert type(out.grad_fn).__name__ == "SwaAttentionBackward"
+    assert torch.equal(out.detach(), ref.sliding_window_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), window=16))
+    # a non-contiguous cotangent, as autograd may hand one
+    ct = torch.from_numpy(np.ascontiguousarray(
+        dout.transpose(0, 1, 3, 2))).transpose(2, 3)
+    assert not ct.is_contiguous()
+    got = torch.autograd.grad(out, xs, ct)
+    for g, w in zip(got, _plain_bwd(q, k, v, dout, 16)):
+        assert torch.equal(g, w)
+    assert (tsw.launches, tsw.bwd_launches) == before
+    with torch.no_grad():
+        assert ops.swa_attention(*xs, window=16).grad_fn is None

@@ -1,8 +1,10 @@
 """The port's training launcher on the CPU: the counterparts of
 ``tests/test_system.py``'s four tests (an injected failure and restart,
 resume across invocations, microbatching with remat) with ``--device
-cpu``, run in this process; ``--autotune``, and a ``--data-model`` mesh
-without as many ranks, are refused."""
+cpu``, run in this process; gemma3-12b's smoke config at the default seq
+128, whose local layers train through ``swa_attention``'s Function;
+``--autotune``, and a ``--data-model`` mesh without as many ranks, are
+refused."""
 
 import os
 
@@ -10,6 +12,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 
 
@@ -56,6 +59,26 @@ def test_train_with_microbatching_and_remat(tmp_path, capsys):
     out = run_train(capsys, d, ["--steps", "4", "--microbatches", "2",
                                 "--remat", "full"])
     assert "done: 4 steps" in out
+
+
+def test_train_gemma3_smoke_takes_the_windowed_backward(tmp_path, capsys,
+                                                         monkeypatch):
+    """At the default seq 128 the 5 local layers of gemma3's smoke period
+    take ``swa_attention`` (window 8), so each step runs its backward 5
+    times."""
+    calls = []
+    real = ref.sliding_window_attention_bwd
+
+    def counted(*args, **kw):
+        calls.append(kw["window"])
+        return real(*args, **kw)
+    monkeypatch.setattr(ref, "sliding_window_attention_bwd", counted)
+    rc = train.main(["--arch", "gemma3-12b", "--smoke", "--device", "cpu",
+                     "--steps", "2", "--ckpt-dir", str(tmp_path / "ck")])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "done: 2 steps" in out and "step     0 loss " in out
+    assert calls == [8] * 10
 
 
 @pytest.mark.parametrize("flags, words", [

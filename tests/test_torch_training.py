@@ -16,6 +16,13 @@ gradient leaf within ``GRAD_TOL`` of its largest entry.
   zamba2-1.2b, gemma3-12b tied with windows, llama-3.2-vision-11b with
   patches, musicgen-large with frames and the bias + gelu MLP); the three
   remat modes agree, and launch what each should.
+* The windowed archs at S 128, where the cache-less forward takes
+  ``swa_attention`` (S % 128 == 0): gemma3-12b's and mixtral-8x22b's smoke
+  loss and gradients against JAX's (which differentiates its plain
+  attention), through ``ops.SwaAttention`` on CPU tensors (the plain
+  forward with its lse, the plain backward), with the calls counted (5
+  local layers, 2 windowed ones); remat ``"full"`` and ``"dots"`` against
+  ``"none"``, both calling each forward twice.
 * ``_gqa_sdpa_chunked``'s gradient against JAX's at S 2048.
 * Three AdamW train steps of JAX's jitted ``make_train_step`` against the
   port's, from the same bridged parameters and optimizer state: with the
@@ -261,6 +268,58 @@ def test_remat_modes_agree():
     for remat in ("full", "dots"):
         assert results[remat][0] == results["none"][0]
         for g, w in zip(results[remat][1], results["none"][1]):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                       atol=1e-6 * float(w.abs().max()))
+
+
+# the windowed archs' swa_attention calls in one forward at S 128: gemma3's
+# 5 local layers of its 6, mixtral's 2 (every layer windowed)
+SWA_CALLS = {"gemma3-12b": 5, "mixtral-8x22b": 2}
+
+
+@pytest.mark.parametrize("arch", sorted(SWA_CALLS))
+def test_windowed_archs_grads_through_swa_attention(arch, monkeypatch):
+    jmodel, jparams, cfg = setup(arch)
+    batch = make_batch(cfg, b=2, s=128, seed=5)
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    fwd, bwd = [], []
+    real_bwd = ref.sliding_window_attention_bwd
+
+    def counted_bwd(*args, **kw):
+        bwd.append(kw["window"])
+        return real_bwd(*args, **kw)
+    monkeypatch.setattr(ref, "sliding_window_attention_bwd", counted_bwd)
+
+    def counted(q, k, v, *, window):
+        out = ops.swa_attention(q, k, v, window=window)
+        fwd.append(type(out.grad_fn).__name__)
+        return out
+
+    model = Model(cfg, kernels=L.DEFAULT_KERNELS._replace(
+        swa_attention=counted))
+    results = {}
+    for remat in ("none", "full", "dots"):
+        fwd.clear()
+        bwd.clear()
+        results[remat] = port_grads(model, bridged(jparams), batch, remat)
+        n = SWA_CALLS[arch]
+        # both remats recompute the attention ("dots" keeps only the dense
+        # GEMMs' outputs)
+        assert fwd == ["SwaAttentionBackward"] * (n if remat == "none"
+                                                  else 2 * n), remat
+        assert bwd == [8] * n
+    loss, aux, grads = results["none"]
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(float(aux["ce"].detach()), float(jaux["ce"]),
+                               rtol=1e-5)
+    assert_leaves_close(grads, jg)
+    for remat in ("full", "dots"):
+        assert float(results[remat][0]) == float(loss)
+        for g, w in zip(results[remat][2], grads):
+            if w is None:
+                assert g is None
+                continue
             np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
                                        atol=1e-6 * float(w.abs().max()))
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Plant one fault at a time in a copy of ``csrc/swa_attention.cu``,
-``csrc/decode_attention.cu``, ``csrc/paged_attention.cu`` or the combine
+``csrc/swa_attention_bwd.cu``, ``csrc/decode_attention.cu``, ``csrc/paged_attention.cu`` or the combine
 they share (``csrc/flash_decode.cuh``) and show that the checks catch it, on
 a machine with one NVIDIA GPU.
 
@@ -34,12 +34,15 @@ from plant_gemm_faults import plant, slug
 
 ROOT = Path(__file__).resolve().parents[1]
 SWA = "src/repro_torch/csrc/swa_attention.cu"
+SWA_BWD = "src/repro_torch/csrc/swa_attention_bwd.cu"
 DEC = "src/repro_torch/csrc/decode_attention.cu"
 PAGED = "src/repro_torch/csrc/paged_attention.cu"
 COMBINE = "src/repro_torch/csrc/flash_decode.cuh"
 # checked kernel -> (chip_smoke.py phase, its record's keys, card tests' -k)
 CHECKS = {"swa_attention": ("swa_kernels", ("swa_attention",),
                             "swa_attention"),
+          "swa_attention_bwd": ("swa_kernels", ("swa_attention_bwd",),
+                                "swa_attention_bwd"),
           "decode_attention": ("dense_kernels", ("dense_attention",
                                                  "dense_attention_serve"),
                                "decode_attention"),
@@ -76,6 +79,12 @@ FAULTS = {
         "swa_attention", SWA,
         "desc_mn128(st + KV_BYTES, KVBOX)",
         "desc_mn128(st + KV_BYTES + 16, KVBOX)"),
+    "swa bwd: the dK/dV walk skips each head's window-edge q tile": (
+        "swa_attention_bwd", SWA_BWD,
+        "      for (int qt = qt_lo; qt <= qt_hi; ++qt) {\n"
+        "        const int q0 = qt * BQS, nq = min(BQS, S - q0);",
+        "      for (int qt = qt_lo; qt < qt_hi; ++qt) {\n"
+        "        const int q0 = qt * BQS, nq = min(BQS, S - q0);"),
     "one split dropped from the combine": (
         "decode_attention", COMBINE, _DROP_OLD, _DROP_NEW),
     "combine without the rescale by e^(m_z - M)": (
