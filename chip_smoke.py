@@ -47,6 +47,14 @@ default ``build/chip_smoke/``):
    weights) through ``repro_torch``'s PagedEngine: 4 slots, page 16,
    max_len 512, chunk 64, 8 requests of 17-300 prompt tokens, 16 new tokens,
    twice through one engine; every kernel of the path must have launched.
+   Then the serving state protocol's whole-prompt scatter: the first 4
+   prompts prefilled whole into ``init_caches(4, 138,
+   clamp_window=False)`` and written by ``StateTree.scatter_prefill`` into
+   fresh pools of the engine's geometry, against the same prompts through
+   the chunked mixed step into other fresh pools: every live entry at the
+   same position, K/V within ``E2E_TOL`` of the largest, one decode step
+   from each within ``E2E_TOL`` (32 ``paged_decode_attention`` launches
+   each).
    ``serve_features`` -- the serving features on the serve phase's weights
    (their first 8 layers, to keep the whole script near 780 s) and engine
    geometry, one fresh engine per workload: a 128-token prefix
@@ -89,7 +97,11 @@ default ``build/chip_smoke/``):
 7. ``moe_serve`` -- release yi-6b, then serve mixtral-8x22b at full width
    and 8 of its 56 layers (20.4 B parameters, bf16) with the same engine
    and traffic; every MoE layer's expert FFN must go through
-   ``grouped_moe_gemm``, three launches per layer per step.
+   ``grouped_moe_gemm``, three launches per layer per step.  Then
+   ``repro_torch.examples.long_context``'s ``run`` on those weights: batch
+   2, a 32-entry cache, 64 decode steps past it; every logit finite, the
+   allocated bytes the same after the last step as after the first, 33
+   ``kraken_gemm`` and 24 ``grouped_moe_gemm`` launches a step.
 8. ``moe_e2e``  -- every MoE layer of one mixed and one decode step fed the
    same input through the kernel block and the plain block (one of them
    under ``torch.cuda.set_sync_debug_mode("error")``), then the whole
@@ -162,6 +174,18 @@ default ``build/chip_smoke/``):
    version, the peak allocation, and a ``torch.profiler`` trace of VGG-16
    frames at each batch.
 
+``examples`` -- ``repro_torch.examples`` through their entry points on
+   small models: ``kraken_paper``'s printed lines as on the CPU;
+   ``quickstart`` (smoke yi-6b: losses finite and falling, 9 tokens,
+   ``kraken_gemm`` launched as counted); ``serve_lm --repeat 2`` for yi-6b,
+   mixtral-8x22b, rwkv6-3b and zamba2-1.2b (every request served, no new
+   signature warm, ``paged_decode_attention`` and ``grouped_moe_gemm``
+   exactly where the arch needs them); ``long_context`` at JAX's smoke
+   sizes; ``train_lm``'s 300 steps of yi-100m (float32, batch 8 x 256):
+   every loss and grad norm finite, no restart, checkpoints 100/200/300,
+   the last logged loss 1 nat under the first, 267 ``kraken_gemm`` a step;
+   then ``kraken_gemm``'s float32 route at train_lm's cells (the forward
+   and both backward products) against the plain version, timed.
 16. ``recurrence`` -- one full-width float32 layer of each recurrent
    mixer (rwkv6-3b's RWKV6 time mix, zamba2-1.2b's Mamba2 block, seeded
    weights with the reference's init scaling) over 300 tokens, rows of 300
@@ -174,8 +198,11 @@ default ``build/chip_smoke/``):
    when warm, exactly 289 ``kraken_gemm`` launches a step (the channel
    mix's ReLU in its epilogue); then the 8 requests one at a time through
    ``init_caches`` / ``prefill`` / ``decode_step``, counting the requests
-   token-identical to the engine's (reported).  With ``profile``, a traced
-   warm pass whose ``recurrence`` group holds the scans' kernels.
+   token-identical to the engine's (reported); then the long_context
+   example's ``run`` at full width as ``moe_serve`` runs it (289
+   ``kraken_gemm`` a step).  With ``profile``, a traced warm pass (the
+   device activity alone) whose ``recurrence`` group holds the kernels
+   that ran between the ranges' marker kernels (``range_markers``).
 18. ``rwkv_e2e`` -- one mixed and one decode step of rwkv6-3b, kernels
    against plain versions: in bf16 on the served weights (reported: the
    model at this init amplifies a last-ulp difference, see
@@ -281,7 +308,7 @@ default ``build/chip_smoke/``):
    fraction; a ``"status": "fail"`` fails the phase.
 
 Phases run in the order ``build, kernels, moe_kernels, dense_kernels,
-swa_kernels, conv_kernels, recurrence, serve, serve_features, e2e,
+swa_kernels, conv_kernels, examples, recurrence, serve, serve_features, e2e,
 profile, tune, dense_serve, dense_e2e, moe_serve, moe_e2e, swa_forward,
 conv_nets, rwkv_serve, rwkv_e2e, zamba_serve, zamba_e2e, vlm_serve,
 vlm_e2e, audio_serve, audio_e2e, train, swa_train, mesh, roofline,
@@ -295,7 +322,9 @@ CUDA device the script exits 2 before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import json
 import math
 import subprocess
@@ -1270,11 +1299,124 @@ def phase_serve(rec: dict, state: dict) -> None:
                         "paged_decode_attention": 0}}
     rec["launches"] = launches
     state["engine"] = eng
+    rec["serve"]["scatter"] = scatter_gate(model, params)
     log(f"  {eng.report()}")
     log(f"serve: yi-6b {n_params / 1e9:.2f} B params bf16, all "
         f"{2 * len(SERVE_LENS)} requests served, warm pass "
         f"{passes[1]['tok_s']:.1f} tok/s, zero new signatures, launches "
         f"{launches}")
+
+
+SCATTER_PROMPTS = 4
+
+
+def scatter_gate(model, params) -> dict:
+    """The serving state protocol's whole-prompt scatter on the card: the
+    first ``SCATTER_PROMPTS`` serve prompts prefilled whole into
+    ``init_caches(4, L, clamp_window=False)`` and written into fresh pools of
+    the serve geometry by ``StateTree.scatter_prefill``; the same prompts
+    into other fresh pools through the chunked mixed step (``CHUNK``
+    tokens a step).  Every live page entry holds the same position in both,
+    and K/V within ``E2E_TOL`` of the largest; one decode step from each
+    (``paged_decode_attention`` launched once a layer each) agrees within
+    ``E2E_TOL`` of the largest logit."""
+    import torch
+    from repro_torch.models.layers import POS_EMPTY, PagedKVCache
+    from repro_torch.serving import build_state_tree
+    dev = torch.device("cuda")
+    prompts = serve_prompts(model.cfg.vocab_size)[:SCATTER_PROMPTS]
+    lens = [len(p) for p in prompts]
+    width = max(lens)
+    toks = torch.zeros((len(prompts), width), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p, device=dev)
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    slots = torch.arange(len(prompts), dtype=torch.int32, device=dev)
+
+    def fresh():
+        tree = build_state_tree(model, slots=SLOTS, page_size=PAGE,
+                                max_len=MAX_LEN)
+        pools = tree.init_device()
+        for slot in range(len(prompts)):
+            tree.admit(slot)
+        return tree, tree.push_tables(pools)
+
+    t0 = time.perf_counter()
+    tree, whole = fresh()
+    dense = model.init_caches(len(prompts), width, clamp_window=False)
+    with torch.no_grad():
+        logits, dense, _ = model.forward(params, {
+            "tokens": toks,
+            "positions": torch.arange(width, dtype=torch.int32, device=dev),
+            "lengths": lengths}, mode="prefill", caches=dense)
+    nxt = torch.argmax(logits[slots.long(), lengths.long() - 1],
+                       dim=-1).to(torch.int32)[:, None]
+    whole = tree.scatter_prefill(whole, dense, slots, lengths)
+    del dense, logits
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, chunked = fresh()
+    ar = torch.arange(CHUNK, dtype=torch.int32, device=dev)
+    for start in range(0, width, CHUNK):
+        n = (lengths - start).clamp(0, CHUNK)
+        tok = torch.zeros((len(prompts), CHUNK), dtype=torch.int32,
+                          device=dev)
+        part = toks[:, start:start + CHUNK]
+        tok[:, :part.shape[1]] = part
+        model.chunk_step(params, chunked, tok,
+                         (start + ar).expand(len(prompts), CHUNK), n)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+
+    live_entries, kv_err = 0, 0.0
+    for a, b in zip(_leaves(whole), _leaves(chunked)):
+        if not isinstance(a, PagedKVCache):
+            continue
+        n = a.n_pages       # the trash page is never read
+        live = a.pos[:n] != POS_EMPTY
+        live_entries += int(live.sum())
+        if not torch.equal(a.pos[:n][live], b.pos[:n][live]) or not \
+                torch.equal(live, b.pos[:n] != POS_EMPTY):
+            raise AssertionError("scatter: the chunked step's live "
+                                 "positions differ from the scatter's")
+        for x, y in ((a.k, b.k), (a.v, b.v)):
+            x = x[:n].permute(0, 2, 1, 3)[live].float()
+            y = y[:n].permute(0, 2, 1, 3)[live].float()
+            kv_err = max(kv_err, float((x - y).abs().max())
+                         / float(y.abs().max()))
+    if kv_err > E2E_TOL or live_entries != LAYERS * sum(lens):
+        raise AssertionError(f"scatter: K/V apart by {kv_err:.4f} of the "
+                             f"largest (gate {E2E_TOL}), {live_entries} live "
+                             "entries")
+
+    _zero_counts()
+    step = {}
+    for label, pools in (("whole", whole), ("chunked", chunked)):
+        step[label], _ = model.decode_step(
+            params, pools, nxt, lengths, lengths=torch.ones_like(lengths))
+    launches = _read_counts()
+    got, want_logits = step["whole"].float(), step["chunked"].float()
+    err = {"rel": float((got - want_logits).abs().max())
+           / float(want_logits.abs().max()),
+           "argmax_agree": float((got.argmax(-1) == want_logits.argmax(-1))
+                                 .float().mean())}
+    want = _want_launches(launches, {"kraken_gemm": 2 * (LAYERS * 7 + 1),
+                                     "paged_decode_attention": 2 * LAYERS})
+    if not (torch.isfinite(got).all() and torch.isfinite(want_logits).all()
+            ) or not err["rel"] <= E2E_TOL or launches != want:
+        raise AssertionError(f"scatter: decode logits apart by "
+                             f"{err['rel']:.4f} of the largest (gate "
+                             f"{E2E_TOL}); launches {launches}, want {want}")
+    log(f"  serve scatter: {len(prompts)} prompts of {lens} tokens, whole "
+        f"({whole_s:.2f} s) and chunked ({chunk_s:.2f} s): {live_entries} "
+        f"live entries at the same positions, K/V within {kv_err:.4f} of the "
+        f"largest, one decode step from each within {err['rel']:.4f} "
+        f"(gate {E2E_TOL}), launches {launches}")
+    return {"prompts": lens, "live_entries": live_entries,
+            "kv_rel_err": kv_err, "decode": err, "launches": launches,
+            "whole_s": whole_s, "chunked_s": chunk_s}
 
 
 def _leaves(tree):
@@ -1646,54 +1788,137 @@ PORTED_GROUPS = ("kraken_conv2d_direct",
                  "swa_attention", "swa_attention_bwd", "decode_attention")
 
 
-def _kernels_under(evt):
-    """(kernel name, device us) of every kernel a host event and the host
-    events inside it launched."""
-    for k in getattr(evt, "kernels", []):
-        yield k.name, k.duration
-    for child in getattr(evt, "cpu_children", []):
-        yield from _kernels_under(child)
+#: the port's profiler ranges (``record_function``) a trace can group, by
+#: the module whose ``_span()`` opens each
+RANGE_MODULES = {"recurrence": "repro_torch.models.ssm",
+                 "adamw": "repro_torch.optim.adamw"}
+#: the kernel ``torch.cuda._sleep(0)`` launches: the ranges' device markers
+MARKER = "spin_kernel"
 
 
-def device_trace(run, label: str, ranges: tuple = ()) -> dict:
-    """``torch.profiler`` over ``run()``: device time by kernel group and
-    the device's busy share of the wall time.  Kernels launched inside a
-    ``record_function`` range named in ``ranges`` (the recurrences'
-    ``"recurrence"``) form a group of that name; finding them needs the host
-    activity too, which is then traced as well."""
+@contextlib.contextmanager
+def range_markers(ranges: tuple):
+    """While the block runs, every opening of a range in ``ranges`` (at most
+    one name) also launches a marker kernel (``torch.cuda._sleep(0)``, ~2
+    us) before it and after it, so a trace of the device activity alone
+    shows which kernels ran inside the range: those between a marker pair
+    on the stream."""
+    import importlib
+    import torch
+    if len(ranges) > 1:
+        raise ValueError(f"one marked range a trace, not {ranges}")
+    saved = []
+    for name in ranges:
+        mod = importlib.import_module(RANGE_MODULES[name])
+        span = mod._span
+
+        @contextlib.contextmanager
+        def marked(span=span):
+            torch.cuda._sleep(0)
+            try:
+                with span():
+                    yield
+            finally:
+                torch.cuda._sleep(0)
+
+        saved.append((mod, span))
+        mod._span = marked
+    try:
+        yield
+    finally:
+        for mod, span in saved:
+            mod._span = span
+
+
+#: the Chrome trace's categories of device activity
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_events(prof) -> list:
+    """The trace's device activity (kernels, copies, memsets) in order of
+    its start on the card, each ``{"name", "ts", "dur", "tid"}`` (us; the
+    stream as ``tid``), as the profiler's Chrome trace lists it.  Read from
+    ``export_chrome_trace``'s file, which the profiler writes in C++: the
+    profiler's own parse of a serve pass's trace into Python events
+    (``key_averages``, ``events``) takes several times as long."""
+    import tempfile
+    out = ROOT / "build"
+    out.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out) as d:
+        path = str(Path(d) / "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    evs = [e for e in trace.get("traceEvents", [])
+           if e.get("cat") in DEVICE_CATS]
+    return sorted(evs, key=lambda e: e["ts"])
+
+
+def marked_kernels(evs: list, ranges: tuple) -> dict:
+    """{range: {kernel name: device us}} of the device activity that ran
+    between ``range_markers``' marker pairs on the markers' stream (one
+    range a trace; ``evs`` from ``trace_events``).  Raises when the markers
+    do not pair up."""
+    if not ranges:
+        return {}
+    (name,) = ranges
+    stream, by_name, pairs = None, {}, 0
+    for e in evs:
+        if MARKER in e["name"]:
+            if stream is None:
+                stream = e["tid"]
+            else:
+                stream, pairs = None, pairs + 1
+        elif stream is not None and e["tid"] == stream:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    if stream is not None or not pairs:
+        raise AssertionError(f"device_trace: the {name} markers do not pair "
+                             f"up ({pairs} pairs)")
+    return {name: by_name}
+
+
+def profiled(run, ranges: tuple = (), host: bool = False):
+    """(profiler, wall s) of ``run()`` under ``torch.profiler`` with the
+    ranges' markers; the device activity alone unless ``host``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    # device activity alone unless ranges are grouped: the host-op rows are
-    # left out below either way, so nothing counts twice
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges
-                                      else [])
-    with profile(activities=acts) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with range_markers(ranges), profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
 
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
 
-    rows = []
-    for evt in prof.key_averages():
-        us = dev_us(evt)
-        # the ranges' own device-side spans would count their kernels twice
-        if (us > 0 and evt.key not in ranges
-                and str(getattr(evt, "device_type", "CUDA")).endswith("CUDA")):
-            rows.append((us, evt.count, evt.key))
-    rows.sort(reverse=True)
+def device_trace(run, label: str, ranges: tuple = ()) -> dict:
+    """``torch.profiler`` over ``run()``, the device activity alone: device
+    time by kernel group and the device's busy share of the wall time.
+    Kernels that ran inside a port range named in ``ranges`` (the
+    recurrences' ``"recurrence"``, AdamW's ``"adamw"``) form a group of that
+    name, found between the range's marker kernels (``range_markers``)."""
+    prof, wall = profiled(run, ranges)
+    t0 = time.perf_counter()
+    evs = trace_events(prof)
+    out = trace_groups(evs, wall, label, marked_kernels(evs, ranges))
+    out["post_s"] = time.perf_counter() - t0
+    log(f"  profile {label}: the trace read in {out['post_s']:.1f} s")
+    return out
+
+
+def trace_groups(evs: list, wall: float, label: str, inside: dict) -> dict:
+    """``device_trace``'s record of a trace's device activity ``evs``, with
+    ``inside`` ({range: {kernel name: device us}}) grouped under each
+    range's name."""
+    by_key: dict = {}
+    for e in evs:
+        # the markers are the trace's, not the program's
+        if MARKER not in e["name"]:
+            us, n = by_key.get(e["name"], (0.0, 0))
+            by_key[e["name"]] = (us + e["dur"], n + 1)
+    rows = sorted(((us, n, key) for key, (us, n) in by_key.items()
+                   if us > 0), reverse=True)
     total_us = sum(r[0] for r in rows)
-    # device us by kernel name launched inside each named range
-    inside: dict = {}
-    if ranges:
-        for evt in prof.events():
-            if evt.name in ranges and str(evt.device_type).endswith("CPU"):
-                for name, us in _kernels_under(evt):
-                    slot = inside.setdefault(evt.name, {})
-                    slot[name] = slot.get(name, 0.0) + us
 
     def group(key):
         if "kraken_conv_kernel" in key:
@@ -2084,6 +2309,9 @@ def phase_moe_serve(rec: dict, state: dict) -> None:
         f"{passes[1]['tok_s']:.1f} tok/s, ttft mean "
         f"{passes[1]['ttft_mean_s'] * 1e3:.0f} ms, zero new signatures, "
         f"launches {launches} (grouped_moe_gemm = 3 x {MOE_LAYERS} per step)")
+    rec["moe_serve"]["long_context"] = long_context_full(
+        model, params, "moe_serve", {"kraken_gemm": 4 * MOE_LAYERS + 1,
+                                     "grouped_moe_gemm": 3 * MOE_LAYERS})
     if "profile" in rec["phases"]:
         rec["moe_profile"] = trace_pass(eng, seed=2)
         for r in rec["moe_profile"]["ported"]:
@@ -2944,6 +3172,9 @@ def recurrent_serve(rec: dict, state: dict, key: str) -> None:
     log(f"  {key}_serve sequential: {len(prompts)} requests one at a time, "
         f"{toks} tokens in {wall:.2f} s = {toks / wall:.1f} tok/s; {same} of "
         f"{len(prompts)} token-identical to the engine's first pass")
+    rec[f"{key}_serve"]["long_context"] = long_context_full(
+        model, params, f"{key}_serve",
+        {"kraken_gemm": out["launches_per_decode_step"]["kraken_gemm"]})
     if "profile" in rec["phases"]:
         rec[f"{key}_profile"] = trace_pass(eng, seed=2,
                                            ranges=("recurrence",))
@@ -4155,6 +4386,339 @@ def frontend_e2e(rec: dict, state: dict, key: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase: examples -- repro_torch.examples on the card
+# ---------------------------------------------------------------------------
+
+# serve_lm's archs, each with the kernels beside kraken_gemm its engine
+# must launch (and no other)
+EXAMPLE_SERVE = {"yi-6b": ("paged_decode_attention",),
+                 "mixtral-8x22b": ("paged_decode_attention",
+                                   "grouped_moe_gemm"),
+                 "rwkv6-3b": (),
+                 "zamba2-1.2b": ("paged_decode_attention",)}
+# train_lm's steps on the card (the example's own 300)
+TRAIN_LM_STEPS = 300
+# long_context at full width on each serve phase's weights: batch 2, a
+# 32-entry cache and LONG_HORIZON decode steps (the position passes the
+# cache twice)
+LONG_BATCH, LONG_CACHE, LONG_HORIZON = 2, 32, 64
+
+
+def _captured(label: str, fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output captured, then logged
+    line by line under ``label`` (also when it raises): (result, output)."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = fn(*args, **kw)
+    finally:
+        for ln in buf.getvalue().splitlines():
+            log(f"  {label}: {ln}")
+    return res, buf.getvalue()
+
+
+def _want_launches(launches: dict, want: dict) -> dict:
+    """``want`` with every other counter at 0."""
+    return {name: want.get(name, 0) for name in launches}
+
+
+def example_quickstart() -> dict:
+    """The quickstart on smoke yi-6b on the card: every loss finite and
+    falling, 9 greedy tokens (the prefill's and 8 decode steps'), and
+    ``kraken_gemm`` launched exactly as counted: a forward, three loss
+    steps under grad (remat none), a prefill and 8 decode steps."""
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.core.gemm_cases import windowed_train_launches
+    from repro_torch.examples import quickstart
+    from repro_torch.models.model import Model
+    model = Model(smoke_config(get_arch("yi-6b")))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = quickstart.run(model, params, device=torch.device("cuda"),
+                         log=lambda m: log(f"  quickstart: {m}"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_counts()
+    layers = model.cfg.num_layers
+    fwd = 7 * layers + 1
+    want = _want_launches(launches, {"kraken_gemm": 10 * fwd + 3 * (
+        windowed_train_launches(layers, 0, "none")["kraken_gemm"])})
+    losses = got["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[0] > losses[1] > losses[2]:
+        raise AssertionError(f"quickstart: losses {losses} not finite and "
+                             "falling")
+    if len(got["tokens"]) != 9 or not all(
+            0 <= t < model.cfg.vocab_size for t in got["tokens"]):
+        raise AssertionError(f"quickstart: decoded {got['tokens']}")
+    if not bool(torch.isfinite(got["logits"]).all()):
+        raise AssertionError("quickstart: a forward logit is not finite")
+    if launches != want:
+        raise AssertionError(f"quickstart: launches {launches}, want {want}")
+    return {"seconds": secs, "losses": losses, "tokens": got["tokens"],
+            "launches": launches}
+
+
+def example_serve_lm(arch: str, needs: tuple) -> dict:
+    """serve_lm on the card with ``--repeat 2``: every request served on
+    both passes, the warm pass with no new signature, and beside
+    ``kraken_gemm`` exactly the kernels in ``needs`` launched."""
+    from repro_torch.examples import serve_lm
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc, out = _captured(f"serve_lm {arch}", serve_lm.main,
+                        ["--arch", arch, "--repeat", "2"])
+    secs = time.perf_counter() - t0
+    launches = _read_counts()
+    expect = ["pass 2: prefill retraces=0 decode retraces=0",
+              "served 12/12 requests", f"# {arch} on cuda"]
+    missing = [w for w in expect if w not in out]
+    on = {name for name, n in launches.items() if n}
+    if rc or missing or on != {"kraken_gemm", *needs}:
+        raise AssertionError(f"serve_lm {arch}: rc {rc}, missing {missing}, "
+                             f"launches {launches} (want kraken_gemm and "
+                             f"{needs})")
+    return {"seconds": secs, "launches": launches}
+
+
+def example_long_context() -> dict:
+    """long_context at JAX's smoke sizes (batch 2, an 8-token prompt, a
+    32-entry cache, 128 decode steps) for its three archs: every logit
+    finite (the example raises otherwise), the allocated bytes the same
+    after the last decode step as after the first, ``kraken_gemm`` (and
+    for mixtral ``grouped_moe_gemm``) launched the same number of times each
+    step."""
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.examples import long_context
+    from repro_torch.models.model import Model
+    out = {}
+    for arch in long_context.ARCHS:
+        model = Model(smoke_config(get_arch(arch)))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        _zero_counts()
+        r = long_context.run(model, params, device=torch.device("cuda"),
+                             log=lambda m: log(f"  long_context: {m}"))
+        launches = _read_counts()
+        steps = 1 + 128
+        bad = [k for k, n in launches.items() if n % steps]
+        needs = {"kraken_gemm"} | ({"grouped_moe_gemm"}
+                                   if arch.startswith("mixtral") else set())
+        if r["allocated_first"] != r["allocated_last"] or bad or \
+                {k for k, n in launches.items() if n} != needs:
+            raise AssertionError(f"long_context {arch}: allocated "
+                                 f"{r['allocated_first']} -> "
+                                 f"{r['allocated_last']}, launches "
+                                 f"{launches}")
+        out[arch] = {"tok_s": r["tok_s"], "launches": launches,
+                     "allocated": r["allocated_last"]}
+    return out
+
+
+def example_train_lm(steps: int = TRAIN_LM_STEPS) -> dict:
+    """train_lm on the card, in this process, for ``steps`` steps: every
+    step's loss and grad norm finite, no restart, the checkpoints the
+    supervisor keeps (100, 200 and 300 of 300 steps), the last logged loss
+    at least 1 nat under the first, ``kraken_gemm`` launched exactly as a
+    remat-none step counts; the warm step time, the peak allocation and the
+    losses against the ln 16 floor reported.  The step function the
+    launcher builds is wrapped to read each step's metrics (synchronized
+    there, so the step times are the card's)."""
+    import re
+    import shutil
+    import torch
+    from repro_torch.configs import registry as R
+    from repro_torch.core.gemm_cases import (TRAIN_LM_LAYERS,
+                                             windowed_train_launches)
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import steps as S
+    ck = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    real, seen = S.make_train_step, []
+
+    def recording(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            m = out[2]
+            seen.append((time.perf_counter(), torch.stack(
+                [m["loss"].detach().float(),
+                 m["grad_norm"].detach().float()])))
+            return out
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    S.make_train_step = recording
+    t0 = time.perf_counter()
+    try:
+        rc, out = _captured("train_lm", train_lm.main,
+                            ["--steps", str(steps), "--ckpt-dir", str(ck)])
+    finally:
+        S.make_train_step = real
+        R.ARCHS.pop("yi-100m", None)
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = windowed_train_launches(TRAIN_LM_LAYERS, 0,
+                                       "none")["kraken_gemm"]
+    metrics = torch.stack([m for _, m in seen]).cpu() if seen else None
+    logged = [(int(a), float(b)) for a, b in
+              re.findall(r"step +(\d+) loss (\S+) ce", out)]
+    saved = sorted(int(d.name[5:]) for d in ck.glob("step_*")
+                   if not d.name.endswith(".tmp"))
+    want_saved = sorted({s for s in range(1, steps + 1)
+                         if s % 100 == 0 or s == steps})[-3:]
+    times = [b - a for (a, _), (b, _) in zip(seen, seen[1:])]
+    warm = sorted(times[10:] or times)
+    res = {"steps": steps, "wall_s": wall,
+           "step_ms_median": 1e3 * warm[len(warm) // 2] if warm else None,
+           "step_ms_first": 1e3 * (seen[0][0] - t0) if seen else None,
+           "peak_gb": peak / 1e9, "launches": launches,
+           "launches_per_step": per_step, "logged": logged,
+           "loss_at": {n: float(metrics[n - 1, 0]) for n in (100, 200, 300)
+                       if metrics is not None and n <= len(metrics)},
+           "floor_loss": train_lm.FLOOR_LOSS,
+           "start_loss": train_lm.START_LOSS, "checkpoints": saved}
+    problems = []
+    if rc or f"done: {steps} steps" not in out or "(0 restarts" not in out:
+        problems.append(f"rc {rc} or a restart")
+    if metrics is None or len(metrics) != steps or \
+            not bool(torch.isfinite(metrics).all()):
+        problems.append("a loss or grad norm not finite (or steps missing)")
+    if saved != want_saved:
+        problems.append(f"checkpoints {saved}, want {want_saved}")
+    if len(logged) < 2 or not logged[-1][1] <= logged[0][1] - 1.0:
+        problems.append(f"logged losses {logged[:1]} .. {logged[-1:]} fall "
+                        "less than 1 nat")
+    if launches != _want_launches(launches, {"kraken_gemm":
+                                             per_step * steps}):
+        problems.append(f"launches {launches}, want {per_step} kraken_gemm "
+                        "a step")
+    if problems:
+        raise AssertionError(f"train_lm: {'; '.join(problems)}")
+    return res
+
+
+def phase_examples(rec: dict, state: dict) -> None:
+    """``repro_torch.examples`` on the card, through the functions and
+    entry points a user calls: kraken_paper's printed lines against the
+    same function's on the CPU, quickstart, serve_lm for four archs,
+    long_context at JAX's smoke sizes and train_lm's 300 steps; then
+    ``kraken_gemm``'s float32 route at train_lm's cells (the forward and
+    both backward products, timed)."""
+    import gc
+    import torch
+    from repro_torch.core.gemm_cases import TRAIN_LM_GEMMS, TRAIN_LM_M
+    from repro_torch.examples import kraken_paper
+    from repro_torch.kernels import kraken_gemm as kg
+    from repro_torch.kernels import ops, ref
+    res, secs = {}, {}
+
+    t0 = time.perf_counter()
+    _, card = _captured("kraken_paper", kraken_paper.main,
+                        ["--device", "cuda"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        kraken_paper.main(["--device", "cpu"])
+    if card != buf.getvalue() or card.count("\n") < 20:
+        raise AssertionError("kraken_paper: the card's entry printed other "
+                             "lines than the CPU's")
+    res["kraken_paper"] = {"lines": card.count("\n")}
+    secs["kraken_paper"] = time.perf_counter() - t0
+
+    for name, fn in (("quickstart", example_quickstart),
+                     ("long_context", example_long_context),
+                     ("train_lm", example_train_lm)):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        secs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["serve_lm"] = {}
+    t0 = time.perf_counter()
+    for arch, needs in EXAMPLE_SERVE.items():
+        res["serve_lm"][arch] = example_serve_lm(arch, needs)
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs["serve_lm"] = time.perf_counter() - t0
+
+    # kraken_gemm's float32 route at train_lm's cells, timed
+    t0 = time.perf_counter()
+    rows = [grad_case(torch, kg, ref, ops, name, TRAIN_LM_M, k, n, act,
+                      bias, torch.float32, timed=True)
+            for name, k, n, act, bias, _ in TRAIN_LM_GEMMS]
+    for r in rows:
+        log(grad_line(r))
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("kraken_gemm at train_lm's cells: "
+                             f"{[r['name'] for r in rows if not r['ok']]}")
+    sums = train_lm_sums(rows)
+    secs["train_lm_gemms"] = time.perf_counter() - t0
+    res["train_lm_gemms"] = rows
+    res["train_lm_gemm_step"] = sums
+    res["seconds"] = secs
+    rec["examples"] = res
+    t = res["train_lm"]
+    log(f"  train_lm's kraken_gemm a step (float32, {sums['launches']} "
+        f"launches): {sums['ms']:.2f} ms event-timed, {sums['device_ms']:.2f}"
+        f" device-only, plain {sums['plain_ms']:.2f}, torch.matmul "
+        f"{sums['matmul_ms']:.2f} (device {sums['device_matmul_ms']:.2f}), "
+        f"bound {sums['bound_ms']:.2f}; z relaunches {sums['z_ms']:.2f}")
+    log(f"examples: kraken_paper's {res['kraken_paper']['lines']} lines as "
+        f"on the CPU; quickstart losses {res['quickstart']['losses']}; "
+        f"serve_lm warm passes with no new signature for "
+        f"{len(EXAMPLE_SERVE)} archs; long_context "
+        + ", ".join(f"{a} {r['tok_s']:.1f} tok/s"
+                    for a, r in res["long_context"].items())
+        + f"; train_lm {t['steps']} steps in {t['wall_s']:.1f} s (warm step "
+        f"{t['step_ms_median']:.1f} ms, peak {t['peak_gb']:.2f} GB), loss "
+        f"{t['logged'][0][1]:.4f} -> {t['logged'][-1][1]:.4f} (floor "
+        f"{t['floor_loss']:.4f}); seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+
+
+def long_context_full(model, params, label: str, per_step: dict) -> dict:
+    """The long_context example's ``run`` on a serve phase's own model and
+    weights at full width: batch 2, a 32-entry cache, 64 decode steps.
+    Every logit finite at every step (the example raises otherwise), the
+    allocated bytes after the last decode step equal to those after the
+    first, and the launches exactly ``per_step`` a forward (the prefill and
+    each decode step)."""
+    import torch
+    from repro_torch.examples import long_context
+    _zero_counts()
+    r = long_context.run(model, params, cache_len=LONG_CACHE,
+                         horizon=LONG_HORIZON, batch=LONG_BATCH,
+                         device=torch.device("cuda"),
+                         log=lambda m: log(f"  {label} long_context: {m}"))
+    launches = _read_counts()
+    want = _want_launches(launches, {k: v * (1 + LONG_HORIZON)
+                                     for k, v in per_step.items()})
+    if launches != want:
+        raise AssertionError(f"{label} long_context: launches {launches}, "
+                             f"want {want}")
+    if r["allocated_first"] != r["allocated_last"]:
+        raise AssertionError(f"{label} long_context: allocated "
+                             f"{r['allocated_first']} after the first decode "
+                             f"step, {r['allocated_last']} after the last")
+    log(f"  {label} long_context: {model.cfg.name} at "
+        f"{model.cfg.num_layers} layers, batch {LONG_BATCH}, a {LONG_CACHE}"
+        f"-entry cache, {LONG_HORIZON} decode steps: {r['tok_s']:.1f} tok/s, "
+        f"every logit finite, {r['allocated_last']} bytes allocated after "
+        f"the first and the last step, launches {launches}")
+    return {"tok_s": r["tok_s"], "seconds": r["seconds"],
+            "allocated_bytes": r["allocated_last"],
+            "cache_bytes": r["cache_bytes_last"], "launches": launches,
+            "batch": LONG_BATCH, "cache_len": LONG_CACHE,
+            "horizon": LONG_HORIZON, "last_tokens": r["tokens"][-1]}
+
+
+# ---------------------------------------------------------------------------
 # phase: train -- the gradient of kraken_matmul and yi-6b train steps
 # ---------------------------------------------------------------------------
 
@@ -4189,9 +4753,10 @@ def grad_case(torch, kg, ref, ops, name, m, k, n, act, bias, dtype, *,
     the output Y, dA, dB and dbias each within ``GEMM_TOL`` at unit scale;
     a second forward and backward must give the same bits, and the launches are counted (one
     forward, two products, one recomputed z when activated).  When
-    ``timed`` the backward's two products are timed event-timed and
-    device-only beside ``torch.matmul`` on the same operands and the bound,
-    and the operand transposes (and the z relaunch) apart."""
+    ``timed`` the forward's product (``Y``, with its epilogue) and the
+    backward's two are timed event-timed and device-only beside the plain
+    version and ``torch.matmul`` on the same operands and the bound, and the
+    operand transposes (and the z relaunch) apart."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = str(dtype).split(".")[-1]
     a = torch.randn((m, k), generator=g, device="cuda").to(dtype)
@@ -4242,11 +4807,15 @@ def grad_case(torch, kg, ref, ops, name, m, k, n, act, bias, dtype, *,
               ).to(dtype).contiguous()
         bt, at = b.t().contiguous(), a.t().contiguous()
         isz = a.element_size()
-        for lab, x, y in (("dA", gp, bt), ("dB", at, gp)):
+        for lab, x, y, kw in (("Y", a, b, dict(bias=c, activation=act)),
+                              ("dA", gp, bt, {}), ("dB", at, gp, {})):
             mm, kk, nn = x.shape[0], x.shape[1], y.shape[1]
-            row[f"{lab}_ms"] = time_ms(lambda: kg.kraken_gemm(x, y), 10)
-            row[f"{lab}_device_ms"] = graph_ms(lambda: kg.kraken_gemm(x, y),
-                                               4)
+            row[f"{lab}_ms"] = time_ms(lambda: kg.kraken_gemm(x, y, **kw),
+                                       10)
+            row[f"{lab}_device_ms"] = graph_ms(
+                lambda: kg.kraken_gemm(x, y, **kw), 4)
+            row[f"{lab}_plain_ms"] = time_ms(lambda: ref.matmul(x, y, **kw),
+                                             10)
             row[f"{lab}_matmul_ms"] = time_ms(lambda: torch.matmul(x, y), 10)
             row[f"{lab}_device_matmul_ms"] = graph_ms(
                 lambda: torch.matmul(x, y), 4)
@@ -4272,9 +4841,10 @@ def grad_line(r: dict) -> str:
            + ("" if r["same_bits"] else " BITS DIFFER")
            + ("" if r["ok"] else " FAIL"))
     if "dA_ms" in r:
-        for lab in ("dA", "dB"):
+        for lab in ("Y", "dA", "dB"):
             out += (f"\n    {lab} [{r[lab + '_plan']}] ms={r[lab + '_ms']:.4f}"
-                    f" device={r[lab + '_device_ms']:.4f} matmul="
+                    f" device={r[lab + '_device_ms']:.4f} plain="
+                    f"{r[lab + '_plain_ms']:.4f} matmul="
                     f"{r[lab + '_matmul_ms']:.4f} (device "
                     f"{r[lab + '_device_matmul_ms']:.4f}) bound="
                     f"{r[lab + '_bound_ms']:.4f} ({r[lab + '_bound_by']})")
@@ -4298,6 +4868,26 @@ def train_step_sums(rows: list) -> dict:
     out["transposes_ms"] = sum(calls[nm] * (by[nm]["bT_ms"] + by[nm]["aT_ms"])
                                for nm in calls)
     out["z_ms"] = sum(calls[nm] * by[nm]["z_ms"] for nm in calls)
+    return out
+
+
+def train_lm_sums(rows: list) -> dict:
+    """``kraken_gemm``'s share of one ``train_lm`` step (yi-100m, float32,
+    remat none): each ``TRAIN_LM_GEMMS`` cell's forward product and its two
+    backward products times its calls a step, and one z relaunch a silu
+    gate: ms, device ms, the plain version's ms, ``torch.matmul`` ms, the
+    bound."""
+    from repro_torch.core.gemm_cases import TRAIN_LM_GEMMS
+    calls = {name: c for name, *_, c in TRAIN_LM_GEMMS}
+    by = {r["name"]: r for r in rows}
+    out = {}
+    for key in ("ms", "device_ms", "plain_ms", "matmul_ms",
+                "device_matmul_ms", "bound_ms"):
+        out[key] = sum(calls[nm] * sum(by[nm][f"{lab}_{key}"]
+                                       for lab in ("Y", "dA", "dB"))
+                       for nm in calls)
+    out["z_ms"] = sum(calls[nm] * by[nm]["z_ms"] for nm in calls)
+    out["launches"] = sum(by[nm]["launches"] * calls[nm] for nm in calls)
     return out
 
 
@@ -5233,6 +5823,7 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
              if k.endswith("decode")},
          "train_step_backward": rec.get("train", {}).get(
              "backward_per_step"),
+         "train_lm_step": rec.get("examples", {}).get("train_lm_gemm_step"),
          "shape": "one yi-6b decode step, bf16, M=4: 32 x (q,k,v,o,gate,up,"
                   "down) + unembed; decode_steps_by_arch: rwkv6-3b's 289, "
                   "zamba2-1.2b's 119, llama-3.2-vision-11b's 265 and "
@@ -5240,7 +5831,10 @@ def yi_entries(rec: dict, launches: dict, by_path) -> list[dict]:
                   "train_step_backward: the dA and dB products of one "
                   "yi-6b train step (bf16, M 1024: 225 calls x 2), "
                   "library = torch.matmul on the same contiguous "
-                  "operands, transposes and z relaunches apart"},
+                  "operands, transposes and z relaunches apart; "
+                  "train_lm_step: the forward, dA and dB products of one "
+                  "train_lm step (yi-100m, float32, M 2048: 85 calls x 3), "
+                  "z relaunches apart"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:234",
@@ -5281,6 +5875,7 @@ def kernels_line(rec: dict) -> dict:
     dense = rec.get("dense_serve", {})
 
     swa_fwd = rec.get("swa_forward", {})
+    examples = rec.get("examples", {})
 
     def by_path(name):
         return {"yi-6b": launches.get(name),
@@ -5310,7 +5905,24 @@ def kernels_line(rec: dict) -> dict:
                     rec.get("swa_train", {}).get(key, {}).get("steps", [])),
                     {}).get("launches", {}).get(name)
                    for key, arch in (("gemma3", "gemma3-12b"),
-                                     ("mixtral", "mixtral-8x22b"))}}
+                                     ("mixtral", "mixtral-8x22b"))},
+                "yi-6b whole-prompt scatter, two decode steps": rec.get(
+                    "serve", {}).get("scatter", {}).get("launches", {}).get(
+                    name),
+                **{f"{arch} long_context": rec.get(key, {}).get(
+                    "long_context", {}).get("launches", {}).get(name)
+                   for key, arch in (("rwkv_serve", "rwkv6-3b"),
+                                     ("zamba_serve", "zamba2-1.2b"),
+                                     ("moe_serve", "mixtral-8x22b"))},
+                "examples quickstart": examples.get("quickstart", {}).get(
+                    "launches", {}).get(name),
+                "examples train_lm (yi-100m)": examples.get(
+                    "train_lm", {}).get("launches", {}).get(name),
+                **{f"examples serve_lm {arch}": examples.get(
+                    "serve_lm", {}).get(arch, {}).get("launches", {}).get(
+                    name) for arch in EXAMPLE_SERVE},
+                **{f"examples long_context {arch}": r["launches"].get(name)
+                   for arch, r in examples.get("long_context", {}).items()}}
 
     entries = []
     if "gemm" in rec:
@@ -5433,14 +6045,17 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "dense_kernels": phase_dense_kernels,
           "swa_kernels": phase_swa_kernels,
           "conv_kernels": phase_conv_kernels,
+          # small models: before the full-width phases
+          "examples": phase_examples,
           "recurrence": phase_recurrence, "serve": phase_serve,
           "serve_features": phase_serve_features, "e2e": phase_e2e, "profile": phase_profile,
           "tune": phase_tune,
           "dense_serve": phase_dense_serve, "dense_e2e": phase_dense_e2e,
           "moe_serve": phase_moe_serve, "moe_e2e": phase_moe_e2e,
           "swa_forward": phase_swa_forward, "conv_nets": phase_conv_nets,
-          # last: their traces record host activity too (device_trace's
-          # ranges), and no earlier phase's trace then follows one
+          # after conv_nets: once, when their traces ran before it (with
+          # the host activity traced too, as they were then), its VGG-16
+          # b32 trace lost its first frame's kernels
           **{f"{key}_{what}": functools.partial(fn, key=key)
              for key in RECURRENT
              for what, fn in (("serve", recurrent_serve),

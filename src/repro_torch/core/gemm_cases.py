@@ -139,6 +139,16 @@ TRAIN_GEMMS = [("wq|wo", 4096, 4096, None, False, 2 * YI_LAYERS),
                ("up", 4096, 11008, None, False, YI_LAYERS),
                ("down", 11008, 4096, None, False, YI_LAYERS),
                ("unembed", 4096, 64000, None, False, 1)]
+# the yi-100m of ``repro_torch.examples.train_lm`` (12 layers, d 768, 12/4
+# heads of 64, d_ff 2048, vocab 16000, float32): its train step's cells at
+# batch 8 x seq 256, (name, K, N, activation, bias, forward calls a step)
+TRAIN_LM_M, TRAIN_LM_LAYERS = 8 * 256, 12
+TRAIN_LM_GEMMS = [("wq|wo", 768, 768, None, False, 2 * TRAIN_LM_LAYERS),
+                  ("wk|wv", 768, 256, None, False, 2 * TRAIN_LM_LAYERS),
+                  ("gate", 768, 2048, "silu", False, TRAIN_LM_LAYERS),
+                  ("up", 768, 2048, None, False, TRAIN_LM_LAYERS),
+                  ("down", 2048, 768, None, False, TRAIN_LM_LAYERS),
+                  ("unembed", 768, 16000, None, False, 1)]
 # the other epilogues at their archs' widths, and a ragged shape whose
 # transposed operands TMA refuses: (name, M, K, N, activation, bias)
 TRAIN_EDGE = [("musicgen wi: bias + gelu", TRAIN_M, 2048, 8192, "gelu", True),

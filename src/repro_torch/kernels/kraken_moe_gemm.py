@@ -38,7 +38,7 @@ import functools
 import torch
 
 from repro_torch.core import elastic
-from repro_torch.core.elastic import SMEM_BUDGET, ceil_div
+from repro_torch.core.elastic import SMEM_BUDGET, ceil_div, round_up
 from repro_torch.kernels import _build, ref
 
 #: launches of the kernel in this process (one per call, the split's sum
@@ -372,3 +372,40 @@ def grouped_expert_ffn(buf, sizes, wi_gate, wi_up, wo) -> torch.Tensor:
     gate = grouped_moe_gemm(buf, wi_gate, sizes)
     up = grouped_moe_gemm(buf, wi_up, sizes)
     return grouped_moe_gemm(ref.silu_mul(gate, up), wo, sizes)
+
+
+# ---------------------------------------------------------------------------
+# Modeled traffic of one MoE layer's expert FFN
+# ---------------------------------------------------------------------------
+
+#: the reference's row granule by dtype name (its TPU sublanes), kept here
+#: only so :func:`modeled_ffn_bytes` rounds the capacity as the reference's
+#: model does
+_SUBLANE = {"int8": 32, "bfloat16": 16}
+
+
+def modeled_ffn_bytes(sizes, *, capacity: int, d: int, f: int,
+                      itemsize: int, block_rows: int,
+                      dtype_name: str = "float32") -> tuple[int, int]:
+    """Modeled bytes one MoE layer's expert FFN moves for the live counts
+    ``sizes``: ``(reference, grouped)``, the reference's model unchanged.
+
+    The reference einsum reads all three weight banks of every expert and
+    streams all ``E * C`` capacity rows through the three products; the
+    grouped walk reads the weights of the *active* experts only and the
+    rows of *live* ``block_rows`` blocks only (the last live block rounded
+    up to a whole block).  The capacity is rounded up to the reference's
+    row granule for ``dtype_name`` (16 rows for bfloat16, 32 for int8, 8
+    otherwise), as the reference rounds it; the port's own traffic model,
+    where it differs, comes with the port's benchmark.
+    """
+    e = len(sizes)
+    w_bytes = 3 * d * f * itemsize                      # gate + up + wo
+    act_row = (2 * d + 2 * f + f + d) * itemsize        # x r2, h w+r, out w
+    cpad = round_up(capacity, _SUBLANE.get(dtype_name, 8))
+    reference = e * w_bytes + e * cpad * act_row
+    live = [int(s) for s in sizes if int(s) > 0]
+    live_rows = sum(min(ceil_div(s, block_rows) * block_rows, cpad)
+                    for s in live)
+    grouped = len(live) * w_bytes + live_rows * act_row
+    return reference, grouped

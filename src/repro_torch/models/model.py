@@ -203,16 +203,23 @@ class Model:
         return total, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------ serve
-    def init_caches(self, batch: int, cache_len: int, *, device=None):
+    def cache_len_for(self, seq_len: int) -> int:
+        """The dense cache length a sequence of ``seq_len`` tokens needs."""
+        return seq_len
+
+    def init_caches(self, batch: int, cache_len: int, *, device=None,
+                    clamp_window: bool = True):
         """Empty caches for :meth:`prefill` and :meth:`decode_step` (the
         sequential path) on ``device`` (default ``cuda``), one per layer: a
         dense KV cache per attention layer and shared-block call, zeroed
         state rows per recurrent layer and zeroed K/V rows of
         ``cfg.num_frontend_tokens`` per cross-attention layer; see
-        ``LayerStack.cache_tree``."""
+        ``LayerStack.cache_tree``.  ``clamp_window=False`` keeps a
+        sliding-window layer's cache at the whole ``cache_len`` (the
+        whole-prompt prefill ``StateTree.scatter_prefill`` reads)."""
         return self.stack.cache_tree(
             batch, cache_len, getattr(torch, self.cfg.dtype),
-            device=_device.resolve(device))
+            device=_device.resolve(device), clamp_window=clamp_window)
 
     def cache_specs(self, batch: int, cache_len: int, *, flat: bool = True):
         """:meth:`init_caches`'s tree on the ``meta`` device: nothing is

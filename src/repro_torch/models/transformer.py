@@ -106,9 +106,12 @@ def shared_attn_specs(cfg) -> dict[str, Spec]:
 # ---------------------------------------------------------------------------
 
 def slot_cache(cfg, slot: Slot, batch: int, cache_len: int, dtype, *,
-               device):
+               device, clamp_window: bool = True):
     """One layer's cache: a dense KV cache for attention (a sliding-window
-    layer keeps a ring of ``min(window, cache_len)`` slots), the frozen
+    layer keeps a ring of ``min(window, cache_len)`` slots, or all
+    ``cache_len`` with ``clamp_window=False``: the whole-prompt prefill
+    that ``StateTree.scatter_prefill`` reads keeps every position at its
+    own row and windows by the mask alone), the frozen
     cross-attention K/V rows ``{"k", "v"}: [batch, KV,
     cfg.num_frontend_tokens, D]`` (zeros until a frontend fills them), or
     the recurrent state rows of an RWKV (with the channel mix's token
@@ -124,7 +127,8 @@ def slot_cache(cfg, slot: Slot, batch: int, cache_len: int, dtype, *,
                                            device=device)}
     if slot.kind == "mamba":
         return SSM.mamba_state_init(cfg, batch, dtype, device)
-    s_cache = min(slot.window, cache_len) if slot.window else cache_len
+    s_cache = (min(slot.window, cache_len)
+               if slot.window and clamp_window else cache_len)
     return L.KVCache.init(cfg, batch, s_cache, dtype, device)
 
 
@@ -298,14 +302,16 @@ class LayerStack:
             out["shared"] = shared_attn_specs(cfg)
         return out
 
-    def cache_tree(self, batch: int, cache_len: int, dtype, *, device):
+    def cache_tree(self, batch: int, cache_len: int, dtype, *, device,
+                   clamp_window: bool = True):
         """Caches for every layer, in the serving layout: ``{"slots":
         [[cache per period] per pattern slot], "tail": [...]}`` and, with a
         shared block, ``"shared": [cache per period]`` (each call of the
-        block attends over its own cache)."""
+        block attends over its own cache).  ``clamp_window``: see
+        :func:`slot_cache`."""
         def one(slot):
             return slot_cache(self.cfg, slot, batch, cache_len, dtype,
-                              device=device)
+                              device=device, clamp_window=clamp_window)
         tree = {"slots": [[one(s) for _ in range(self.n_periods)]
                           for s in self.pattern],
                 "tail": [one(self.pattern[i]) for i in range(self.n_tail)]}

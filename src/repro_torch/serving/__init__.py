@@ -9,11 +9,13 @@ from repro_torch.serving.engine import (CacheConfig, EngineConfig, FaultConfig,
                                         ShapeCounter, SpecConfig)
 from repro_torch.serving.faults import FaultEvent, FaultInjected, FaultPlan
 from repro_torch.serving.paged_kv import (COPY_NONE, PageAllocator,
-                                          SwapIntegrityError, ceil_pages,
-                                          copy_page, gather_pages, make_pool,
-                                          reset_pages, scatter_prefill,
-                                          snapshot_digest, swap_in_pages,
-                                          swap_out_pages, truncate_pages)
+                                          PoolLayout, SwapIntegrityError,
+                                          ceil_pages, copy_page, gather_pages,
+                                          make_pool, modeled_decode_bytes,
+                                          pool_layout, reset_pages,
+                                          scatter_prefill, snapshot_digest,
+                                          swap_in_pages, swap_out_pages,
+                                          truncate_pages)
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixHit
 from repro_torch.serving.scheduler import (CANCELLED, DONE, FAILED, PREEMPTED,
                                            PREFILLING, QUEUED, REJECTED,
@@ -34,8 +36,8 @@ __all__ = [
     "ShapeCounter", "PageAllocator", "FIFOScheduler",
     "PriorityScheduler", "ServeRequest", "summarize", "slo_summary",
     "ceil_pages", "make_pool", "scatter_prefill",
-    "reset_pages", "gather_pages", "copy_page", "COPY_NONE",
-    "swap_out_pages", "swap_in_pages",
+    "reset_pages", "gather_pages", "copy_page", "COPY_NONE", "PoolLayout",
+    "pool_layout", "modeled_decode_bytes", "swap_out_pages", "swap_in_pages",
     "SwapIntegrityError", "snapshot_digest", "truncate_pages",
     "PrefixCache", "PrefixHit",
     "Drafter", "NGramDrafter", "greedy_accept",

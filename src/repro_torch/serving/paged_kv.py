@@ -7,7 +7,8 @@ cache type (:class:`~repro_torch.models.layers.PagedKVCache`) lives in
 * :class:`PageAllocator` -- host-side (numpy) page bookkeeping: fixed-size
   refcounted pages, per-slot page tables, admission control, ``check()``;
 * :func:`make_pool` -- a fresh pool with its trash page and an
-  all-sentinel table;
+  all-sentinel table; :func:`pool_layout` its geometry and
+  :func:`modeled_decode_bytes` the decode paths' modeled traffic over it;
 * :func:`scatter_prefill`, :func:`reset_pages`, :func:`copy_page`,
   :func:`truncate_pages` -- the device writes, **in place**;
 * :func:`swap_out_pages` / :func:`swap_in_pages` -- the preempt-to-host
@@ -26,10 +27,12 @@ Ring semantics: token position ``p`` of a slot lives at logical index
 from __future__ import annotations
 
 import hashlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.models.layers import KVCache, PagedKVCache, POS_EMPTY
 
 
@@ -61,6 +64,48 @@ def make_pool(cfg, *, n_pages: int, page_size: int, max_pages: int,
                               dtype=torch.int32, device=device),
         **scales,
     )
+
+
+class PoolLayout(NamedTuple):
+    """The pool-geometry constants the paged kernel's planner, the tuner's
+    warmers and the traffic models need, derived once."""
+    n_pages: int
+    kv_heads: int
+    page_size: int
+    head_dim: int
+    n_slots: int
+    max_pages: int
+    logical_len: int
+    itemsize: int
+
+
+def pool_layout(pool: PagedKVCache) -> PoolLayout:
+    """``pool``'s geometry, as JAX's: ``n_pages`` counts the pages a table
+    can name (the trash page is not one of them) and ``itemsize`` is the
+    pool element's size (1 for an int8 pool)."""
+    _, kvh, ps, hd = pool.k.shape
+    n_slots, mp = pool.page_table.shape
+    return PoolLayout(n_pages=pool.n_pages, kv_heads=kvh, page_size=ps,
+                      head_dim=hd, n_slots=n_slots, max_pages=mp,
+                      logical_len=mp * ps, itemsize=pool.k.element_size())
+
+
+def modeled_decode_bytes(lay: PoolLayout) -> tuple[int, int]:
+    """Modeled attention bytes a decode token moves over one pool, for
+    both decode paths: ``(gather_bytes, fused_bytes)`` (the reference's
+    model, unchanged).
+
+    Gather + flash materializes every slot's pages as a dense
+    [B, KV, L, D] copy each token -- read the pool, write the copy, read
+    it in attention: 3x the slot-resident K/V and position bytes.  The
+    fused kernel reads each page once, plus the table and position rows.
+    """
+    slot_kv = 2 * (lay.n_slots * lay.kv_heads * lay.logical_len
+                   * lay.head_dim * lay.itemsize)
+    pos_bytes = lay.n_slots * lay.logical_len * 4
+    tbl_bytes = lay.n_slots * lay.max_pages * 4
+    return (3 * (slot_kv + pos_bytes) + tbl_bytes,
+            slot_kv + pos_bytes + tbl_bytes)
 
 
 class PageAllocator:
@@ -203,6 +248,12 @@ class PageAllocator:
             t[private_only_slot] = np.where(
                 np.isin(row, list(shared)), self.n_pages, row)
         return t
+
+    def table_array(self, device=None) -> torch.Tensor:
+        """The host table as an int32 tensor on ``device`` (default
+        ``cuda``)."""
+        return torch.as_tensor(self.table, dtype=torch.int32,
+                               device=_device.resolve(device))
 
     def check(self) -> None:
         """Assert the accounting invariants: refcounts never negative, the

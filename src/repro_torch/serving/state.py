@@ -11,6 +11,12 @@ eligibility and the engine's eager round trips: preempt-to-host
 (``swap_out`` / ``swap_in``, digest-checked before any write) and
 speculation's rollback (``spec_snapshot`` / ``truncate``).  Device
 transforms update the states in place and return them.
+
+The chunked mixed step writes a prompt into the states inside the model
+(attention appends each chunk to its pages, the recurrences advance their
+rows), so ``scatter_prefill`` -- a whole-prompt dense prefill written into
+slot pages and rows -- is the offline entry point and the oracle the
+chunked writes are held to.
 """
 
 from __future__ import annotations
@@ -26,9 +32,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import PagedKVCache
 from repro_torch.serving.paged_kv import (PageAllocator, SwapIntegrityError,
                                           ceil_pages, copy_page, make_pool,
-                                          reset_pages, snapshot_digest,
-                                          swap_in_pages, swap_out_pages,
-                                          truncate_pages)
+                                          reset_pages, scatter_prefill,
+                                          snapshot_digest, swap_in_pages,
+                                          swap_out_pages, truncate_pages)
 
 
 def tensor_leaves(obj):
@@ -118,6 +124,13 @@ class PagedKVState:
                          n_slots=self.alloc_.n_slots,
                          dtype=getattr(torch, self.cfg.dtype),
                          device=self.device)
+
+    def prefill_scatter(self, leaf: PagedKVCache, dense, slot_ids, lengths,
+                        starts=None) -> PagedKVCache:
+        """Write a dense prefill (position-identity rows, see
+        :func:`~repro_torch.serving.paged_kv.scatter_prefill`) into the
+        slots' pages, in place; ids < 0 write nothing."""
+        return scatter_prefill(leaf, dense, slot_ids, lengths, starts=starts)
 
     def decode_view(self, leaf: PagedKVCache, pos) -> PagedKVCache:
         return leaf   # attention consumes the pool natively
@@ -220,6 +233,23 @@ class SlotRowState:
                             getattr(torch, self.cfg.dtype),
                             device=self.device)
 
+    def prefill_scatter(self, leaf, dense, slot_ids, lengths, starts=None):
+        """Copy each prefill row ``b`` (the state after its tokens) into
+        slot ``slot_ids[b]``'s row, in place.  A row holds the whole state,
+        so ``lengths`` and ``starts`` change nothing that is written; ids
+        outside ``[0, n_slots)`` write nothing (JAX drops them).  One
+        fixed-shape select per tensor, so nothing syncs with the host; of
+        two rows naming one slot the later wins."""
+        hit = slot_ids.long()[:, None] == torch.arange(
+            self.n_slots, device=slot_ids.device)[None, :]    # [Bp, n_slots]
+        written = hit.any(0)
+        order = torch.arange(1, hit.shape[0] + 1, device=slot_ids.device)
+        src = (hit * order[:, None]).argmax(0)                 # last writer
+        for full, rows in zip(tensor_leaves(leaf), tensor_leaves(dense)):
+            keep = written.reshape(-1, *[1] * (full.dim() - 1))
+            full.copy_(torch.where(keep, rows[src].to(full.dtype), full))
+        return leaf
+
     def decode_view(self, leaf, pos):
         return leaf
 
@@ -312,6 +342,18 @@ class StateTree:
     # ---- engine touchpoints --------------------------------------------------
     def init_device(self):
         return self.map_device(lambda st: st.init_device())
+
+    def scatter_prefill(self, pools, dense, slot_ids, lengths, starts=None):
+        """Write a whole-prompt dense prefill (``dense``: the caches of
+        ``Model.init_caches(Bp, L, clamp_window=False)`` after ``prefill``
+        over ``Bp`` prompts) into the slots ``slot_ids`` [Bp], in place:
+        each pool gets rows ``j < lengths[b]`` at position ``starts[b] +
+        j``, each recurrent row the state after the prompt.  Ids < 0 are
+        padding and write nothing."""
+        return self.map_device(
+            lambda st, pl, dn: st.prefill_scatter(pl, dn, slot_ids, lengths,
+                                                  starts=starts),
+            pools, dense)
 
     def decode_view(self, pools, pos):
         return self.map_device(lambda st, pl: st.decode_view(pl, pos), pools)

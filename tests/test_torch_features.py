@@ -154,10 +154,8 @@ def test_invalid_options_are_refused_like_jax(bad, match):
 
 def test_serving_exports_match_jax():
     """The port exports JAX's serving surface, less what it does not port
-    (``JitCounter`` becomes ``ShapeCounter``; the pool layout and traffic
-    model come with the benchmark)."""
-    unported = {"JitCounter", "PoolLayout", "pool_layout",
-                "modeled_decode_bytes"}
+    (``JitCounter`` becomes ``ShapeCounter``)."""
+    unported = {"JitCounter"}
     assert set(S.__all__) - set(J.__all__) == {"ShapeCounter"}
     assert set(J.__all__) - set(S.__all__) == unported
     for name in S.__all__:
