@@ -523,6 +523,14 @@ def phase_build(rec: dict, state: dict) -> None:
         if "ILi128E" in fn and "Used 168 registers" not in " ".join(lines):
             raise AssertionError(f"{fn}: setmaxnreg needs 168 registers at "
                                  f"entry: {lines}")
+    # its float32 kernel: two blocks an SM (128 registers), no spill
+    fma = {fn: lines for fn, lines in
+           ptxas_by_function(report["kraken_gemm"]["log"]).items()
+           if "kraken_gemm_fma" in fn}
+    if len(fma) != 1 or any(" 0 bytes spill stores" not in " ".join(v)
+                            for v in fma.values()):
+        raise AssertionError(f"kraken_gemm_fma: {fma}")
+    rec["build"]["kraken_gemm"]["fma"] = fma
     gemm_serial = [ln for ln in report["kraken_gemm"]["log"].splitlines()
                    if "C7520" in ln]
     if gemm_serial:
@@ -562,13 +570,23 @@ def phase_build(rec: dict, state: dict) -> None:
     for ln in moe_serial:
         log(f"  ptxas grouped_moe_gemm C7520: {ln.strip()}")
     # swa_attention_bwd's six kernels (the delta pass in f32 and bf16, the
-    # f32 FMA grid, the bf16 mma.sync grid at DP 64, 128 and 256, which hold
-    # their dq or dk/dv accumulators in registers): no spill
-    bwd = ptxas_by_function(report["swa_attention_bwd"]["log"])
+    # f32 FMA grid, the bf16 wgmma grid at DP 64, 128 and 256, which hold
+    # their dq or dk/dv accumulators in registers): no spill; the wgmma
+    # variants hand registers over with setmaxnreg (168 at entry) and their
+    # wgmma is not serialised
+    bwd_log = report["swa_attention_bwd"]["log"]
+    bwd = ptxas_by_function(bwd_log)
     rec["build"]["swa_attention_bwd"]["kernels"] = bwd
-    if len(bwd) != 6 or any(" 0 bytes spill stores" not in " ".join(v)
-                            for v in bwd.values()):
+    bwd_wg = {fn: v for fn, v in bwd.items() if "swa_bwd_wgmma" in fn}
+    if len(bwd) != 6 or len(bwd_wg) != 3 or any(
+            " 0 bytes spill stores" not in " ".join(v) for v in bwd.values()
+    ) or any("Used 168 registers" not in " ".join(v)
+             for v in bwd_wg.values()):
         raise AssertionError(f"swa_attention_bwd kernels: {bwd}")
+    bwd_serial = [ln for ln in bwd_log.splitlines() if "C7520" in ln]
+    if bwd_serial:
+        raise AssertionError(f"ptxas serialised swa_attention_bwd's wgmma: "
+                             f"{bwd_serial}")
     dec = ptxas_by_function(report["decode_attention"]["log"])
     if len(dec) != 10 or any(" 0 bytes spill stores" not in " ".join(v)
                              for v in dec.values()):
@@ -594,9 +612,10 @@ def phase_build(rec: dict, state: dict) -> None:
         f"kraken_conv_kernel's 4 variants (bf16 in) spill nothing; wgmma "
         f"{'SERIALISED by ptxas (C7520)' if serial else 'not serialised'}; "
         "kraken_gemm_wgmma's 6 variants spill nothing, wgmma not "
-        "serialised; swa_wgmma's 3 variants at 168 registers, no spill, "
-        "wgmma not serialised; swa_attention_bwd's 6 kernels spill "
-        "nothing; decode_attention's 10 kernels spill nothing; "
+        "serialised; kraken_gemm_fma spills nothing; swa_wgmma's 3 variants "
+        "at 168 registers, no spill, wgmma not serialised; "
+        "swa_attention_bwd's 6 kernels spill nothing, swa_bwd_wgmma's 3 at "
+        "168 registers, wgmma not serialised; decode_attention's 10 kernels spill nothing; "
         "paged_decode_attention's 2 served tma variants spill nothing; "
         "grouped_moe_gemm's 2 wgmma tiles and its sum spill nothing, the "
         "128 x 128 one at 168 registers, wgmma "
@@ -905,8 +924,8 @@ def phase_kernels(rec: dict, state: dict) -> None:
     check_gemm_rows("kernels", rows)
     log(f"kernels: kraken_gemm matches plain in {len(rows)} cases, each "
         f"bit-identical over two runs ({sum(r['plan']['split'] > 1 for r in rows)} "
-        f"split over K, {sum(r['plan']['fill_a'] or r['plan']['fill_b'] for r in rows)} "
-        "with an operand TMA refuses), largest atol needed bf16 "
+        f"split over K, {sum(r['plan']['fill_a'] or r['plan']['fill_b'] for r in rows if r['dtype'] == 'bfloat16')} "
+        "bf16 with an operand TMA refuses), largest atol needed bf16 "
         f"{max(r['atol_needed'] for r in rows if r['dtype'] == 'bfloat16'):.2e} "
         f"f32 {max(r['atol_needed'] for r in rows if r['dtype'] == 'float32'):.2e}")
     from repro_torch.core.attention_cases import PAGED_CASES
@@ -1932,7 +1951,7 @@ def trace_groups(evs: list, wall: float, label: str, inside: dict) -> dict:
         if "grouped_moe_gemm" in key:
             return "grouped_moe_gemm"
         # the wgmma kernel, the split's fixed-order sum, the fp32 kernel
-        if "kraken_gemm" in key or "gemm_kernel" in key:
+        if "kraken_gemm" in key:
             return "kraken_gemm"
         # the split kernel and the combine; before decode_attention's test,
         # which "paged_decode_attention_combine" meets
@@ -3479,10 +3498,10 @@ def swa_bwd_case(torch, sw, ref, *, name, b, h, kvh, s, d, window, dtype,
            "ok": (need <= tol[0] and same and fwd_bits
                   and lse_err <= SWA_LSE_TOL
                   and auto_err <= SWA_BWD_TOL["float32"][0]),
-           "plan_text": sw.describe_bwd(sw.plan_bwd(b, h, kvh, s, d, window,
-                                                    dtype)),
+           "plan": sw.plan_bwd(b, h, kvh, s, d, window, dtype),
            "ms": None, "plain_ms": None, "library_ms": None,
            "bound_ms": None, "bound_by": None}
+    row["plan_text"] = sw.describe_bwd(row["plan"])
     if timed:
         def kernel():
             return sw.swa_attention_bwd(q, k, v, out, dout, lse,
@@ -3507,11 +3526,9 @@ def swa_bwd_case(torch, sw, ref, *, name, b, h, kvh, s, d, window, dtype,
                   + 4 * b * h * s)
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, peak)
-        # the operations the kernel does: 22 a pair and dim on the bf16
-        # mma path (S and dP in both passes, twice over DP's halves), 14 on
-        # the fp32 FMA path
-        row["kernel_flops"] = (22.0 if dtype == torch.bfloat16 else 14.0) \
-            * b * h * d * pairs
+        # the operations the kernel does: the plan's count a pair and dim
+        # (14 on both paths: S and dP once in each pass)
+        row["kernel_flops"] = float(row["plan"]["ops"]) * b * h * d * pairs
         row["tflop_s"] = row["kernel_flops"] / row["ms"] / 1e9
     del q, k, v, dout, out, lse
     return row
@@ -3557,6 +3574,9 @@ def phase_swa_kernels(rec: dict, state: dict) -> None:
 
     # the backward on the forward kernel's out and lse
     from repro_torch.core.attention_cases import SWA_BWD_CASES
+    for fn, lines in rec.get("build", {}).get("swa_attention_bwd", {}).get(
+            "kernels", {}).items():
+        log(f"  ptxas {fn}: {' | '.join(lines)}")
     t0 = time.perf_counter()
     bwd = []
     for name, b, h, kvh, s, d, window, timed in SWA_BWD_CASES:
@@ -3598,7 +3618,11 @@ def phase_swa_kernels(rec: dict, state: dict) -> None:
         f"({time.perf_counter() - t0:.1f} s); gemma3 local train bf16 "
         f"{g3['ms']:.3f} ms per call (device {g3['device_ms']:.3f}, plain "
         f"{g3['plain_ms']:.3f}, sdpa bwd {g3['library_ms']:.3f}, bound "
-        f"{g3['bound_ms']:.4f} by {g3['bound_by']})")
+        f"{g3['bound_ms']:.4f} by {g3['bound_by']}); mixtral train bf16 "
+        + "{ms:.3f} ms (device {device_ms:.3f}, sdpa bwd {library_ms:.3f}, "
+        "bound {bound_ms:.4f})".format(**next(
+            r for r in bwd if r["name"] == "mixtral train"
+            and r["dtype"] == "bfloat16")))
 
     # the gemma3 forward's kraken_gemm shapes, bf16 (the forward) and f32
     # (the float32 period), against the plain version: both sides of every
@@ -4658,6 +4682,19 @@ def phase_examples(rec: dict, state: dict) -> None:
         raise AssertionError("kraken_gemm at train_lm's cells: "
                              f"{[r['name'] for r in rows if not r['ok']]}")
     sums = train_lm_sums(rows)
+    for fn, lines in rec.get("build", {}).get("kraken_gemm", {}).get(
+            "fma", {}).items():
+        log(f"  ptxas {fn}: {' | '.join(lines)}")
+    # each product's device time over torch.matmul's on the same operands
+    sums["x_matmul_by_product"] = {
+        f"{r['name']} {lab}": r[f"{lab}_device_ms"]
+        / r[f"{lab}_device_matmul_ms"]
+        for r in rows for lab in ("Y", "dA", "dB")}
+    worst = max(sums["x_matmul_by_product"].items(), key=lambda kv: kv[1])
+    log(f"  train_lm's products, device time over torch.matmul's: "
+        + ", ".join(f"{k} {v:.2f}"
+                    for k, v in sums["x_matmul_by_product"].items())
+        + f"; worst {worst[0]} {worst[1]:.2f}")
     secs["train_lm_gemms"] = time.perf_counter() - t0
     res["train_lm_gemms"] = rows
     res["train_lm_gemm_step"] = sums

@@ -1,4 +1,5 @@
-// The tile loop shared by kraken_gemm.cu and grouped_moe_gemm.cu.
+// The first port's tile loop: grouped_moe_gemm.cu's float32, int8 and
+// TMA-refused bfloat16 routes (kraken_conv.cu takes from_float alone).
 //
 // One block of NTHREADS (four warps) owns a BM x BN output tile of
 // a[M, K] @ b[K, N] (both row-major), walks K in BK steps through shared

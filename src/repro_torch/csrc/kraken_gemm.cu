@@ -47,11 +47,35 @@
 //   * the epilogue adds bias, applies the activation to the fp32 sum and
 //     rounds once to bf16, masked to [M, N].
 //
-// float32 (gemm_kernel) keeps the first port's tile loop (gemm_tile.cuh,
-// shared with grouped_moe_gemm.cu): an FMA micro-tile in full fp32, no TF32,
-// for the parity gates.
+// float32 (kraken_gemm_fma): full fp32 FMA, no TF32 (the parity route, held
+// to 1e-4), bound by the FMA pipes (67 TFLOP/s, a 16th of bf16's tensor rate):
+//   * one block of 256 threads per output tile of 128 x 128 and split z of K;
+//     8 warps in a 4 x 2 grid of 32 x 64, each thread an 8 x 8 register
+//     micro-tile (rows 4ty + 16h + r of its warp's 32, columns 4tx + 32h + c
+//     of its 64), so that a k step's two 16-byte reads of A and two of B
+//     feed 64 FMAs;
+//   * a ring of 3 stages of K = 32 in dynamic shared memory, filled with
+//     cp.async: A [128, 32] stored K-major, transposed to [32, 128] at a row
+//     stride of 132 floats by 4-byte copies (a warp's 32 take 4 rows x 8
+//     consecutive k, one 32-byte sector a row, into 32 distinct banks), B
+//     [32, 128] as it lies by 16-byte copies (4-byte ones where its base or
+//     rows are not 16-byte aligned: fill_b).  A warp's reads of A are 4
+//     distinct 16-byte words of one row, of B 8: no bank conflicts.  Each
+//     thread's copy addresses are set once a tile (Copies), the slots
+//     advance without a division, and a k step's fragments are read while
+//     the previous step's FMAs run;
+//   * everything past M, K and N is zero-filled by the copy's source size 0
+//     and never read, so no Inf or NaN outside the operands leaks in;
+//   * split-K when the output tiles number fewer than the SMs, as bf16:
+//     fp32 partials into the wrapper's scratch, summed in the order z = 0,
+//     1, ... by kraken_gemm_reduce<float>, which then applies bias and the
+//     activation once.  Two blocks fit an SM (128 registers, 97.5 KB each),
+//     which the planner counts.
+// It runs at about 55% of the FMA pipes' rate at train_lm's products, 1.16x
+// torch.matmul's: the 2048 FMAs of a thread's step share the issue slots
+// with 128 shared loads, the copies and a barrier, and 96-tile products
+// leave a partial wave or a split's partials.
 
-#include "gemm_tile.cuh"
 #include "hopper.cuh"
 
 #include <string.h>
@@ -65,7 +89,7 @@ namespace {
 // against its PLAN_FIELDS when it loads this library.
 #define KRAKEN_GEMM_PLAN(X)                                                    \
   X(path) X(M) X(N) X(K)                                                       \
-  /* bfloat16: the wgmma kernel */                                             \
+  /* the tile, ring, split and fill of either kernel */                        \
   X(BM) X(BN) X(stages) X(nk) X(split) X(kps) X(mtiles) X(ntiles) X(tiles)     \
   X(fill_a) X(fill_b) X(smem)
 
@@ -92,57 +116,6 @@ __device__ __forceinline__ float activate(float x, int act) {
     default:
       return x;
   }
-}
-
-// ---------------------------------------------------------------------------
-// float32: the FMA tile loop of gemm_tile.cuh
-// ---------------------------------------------------------------------------
-
-template <typename T, bool VECLOAD>
-__global__ void __launch_bounds__(kraken_tile::NTHREADS)
-gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-            const float* __restrict__ bias, T* __restrict__ out, int M, int N,
-            int K, int act) {
-  using namespace kraken_tile;
-  __shared__ __align__(128) T As[Tile<T>::A_ELEMS];
-  __shared__ __align__(128) T Bs[Tile<T>::B_ELEMS];
-  __shared__ __align__(128) float Cs[BM * LDC];
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  tile_sum<T, VECLOAD>(As, Bs, Cs, a, b, M, N, K, m0, n0);
-  __syncthreads();
-
-  // epilogue: bias + activation on the fp32 sum, one rounding, masked store;
-  // consecutive threads write consecutive columns
-  for (int i = threadIdx.x; i < BM * BN; i += NTHREADS) {
-    const int r = i / BN, cc = i % BN;
-    const int gm = m0 + r, gn = n0 + cc;
-    if (gm < M && gn < N) {
-      float x = Cs[r * LDC + cc];
-      if (bias != nullptr) x += bias[gn];
-      out[(size_t)gm * N + gn] = from_float<T>(activate(x, act));
-    }
-  }
-}
-
-int launch_fma(const void* a, const void* b, const void* bias, void* out, int M, int N,
-               int K, int act, cudaStream_t stream) {
-  using namespace kraken_tile;
-  constexpr int V = Tile<float>::VEC;
-  if ((M + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const bool aligned = (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(b) % 16 == 0);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const float* pa = static_cast<const float*>(a);
-  const float* pb = static_cast<const float*>(b);
-  const float* pbias = static_cast<const float*>(bias);
-  float* po = static_cast<float*>(out);
-  if (aligned && K % V == 0 && N % V == 0)
-    gemm_kernel<float, true><<<grid, NTHREADS, 0, stream>>>(pa, pb, pbias, po, M, N, K, act);
-  else
-    gemm_kernel<float, false><<<grid, NTHREADS, 0, stream>>>(pa, pb, pbias, po, M, N, K, act);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -173,6 +146,206 @@ __device__ __forceinline__ OutTile tile_at(const Plan& p, int t) {
   o.ksteps = min(p.kps, p.nk - o.k0);
   return o;
 }
+
+// ---------------------------------------------------------------------------
+// float32: the FMA kernel
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int BM = 128, BN = 128, BK = 32;
+constexpr int THREADS = 256;                 // 8 warps, 4 x 2, of 32 x 64
+constexpr int LDA = BM + 4;                  // A^T's row stride, floats
+constexpr int A_FLOATS = BK * LDA;
+constexpr int STAGE_FLOATS = A_FLOATS + BK * BN;
+constexpr int STAGES = 3;
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A thread's share of the copies, fixed for the tile: zeros past M, K and N
+// (source size 0: nothing read there).  A [BM, BK] goes in transposed, A^T
+// [BK, BM] at row stride LDA, by 4-byte copies: thread t takes rows t / 8 +
+// 32 j (j < 4) at k t % 8 + 8 q, so a warp's 32 take 4 rows x 8 consecutive
+// k (one 32-byte sector a row) into banks 4k + m, all distinct.  B [BK, BN]
+// as it lies, by 16-byte copies: thread t takes row t / 32 + 8 q at columns
+// 4 (t % 32) .. + 3, a warp one 512-byte row (4-byte copies where fill_b).
+struct Copies {
+  const float* a;     // A[m0 + t / 8, t % 8]
+  const float* b;     // B[t / 32, n0 + 4 (t % 32)]
+  size_t a_rows;      // 32 rows of A
+  int rows_in;        // bit j: row t / 8 + 32 j is inside M
+  bool cols_in;       // the 4 columns are inside N
+  uint32_t a_dst, b_dst;
+};
+
+__device__ __forceinline__ Copies copies_of(const float* __restrict__ a,
+                                            const float* __restrict__ b, const Plan& p,
+                                            int m0, int n0) {
+  const int t = threadIdx.x;
+  Copies c;
+  c.a = a + static_cast<size_t>(min(m0 + t / 8, p.M - 1)) * p.K + t % 8;
+  c.b = b + (t / 32) * static_cast<size_t>(p.N) + n0 + 4 * (t % 32);
+  c.a_rows = static_cast<size_t>(32) * p.K;
+  c.rows_in = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c.rows_in |= (m0 + t / 8 + 32 * j < p.M) << j;
+  c.cols_in = n0 + 4 * (t % 32) < p.N;
+  c.a_dst = 4 * ((t % 8) * LDA + t / 8);
+  c.b_dst = 4 * (A_FLOATS + (t / 32) * BN + 4 * (t % 32));
+  return c;
+}
+
+// Stage k step k0 of the tile (m0, n0) into the ring slot at `st`.
+__device__ __forceinline__ void load_stage(uint32_t st, const Copies& c,
+                                           const float* __restrict__ a,
+                                           const float* __restrict__ b, const Plan& p, int n0,
+                                           int k0) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < BK / 8; ++q) {
+    const bool kin = k0 + 8 * q + t % 8 < p.K;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = kin && ((c.rows_in >> j) & 1);
+      cp_async4(st + c.a_dst + 4 * (8 * q * LDA + 32 * j),
+                in ? c.a + j * c.a_rows + k0 + 8 * q : a, in);
+    }
+  }
+  if (!p.fill_b) {
+#pragma unroll
+    for (int q = 0; q < BK / 8; ++q) {
+      const bool in = c.cols_in && k0 + 8 * q + t / 32 < p.K;
+      cp_async16(st + c.b_dst + 4 * (8 * q * BN),
+                 in ? c.b + static_cast<size_t>(k0 + 8 * q) * p.N : b, in);
+    }
+  } else {
+    for (int e = t; e < BK * BN; e += THREADS) {
+      const int r = e / BN, nc = e % BN;
+      const int gk = k0 + r, gn = n0 + nc;
+      const bool in = gk < p.K && gn < p.N;
+      cp_async4(st + 4 * (A_FLOATS + r * BN + nc),
+                in ? b + static_cast<size_t>(gk) * p.N + gn : b, in);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+kraken_gemm_fma(const float* __restrict__ a, const float* __restrict__ b,
+                const float* __restrict__ bias, float* __restrict__ out,
+                float* __restrict__ part, const Plan p, int act) {
+  extern __shared__ __align__(16) float ring[];
+  const OutTile tl = tile_at(p, blockIdx.x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this thread's rows rm + 16 g + r and columns cn + 32 h + c (g, h < 2;
+  // r, c < 4): of a k step, two 16-byte reads of A^T and two of B feed 64
+  // FMAs; a warp's A reads are 4 distinct 16-byte words of one row, its B
+  // reads 8, one 128-byte row: no bank conflicts
+  const int rm = (warp >> 1) * 32 + (lane >> 3) * 4;
+  const int cn = (warp & 1) * 64 + (lane & 7) * 4;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const Copies cp = copies_of(a, b, p, tl.m0, tl.n0);
+  const uint32_t ring0 = smem_u32(ring);
+  // split z's run of K: n steps from step kb; the ring: steps 0 .. STAGES -
+  // 2 in flight before the first product
+  const int n = tl.ksteps, kb = tl.k0;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) load_stage(ring0 + 4 * s * STAGE_FLOATS, cp, a, b, p, tl.n0, (kb + s) * BK);
+    cp_async_commit();
+  }
+  int rd = 0, wr = STAGES - 1;   // the slots of steps i and i + STAGES - 1
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<STAGES - 2>();   // step i landed: at most STAGES - 2 younger pending
+    __syncthreads();   // every thread's copies of step i, and step i - 1 read
+    if (i + STAGES - 1 < n)
+      load_stage(ring0 + 4 * wr * STAGE_FLOATS, cp, a, b, p, tl.n0,
+                 (kb + i + STAGES - 1) * BK);
+    cp_async_commit();
+    const float* As = ring + rd * STAGE_FLOATS + rm;
+    const float* Bs = ring + rd * STAGE_FLOATS + A_FLOATS + cn;
+    rd = rd == STAGES - 1 ? 0 : rd + 1;
+    wr = wr == STAGES - 1 ? 0 : wr + 1;
+    // the fragments of k step kk + 1 are read while kk's FMAs run
+    float av[2][8], bv[2][8];
+#pragma unroll
+    for (int kk = 0; kk <= BK; ++kk) {
+      if (kk < BK) {
+        float* x = av[kk & 1];
+        float* y = bv[kk & 1];
+        *reinterpret_cast<float4*>(x) = *reinterpret_cast<const float4*>(As + kk * LDA);
+        *reinterpret_cast<float4*>(x + 4) = *reinterpret_cast<const float4*>(As + kk * LDA + 16);
+        *reinterpret_cast<float4*>(y) = *reinterpret_cast<const float4*>(Bs + kk * BN);
+        *reinterpret_cast<float4*>(y + 4) = *reinterpret_cast<const float4*>(Bs + kk * BN + 32);
+      }
+      if (kk > 0) {
+        const int u = (kk - 1) & 1;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av[u][r], bv[u][j], acc[r][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: a split's partial as it is, else bias + activation, masked to
+  // [M, N]; 16-byte stores where N % 4 == 0 (then a 4-column group is all in
+  // or all out), a warp's eight one 128-byte row
+  const size_t MN = static_cast<size_t>(p.M) * p.N;
+  float* dst = p.split > 1 ? part + tl.z * MN : out;
+  const bool vec = p.N % 4 == 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int gm = tl.m0 + rm + 16 * (r >> 2) + (r & 3);
+    if (gm >= p.M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = tl.n0 + cn + 32 * h;
+      if (gn >= p.N) continue;
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        v[c] = acc[r][4 * h + c];
+        if (p.split == 1) {
+          if (bias != nullptr && gn + c < p.N) v[c] += bias[gn + c];
+          v[c] = activate(v[c], act);
+        }
+      }
+      float* o = dst + static_cast<size_t>(gm) * p.N + gn;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (gn + c < p.N) o[c] = v[c];
+      }
+    }
+  }
+}
+
+}  // namespace f32
 
 // The one fill for an operand TMA cannot take: src[r0 + r, c0 + c] (row
 // stride ld, zero outside [rows, cols]) for r < nrows, c < 64 * ncblk, into
@@ -345,19 +518,72 @@ kraken_gemm_wgmma(const __grid_constant__ CUtensorMap amap,
   }
 }
 
+__device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float x) { *o = __float2bfloat16(x); }
+
 // out = act(part[0] + part[1] + ... + part[split - 1] + bias), in that order,
-// rounded once: the same bits on every run.
+// rounded once to out's type: the same bits on every run.
+template <typename T>
 __global__ void __launch_bounds__(256)
 kraken_gemm_reduce(const float* __restrict__ part, const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, int M, int N, int split, int act) {
+                   T* __restrict__ out, int M, int N, int split, int act) {
   const size_t count = static_cast<size_t>(M) * N;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < count;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = part[i];
     for (int z = 1; z < split; ++z) s += part[z * count + i];
     if (bias != nullptr) s += bias[i % N];
-    out[i] = __float2bfloat16(activate(s, act));
+    store_out(out + i, activate(s, act));
   }
+}
+
+template <typename T>
+int launch_reduce(const void* part, const void* bias, void* out, const Plan& p, int act,
+                  cudaStream_t stream) {
+  const size_t count = static_cast<size_t>(p.M) * p.N;
+  const int blocks = static_cast<int>(std::min<size_t>((count + 255) / 256, 4096));
+  kraken_gemm_reduce<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
+                                                    static_cast<const float*>(bias),
+                                                    static_cast<T*>(out), p.M, p.N, p.split,
+                                                    act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 plan: the 128 x 128 tile, a ring of 3 K = 32 stages, the
+// split's runs of K steps; A always by 4-byte copies (fill_a), B by 4-byte
+// ones exactly where 16-byte ones do not fit (a base not 16-byte aligned, or
+// rows of N not a multiple of 4).
+bool fma_plan_ok(const Plan& p, const void* b) {
+  if (p.BM != f32::BM || p.BN != f32::BN) return false;
+  if (p.stages != f32::STAGES) return false;
+  if (p.nk != (p.K + f32::BK - 1) / f32::BK || p.split < 1 || p.kps < (p.nk > 0)) return false;
+  if (p.kps * p.split < p.nk || (p.split > 1 && (p.split - 1) * p.kps >= p.nk)) return false;
+  if (p.mtiles != (p.M + p.BM - 1) / p.BM || p.ntiles != (p.N + p.BN - 1) / p.BN) return false;
+  if (static_cast<long long>(p.mtiles) * p.ntiles * p.split != p.tiles) return false;
+  if (p.smem != p.stages * f32::STAGE_FLOATS * 4) return false;
+  const bool vec_b = reinterpret_cast<uintptr_t>(b) % 16 == 0 && p.N % 4 == 0;
+  return p.fill_a == 1 && p.fill_b == !vec_b;
+}
+
+int launch_fma(const void* a, const void* b, const void* bias, void* out, void* part,
+               const Plan& p, int act, cudaStream_t stream) {
+  static bool sized[64] = {};   // once per device: the ring's shared memory
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !sized[dev]) {
+    err = cudaFuncSetAttribute(f32::kraken_gemm_fma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               f32::STAGES * f32::STAGE_FLOATS * 4);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) sized[dev] = true;
+  }
+  f32::kraken_gemm_fma<<<p.tiles, f32::THREADS, p.smem, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(bias), static_cast<float*>(out), static_cast<float*>(part), p,
+      act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.split == 1) return static_cast<int>(err);
+  return launch_reduce<float>(part, bias, out, p, act, stream);
 }
 
 bool plan_ok(const Plan& p, const void* a, const void* b) {
@@ -414,13 +640,7 @@ int launch_wgmma(const void* a, const void* b, const void* bias, void* out, void
       static_cast<float*>(part), p, act);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.split == 1) return static_cast<int>(err);
-  const size_t count = static_cast<size_t>(p.M) * p.N;
-  const int blocks = static_cast<int>(std::min<size_t>((count + 255) / 256, 4096));
-  kraken_gemm_reduce<<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
-                                                 static_cast<const float*>(bias),
-                                                 static_cast<__nv_bfloat16*>(out), p.M, p.N,
-                                                 p.split, act);
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce<__nv_bfloat16>(part, bias, out, p, act, stream);
 }
 
 template <int BM>
@@ -440,7 +660,7 @@ extern "C" const char* kraken_gemm_plan_fields() { return KRAKEN_GEMM_PLAN(PLAN_
 // bias fp32 [N] or null; act: 0 none, 1 relu, 2 silu, 3 gelu (tanh).  `plan`
 // holds `nplan` ints in the order of kernels/kraken_gemm.py's PLAN_FIELDS:
 // path 0 is float32 (the FMA kernel), path 1 bfloat16 (wgmma); when the
-// bf16 plan splits K, part is an fp32 buffer of split * M * N.  Launches on
+// plan splits K, part is an fp32 buffer of split * M * N.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success); a plan it does not
 // take returns cudaErrorInvalidValue without launching, a failed tensor-map
 // encoding its CUresult.
@@ -451,7 +671,8 @@ extern "C" int kraken_gemm(const void* a, const void* b, const void* bias, void*
   memcpy(&p, plan, sizeof p);
   if (p.M <= 0 || p.N <= 0 || p.K < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.path == 0) return launch_fma(a, b, bias, out, p.M, p.N, p.K, act, s);
+  if (p.path == 0 && fma_plan_ok(p, b) && (p.split == 1 || part != nullptr))
+    return launch_fma(a, b, bias, out, part, p, act, s);
   if (p.path == 1 && plan_ok(p, a, b) && (p.split == 1 || part != nullptr))
     return p.BM == 128 ? launch_bn<128>(a, b, bias, out, part, p, act, s)
                        : launch_bn<64>(a, b, bias, out, part, p, act, s);

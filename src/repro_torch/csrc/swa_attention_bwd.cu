@@ -30,39 +30,46 @@
 //     Each output is written once by one block: no atomics, so two calls
 //     give the same bits.  The dK/dV blocks walk about G times the pairs
 //     and come first in the grid.  Masked pairs (outside the window, rows or
-//     keys past S) get P = dS = 0 without evaluating exp.
+//     keys past S) get P = dS = 0.
 //
-// bfloat16 (swa_bwd_mma; kernels/swa_attention.py::plan_bwd path 1): the
-// products on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), operands read from shared memory by ldmatrix (.trans where
-// the product wants the tile's other major), D zero-padded to DP = 64, 128
-// or 256 columns, rows at stride DP + 8 so that ldmatrix's eight rows fall
-// in distinct banks.  8 warps: 4 groups of 16 rows (dQ) or keys (dK/dV) x
-// 2 halves of DP.  A dQ block holds 64 q rows and steps over 64-key tiles:
-// each warp computes S and dP for its 16 rows (both halves compute them),
-// turns them into dS in registers and accumulates dq for its half of DP.
-// A dK/dV block holds 64 keys and steps over 32-row q tiles: each warp
-// computes S^T and dP^T for its 16 keys, P^T and dS^T in registers, and
-// accumulates dv = P^T dout and dk = dS^T q for its half of DP.  P and dS
-// are rounded to bf16 as the A operands of the second products (the
-// forward rounds P for its PV product the same way); the fp32 accumulators
-// are rounded once to bf16 at the end.
+// bfloat16 (swa_bwd_wgmma; kernels/swa_attention.py::plan_bwd path 1): the
+// products on wgmma (bf16 in, fp32 accumulate), D read in DB boxes of 64
+// columns with the 128-byte swizzle (D padded to DP = 64, 128 or 256 by
+// TMA's zeros).  Both kinds of block hold 64 rows: 64 keys (dK/dV) or 64 q
+// rows (dQ), and step over 64-row tiles of the walked operand.  384 threads:
+//   * warpgroup 2's first warp produces.  A dK/dV block's K and V tiles, a
+//     dQ block's Q and dO, arrive once by TMA; the walked tiles (Q, dO and
+//     their rows' lse and delta for dK/dV; K and V for dQ) cycle through a
+//     ring of 2-4 stages with a full and an empty mbarrier each: its first
+//     thread starts the TMA loads, the warp writes the 64 rows' lse (in
+//     log2 units) and delta;
+//   * warpgroup 0 computes S (S^T for dK/dV) once per tile, an SS wgmma
+//     m64n64 with both operands K-major over D, and P = exp(s scale - lse)
+//     in registers inside the window (0 outside it and past S); rounded to
+//     bf16 it is the A operand of dV += P^T dO (RS wgmma, dO read MN-major
+//     as it lies, N = DP), and it is handed to warpgroup 1 through one of
+//     two shared-memory buffers, each under a pair of named barriers (full,
+//     and empty once read): the only exchange between the warpgroups;
+//   * warpgroup 1 computes dP (dP^T) once per tile, forms dS = P (dP -
+//     delta) from the bf16 P it receives, rounds it to bf16 and accumulates
+//     dK += dS^T Q or dQ += dS K (RS wgmma, N = DP).
+// So each of S and dP is computed once a tile: 14 operations per in-window
+// pair and dim (8 in the dK/dV pass, 6 in the dQ pass), and a warpgroup
+// holds one DP-wide accumulator (128 registers at DP 256, 232 after
+// setmaxnreg).  The fp32 accumulators are rounded once to bf16 at the end.
 //
 // float32 (swa_bwd_fma; path 0): the FMA kernel, fp32 throughout (no TF32):
 // tiles of 32 rows at an odd row stride (D + 1, so lanes over keys read
 // distinct banks, rows as broadcasts), the P and dS tiles at stride 33.
 //
 // What bounds it on an H100: the bound counts 10 operations per in-window
-// pair and dim (2.5x the forward's 4) at the tensor cores' bf16 rate.  The
-// bf16 kernel does 22: both passes recompute S and dP, and the two halves
-// of DP compute them twice; it reads its operands from shared memory with
-// one barrier between a tile's load and its products, so latency, not the
-// tensor cores' rate, bounds it.  The fp32 kernel does 14 on FMA, bound by
-// its shared-memory loads.  A wgmma/TMA redesign is later work.
+// pair and dim (2.5x the forward's 4) at the tensor cores' bf16 rate.  Both
+// kernels do 14: S and dP are computed in each of the two passes, so that
+// every output has one writer.  The fp32 kernel runs them on FMA, bound by
+// its shared-memory loads.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
+
 #include <string.h>
 
 namespace {
@@ -76,8 +83,10 @@ constexpr int SMEM_MAX = 227 * 1024;
 // checks against its BWD_PLAN_FIELDS when it loads this library.
 #define SWA_ATTENTION_BWD_PLAN(X)                                              \
   X(path) X(B) X(H) X(KV) X(S) X(D) X(W)                                       \
-  /* bfloat16: D padded to DP columns */                                       \
-  X(DP) X(qtiles) X(kvtiles) X(dq_blocks) X(dkv_blocks) X(smem)
+  /* bfloat16: D padded to DP columns, ring stages */                         \
+  X(DP) X(stages) X(qtiles) X(kvtiles) X(dq_blocks) X(dkv_blocks)              \
+  /* operations per in-window pair and dim */                                  \
+  X(ops) X(smem)
 
 #define PLAN_DECL(f) int f;
 #define PLAN_NAME(f) #f ","
@@ -315,356 +324,402 @@ swa_bwd_fma(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace fp32
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync on the tensor cores
+// bfloat16: wgmma, a TMA ring, a producer warp
 // ---------------------------------------------------------------------------
 
-namespace mma {
+namespace wg {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
-constexpr int BQ = 64;    // a dQ block's q rows
-constexpr int BKV = 64;   // a dK/dV block's keys, and a dQ block's kv step
-constexpr int BQS = 32;   // a dK/dV block's q rows a step
-constexpr int PAD = 8;    // row padding, elements: ldmatrix's rows in distinct banks
+constexpr int T = 64;                 // rows of every tile: q rows or keys
+constexpr int BOX = T * 128;          // one [64, 64] bf16 box, 128-byte swizzled
+constexpr int XBUF = 128 * 16 * 4;    // a [64, 64] bf16 tile, 16 words a thread
+constexpr int STATS = 1024;           // a stage's lse (log2 units) and delta
+constexpr int STAGES_MAX = 4;
+constexpr int RESERVED = 2048;        // the 1024-byte alignment and the barriers
+constexpr int THREADS = 384;          // consumer warpgroups 0 and 1, producer 2
+constexpr float LOG2E = 1.4426950408889634f;
+// named barriers of the P hand-off, one pair a buffer (0 is __syncthreads)
+constexpr int X_FULL = 1, X_EMPTY = 3;
 
-// Shared memory for DP columns (kernels/swa_attention.py::_bwd_smem): four
-// bf16 tiles of 64 rows at stride DP + 8 (a dQ block: Q, dO, K, V; a dK/dV
-// block: K, V, Q, dO, the last two of 32 rows used) and 64 lse and delta.
-struct Geometry {
-  int ld;
-  size_t tile, bytes;
-  __host__ __device__ explicit Geometry(int DP) {
-    ld = DP + PAD;
-    tile = sizeof(bf16) * 64 * ld;
-    bytes = 4 * tile + sizeof(float) * 2 * 64;
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Shared memory for D in DB boxes of 64 (kernels/swa_attention.py::
+// _bwd_smem): the block's two fixed tiles [64, 64 DB], two P hand-off
+// buffers, `stages` ring stages of two tiles and the stats, the barriers.
+__host__ __device__ inline int tile_bytes(int DB) { return DB * BOX; }
+__host__ __device__ inline int stage_bytes(int DB) { return 2 * tile_bytes(DB) + STATS; }
+__host__ __device__ inline int smem_bytes(int DB, int stages) {
+  return 2 * tile_bytes(DB) + 2 * XBUF + stages * stage_bytes(DB) + RESERVED;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
 }
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 fp32
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&x);
 }
+__device__ __forceinline__ float lo_of(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_of(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
-// The A fragment of k16 step s from the accumulator fragments of n8 tiles
-// 2s and 2s + 1 (rows g and g + 8, columns 2t, 2t + 1 of each), rounded to
-// bf16.
-__device__ __forceinline__ void to_a(const float (&c0)[4], const float (&c1)[4],
-                                     uint32_t (&a)[4]) {
-  a[0] = pack(c0[0], c0[1]);
-  a[1] = pack(c0[2], c0[3]);
-  a[2] = pack(c1[0], c1[1]);
-  a[3] = pack(c1[2], c1[3]);
+// acc += a (the 64 x 16 A fragment in registers) * b (16 x N, MN-major)
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&acc)[N / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&acc)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_mn_m64n64k16(acc, a, db, 1);
 }
-
-// ldmatrix row addresses of this lane: an A fragment (16 rows from m0, k16
-// from k0) of a row-major [m][k] tile; a B fragment pair (n8 tiles n0 and
-// n0 + 8, k16 from k0) of a tile stored [n][k] (non-trans) or [k][n] (trans)
-__device__ __forceinline__ uint32_t a_addr(uint32_t base, int ld, int m0, int k0, int lane) {
-  return base + 2 * ((m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&acc)[64], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  wgmma_rs_mn_m64n128k16(acc, a, db, 1);
 }
-__device__ __forceinline__ uint32_t bn_addr(uint32_t base, int ld, int n0, int k0, int lane) {
-  return base + 2 * ((n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-__device__ __forceinline__ uint32_t bt_addr(uint32_t base, int ld, int k0, int n0, int lane) {
-  return base + 2 * ((k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+template <>
+__device__ __forceinline__ void mma_rs<256>(float (&acc)[128], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  wgmma_rs_mn_m64n256k16(acc, a, db, 1);
 }
 
-// Stage rows [0, n) of a [*, D] bf16 slice into a [rows, DP] tile of row
-// stride ld in 16-byte chunks; columns D .. DP - 1 and rows >= n are zero.
-__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int n, int rows, int D, int DP,
-                          int ld) {
-  const int cpr = DP / 8;
-  for (int i = threadIdx.x; i < rows * cpr; i += NTHREADS) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n && c < D) w = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = w;
+// The [64 x 64] product of the fixed tile at `fa` and the stage tile at `fb`,
+// both K-major over D: S = Q K^T or dP = dO V^T (a dQ block), S^T = K Q^T or
+// dP^T = V dO^T (a dK/dV block).
+template <int DB>
+__device__ __forceinline__ void first_product(float (&sc)[32], uint32_t fa, uint32_t fb) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < DB; ++c) {
+    const uint64_t da = desc_k128(fa + c * BOX), db = desc_k128(fb + c * BOX);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_kk_m64n64k16(sc, da + 2 * kk, db + 2 * kk, 1);
   }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS, 1)
-swa_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            const bf16* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, bf16* __restrict__ dq, bf16* __restrict__ dk,
-            bf16* __restrict__ dv, const Plan p, float scale) {
-  constexpr int NK = DP / 16;       // k16 steps over DP
-  constexpr int NH = DP / 16;       // n8 tiles of one half of DP
-  constexpr int HALF = DP / 2;
-  const Geometry geo(DP);
-  const int ld = geo.ld;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* t0 = reinterpret_cast<bf16*>(smem);
-  bf16* t1 = t0 + 64 * ld;
-  bf16* t2 = t1 + 64 * ld;
-  bf16* t3 = t2 + 64 * ld;
-  float* lse_s = reinterpret_cast<float*>(t3 + 64 * ld);
-  float* delta_s = lse_s + 64;
-  const uint32_t s0 = smem_u32(t0), s1 = smem_u32(t1), s2 = smem_u32(t2), s3 = smem_u32(t3);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int grp = warp & 3, dh = warp >> 2;   // 16 rows or keys, half of DP
-  const int S = p.S, D = p.D;
-  const int W = min(p.W, S);   // a window past S is the causal mask
-  const int G = p.H / p.KV;
+// acc += A (4 k16 fragments: the tile's 64 columns) * the stage tile at `fb`
+// read MN-major ([64, D] as it lies, D along N)
+template <int NP>
+__device__ __forceinline__ void second_product(float (&acc)[NP / 2], const uint32_t (&af)[4][4],
+                                               uint32_t fb) {
+  const uint64_t db = desc_mn128(fb, BOX);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mma_rs<NP>(acc, af[j], db + 128 * j);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
 
-  if (static_cast<int>(blockIdx.x) < p.dkv_blocks) {
-    // ---- dK/dV: 64 keys of one KV head; t0 = K, t1 = V, t2 = Q, t3 = dO ----
-    const int bkv = blockIdx.x / p.kvtiles, kt = blockIdx.x % p.kvtiles;
-    const int b = bkv / p.KV, kvh = bkv % p.KV;
-    const int k0 = kt * BKV, nk = min(BKV, S - k0);
-    const size_t kv_off = (static_cast<size_t>(bkv) * S + k0) * D;
-    load_tile(t0, k + kv_off, nk, BKV, D, DP, ld);
-    load_tile(t1, v + kv_off, nk, BKV, D, DP, ld);
-    float acck[NH][4], accv[NH][4];
+template <int DB>
+__global__ void __launch_bounds__(THREADS, 1)
+swa_bwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+              const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, const Plan p,
+              float scale) {
+  constexpr int TILE = DB * BOX, STAGE = 2 * TILE + STATS;
+  constexpr int NP = 64 * DB;   // the second products' N: D padded to 64, 128 or 256
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* fixed = smem;                                  // F0, F1
+  uint32_t* xbuf = reinterpret_cast<uint32_t*>(smem + 2 * TILE);
+  unsigned char* ring = smem + 2 * TILE + 2 * XBUF;
+  uint64_t* fixbar = reinterpret_cast<uint64_t*>(ring + p.stages * STAGE);
+  uint64_t* full = fixbar + 1;
+  uint64_t* empty = full + STAGES_MAX;
+
+  const int S = p.S, W = min(p.W, S), G = p.H / p.KV;
+  const bool dkv = static_cast<int>(blockIdx.x) < p.dkv_blocks;
+  // a dK/dV block: 64 keys of KV row `frow` from k0, stepping over the q
+  // tiles qlo .. qlo + nq - 1 of each of the group's G query heads in order;
+  // a dQ block: 64 q rows of head row `frow` from q0 (the longest walks
+  // first), stepping over the kv tiles klo .. of KV row `krow`
+  int frow, f0, nsteps, nq = 1, lo, krow = 0;
+  if (dkv) {
+    frow = blockIdx.x / p.kvtiles;
+    f0 = (blockIdx.x % p.kvtiles) * T;
+    lo = f0 / T;
+    nq = min(S - 1, f0 + T - 1 + W - 1) / T - lo + 1;
+    nsteps = G * nq;
+  } else {
+    const int idx = blockIdx.x - p.dkv_blocks, BH = p.B * p.H;
+    frow = idx % BH;
+    f0 = (p.qtiles - 1 - idx / BH) * T;
+    krow = (frow / p.H) * p.KV + (frow % p.H) / G;
+    lo = max(0, f0 - W + 1) / T;
+    nsteps = (min(S, f0 + T) - 1) / T - lo + 1;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(fixbar, 1);
+    for (int i = 0; i < p.stages; ++i) {
+      // the TMA thread's expect_tx arrival, and a dK/dV block's 32 stats
+      // writers
+      mbar_init(&full[i], 1 + (dkv ? 32 : 0));
+      mbar_init(&empty[i], 2 * 128);   // every consumer thread
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's role, taken through a shuffle so that the compiler
+  // knows it is the same in every lane: wgmma is not serialised
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    // ---- producer: one warp; its first thread issues every TMA load -------
+    setmaxnreg_dec<40>();
+    const int lane = threadIdx.x - 256;
+    if (lane >= 32 || (!dkv && lane != 0)) return;
+    if (lane == 0) {
+      mbar_expect_tx(fixbar, 2 * TILE);
 #pragma unroll
-    for (int j = 0; j < NH; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acck[j][c] = accv[j][c] = 0.f;
-    const int key0 = k0 + grp * 16 + g;   // this thread's keys: key0, key0 + 8
-    // the rows that see keys k0 .. k0 + 63: k0 to k0 + 63 + W - 1
-    const int qt_lo = k0 / BQS;
-    const int qt_hi = min(S - 1, k0 + BKV - 1 + W - 1) / BQS;
-    for (int gi = 0; gi < G; ++gi) {
-      const int bh = b * p.H + kvh * G + gi;
-      for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-        const int q0 = qt * BQS, nq = min(BQS, S - q0);
-        const size_t row0 = static_cast<size_t>(bh) * S + q0;
-        __syncthreads();   // the previous tile's readers are done
-        load_tile(t2, q + row0 * D, nq, BQS, D, DP, ld);
-        load_tile(t3, dout + row0 * D, nq, BQS, D, DP, ld);
-        load_stats(lse_s, delta_s, lse, delta, row0, nq, BQS);
-        __syncthreads();
-        // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 rows
-        float st[4][4], dpt[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) st[j][c] = dpt[j][c] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < NK; ++kk) {
-          uint32_t ak[4], av[4];
-          ldsm_x4(a_addr(s0, ld, grp * 16, kk * 16, lane), ak);
-          ldsm_x4(a_addr(s1, ld, grp * 16, kk * 16, lane), av);
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            uint32_t bq[4], bo[4];
-            ldsm_x4(bn_addr(s2, ld, np * 16, kk * 16, lane), bq);
-            ldsm_x4(bn_addr(s3, ld, np * 16, kk * 16, lane), bo);
-            mma16816(st[2 * np], ak, bq[0], bq[1]);
-            mma16816(st[2 * np + 1], ak, bq[2], bq[3]);
-            mma16816(dpt[2 * np], av, bo[0], bo[1]);
-            mma16816(dpt[2 * np + 1], av, bo[2], bo[3]);
-          }
-        }
-        // P^T and dS^T: element c of n8 tile j is key key0 + 8 (c >> 1),
-        // row q0 + 8 j + 2 t + (c & 1)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int key = key0 + 8 * (c >> 1), r = 8 * j + 2 * t + (c & 1), row = q0 + r;
-            const bool ok = row < S && key < S && key <= row && key > row - W;
-            float pv = 0.f, ds = 0.f;
-            if (ok) {
-              pv = expf(st[j][c] * scale - lse_s[r]);
-              ds = pv * (dpt[j][c] - delta_s[r]);
-            }
-            st[j][c] = pv;
-            dpt[j][c] = ds;
-          }
-        // dV += P^T dO and dK += dS^T Q over the 32 rows, this warp's half
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          uint32_t ap[4], ad[4];
-          to_a(st[2 * ks], st[2 * ks + 1], ap);
-          to_a(dpt[2 * ks], dpt[2 * ks + 1], ad);
-#pragma unroll
-          for (int n2 = 0; n2 < NH / 2; ++n2) {
-            const int n0 = dh * HALF + n2 * 16;
-            uint32_t bo[4], bq[4];
-            ldsm_x4_t(bt_addr(s3, ld, ks * 16, n0, lane), bo);
-            ldsm_x4_t(bt_addr(s2, ld, ks * 16, n0, lane), bq);
-            mma16816(accv[2 * n2], ap, bo[0], bo[1]);
-            mma16816(accv[2 * n2 + 1], ap, bo[2], bo[3]);
-            mma16816(acck[2 * n2], ad, bq[0], bq[1]);
-            mma16816(acck[2 * n2 + 1], ad, bq[2], bq[3]);
-          }
-        }
+      for (int c = 0; c < DB; ++c) {
+        tma_load_3d(fixed + c * BOX, dkv ? &kmap : &qmap, fixbar, c * 64, f0, frow);
+        tma_load_3d(fixed + TILE + c * BOX, dkv ? &vmap : &omap, fixbar, c * 64, f0, frow);
       }
     }
-    // keys key0, key0 + 8; columns dh * HALF + 8 j + 2 t, + 1 (pairs: D % 8 == 0)
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = 0; t < nsteps; ++t) {
+      mbar_wait(&empty[s], ph ^ 1);
+      unsigned char* st = ring + s * STAGE;
+      if (dkv) {
+        // Q and dO of query head (frow's group, t / nq), q tile lo + t % nq,
+        // and their rows' lse (in log2 units) and delta; 0 past S
+        const int bh = (frow / p.KV) * p.H + (frow % p.KV) * G + t / nq;
+        const int q0 = (lo + t % nq) * T;
+        float* stats = reinterpret_cast<float*>(st + 2 * TILE);
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int key = key0 + 8 * hh;
-      if (key >= S) continue;
-      const size_t o = (static_cast<size_t>(bkv) * S + key) * D;
+        for (int h = 0; h < 2; ++h) {
+          const int r = lane + 32 * h, row = q0 + r;
+          const size_t at = static_cast<size_t>(bh) * S + row;
+          stats[r] = row < S ? lse[at] * LOG2E : 0.f;
+          stats[T + r] = row < S ? delta[at] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * TILE);
 #pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        const int d = dh * HALF + 8 * j + 2 * t;
-        if (d < D) {
-          *reinterpret_cast<__nv_bfloat162*>(dk + o + d) = __floats2bfloat162_rn(
-              acck[j][2 * hh] * scale, acck[j][2 * hh + 1] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + o + d) =
-              __floats2bfloat162_rn(accv[j][2 * hh], accv[j][2 * hh + 1]);
+          for (int c = 0; c < DB; ++c) {
+            tma_load_3d(st + c * BOX, &qmap, &full[s], c * 64, q0, bh);
+            tma_load_3d(st + TILE + c * BOX, &omap, &full[s], c * 64, q0, bh);
+          }
+        }
+      } else {
+        // K and V of kv tile lo + t
+        mbar_expect_tx(&full[s], 2 * TILE);
+#pragma unroll
+        for (int c = 0; c < DB; ++c) {
+          tma_load_3d(st + c * BOX, &kmap, &full[s], c * 64, (lo + t) * T, krow);
+          tma_load_3d(st + TILE + c * BOX, &vmap, &full[s], c * 64, (lo + t) * T, krow);
         }
       }
+      if (++s == p.stages) { s = 0; ph ^= 1; }
     }
     return;
   }
 
-  // ---- dQ: 64 q rows of one query head, the longest walks first; t0 = Q,
-  // t1 = dO, t2 = K, t3 = V --------------------------------------------------
-  const int idx = blockIdx.x - p.dkv_blocks;
-  const int BH = p.B * p.H;
-  const int bh = idx % BH;
-  const int qt = p.qtiles - 1 - idx / BH;
-  const int b = bh / p.H, kvh = (bh % p.H) / G;
-  const int q0 = qt * BQ, nq = min(BQ, S - q0);
-  const size_t row0 = static_cast<size_t>(bh) * S + q0;
-  const size_t kv_base = (static_cast<size_t>(b) * p.KV + kvh) * S * D;
-  load_tile(t0, q + row0 * D, nq, BQ, D, DP, ld);
-  load_tile(t1, dout + row0 * D, nq, BQ, D, DP, ld);
-  load_stats(lse_s, delta_s, lse, delta, row0, nq, BQ);
-  float acc[NH][4];
+  // ---- consumers: warpgroup 0 computes S and P and hands P over (and, in a
+  // dK/dV block, accumulates dV = P^T dO); warpgroup 1 computes dP, forms dS
+  // and accumulates dK = dS^T Q or dQ = dS K ----------------------------------
+  setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, tid = threadIdx.x & 127;
+  const int arow = warp * 16 + (lane >> 2);   // this thread's rows arow, arow + 8
+  const float scale_log2 = scale * LOG2E;
+  float acc[NP / 2];
 #pragma unroll
-  for (int j = 0; j < NH; ++j)
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+  // a dQ block's rows: lse (log2 units) for warpgroup 0, delta for 1
+  float rs[2] = {0.f, 0.f};
+  if (!dkv) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-  const int r0 = grp * 16 + g;   // this thread's rows in the tile: r0, r0 + 8
-  const int kt_lo = max(0, q0 - W + 1) / BKV;
-  const int kt_hi = (min(S, q0 + BQ) - 1) / BKV;
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * BKV, nk = min(BKV, S - k0);
-    __syncthreads();   // the previous tile's readers are done
-    load_tile(t2, k + kv_base + static_cast<size_t>(k0) * D, nk, BKV, D, DP, ld);
-    load_tile(t3, v + kv_base + static_cast<size_t>(k0) * D, nk, BKV, D, DP, ld);
-    __syncthreads();
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float sc[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[j][c] = dp[j][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      uint32_t aq[4], ao[4];
-      ldsm_x4(a_addr(s0, ld, grp * 16, kk * 16, lane), aq);
-      ldsm_x4(a_addr(s1, ld, grp * 16, kk * 16, lane), ao);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bn_addr(s2, ld, np * 16, kk * 16, lane), bk);
-        ldsm_x4(bn_addr(s3, ld, np * 16, kk * 16, lane), bv);
-        mma16816(sc[2 * np], aq, bk[0], bk[1]);
-        mma16816(sc[2 * np + 1], aq, bk[2], bk[3]);
-        mma16816(dp[2 * np], ao, bv[0], bv[1]);
-        mma16816(dp[2 * np + 1], ao, bv[2], bv[3]);
-      }
-    }
-    // dS: element c of n8 tile j is row r0 + 8 (c >> 1), key k0 + 8 j + 2 t
-    // + (c & 1)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = r0 + 8 * (c >> 1), row = q0 + r, key = k0 + 8 * j + 2 * t + (c & 1);
-        const bool ok = row < S && key < S && key <= row && key > row - W;
-        float ds = 0.f;
-        if (ok) ds = expf(sc[j][c] * scale - lse_s[r]) * (dp[j][c] - delta_s[r]);
-        sc[j][c] = ds;
-      }
-    // dQ += dS K over the 64 keys, this warp's half of DP
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t a[4];
-      to_a(sc[2 * ks], sc[2 * ks + 1], a);
-#pragma unroll
-      for (int n2 = 0; n2 < NH / 2; ++n2) {
-        uint32_t bk[4];
-        ldsm_x4_t(bt_addr(s2, ld, ks * 16, dh * HALF + n2 * 16, lane), bk);
-        mma16816(acc[2 * n2], a, bk[0], bk[1]);
-        mma16816(acc[2 * n2 + 1], a, bk[2], bk[3]);
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = f0 + arow + 8 * hh;
+      const size_t at = static_cast<size_t>(frow) * S + row;
+      if (row < S) rs[hh] = role == 0 ? lse[at] * LOG2E : delta[at];
     }
   }
+  const uint32_t fa = smem_u32(fixed + role * TILE);
+  mbar_wait(fixbar, 0);
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int t = 0; t < nsteps; ++t) {
+    // the tile's first q row and first key
+    const int i0 = dkv ? (lo + t % nq) * T : f0;
+    const int j0 = dkv ? f0 : (lo + t) * T;
+    mbar_wait(&full[s], ph);
+    const uint32_t st = smem_u32(ring + s * STAGE);
+    const float* stats = reinterpret_cast<const float*>(ring + s * STAGE + 2 * TILE);
+    uint32_t* xb = xbuf + (t & 1) * (XBUF / 4);
+    float sc[32];
+    first_product<DB>(sc, fa, st + role * TILE);
+    uint32_t af[4][4];
+    if (role == 0) {
+      // P = exp(s scale - lse) inside the window, 0 elsewhere; element e is
+      // accumulator row arow + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 (lane
+      // % 4) + (e & 1): (key, q row) in a dK/dV block, (q row, key) in a dQ
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + 8 * hh;
-    if (r >= nq) continue;
-    bf16* o = dq + (row0 + r) * D;
+      for (int e = 0; e < 32; ++e) {
+        const int r = arow + 8 * ((e >> 1) & 1), c = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        const int row = dkv ? i0 + c : i0 + r, key = dkv ? j0 + r : j0 + c;
+        const bool ok = row < S && key < S && key <= row && key > row - W;
+        const float l2 = dkv ? stats[c] : rs[(e >> 1) & 1];
+        sc[e] = ok ? exp2f(sc[e] * scale_log2 - l2) : 0.f;
+      }
 #pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      const int d = dh * HALF + 8 * j + 2 * t;
-      if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(o + d) =
-            __floats2bfloat162_rn(acc[j][2 * hh] * scale, acc[j][2 * hh + 1] * scale);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) af[j][u] = pack(sc[8 * j + 2 * u], sc[8 * j + 2 * u + 1]);
+      // hand P (bf16) to warpgroup 1 through buffer t % 2, once it has read
+      // what this buffer held two steps ago
+      if (t >= 2) bar_sync(X_EMPTY + (t & 1));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) xb[(4 * j + u) * 128 + tid] = af[j][u];
+      bar_arrive(X_FULL + (t & 1));
+      if (dkv) second_product<NP>(acc, af, st + TILE);   // dV += P^T dO
+    } else {
+      bar_sync(X_FULL + (t & 1));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) af[j][u] = xb[(4 * j + u) * 128 + tid];
+      if (t + 2 < nsteps) bar_arrive(X_EMPTY + (t & 1));
+      // dS = P (dP - delta), P as warpgroup 0 rounded it (0 outside the
+      // window, so dS is too), rounded to bf16 as the A operand
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float d2[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 8 * j + 2 * u + h;
+            const int c = 8 * (e >> 2) + 2 * (lane & 3) + h;
+            const float dl = dkv ? stats[T + c] : rs[(e >> 1) & 1];
+            d2[h] = sc[e] - dl;
+          }
+          af[j][u] = pack(lo_of(af[j][u]) * d2[0], hi_of(af[j][u]) * d2[1]);
+        }
+      second_product<NP>(acc, af, st);   // dK += dS^T Q, or dQ += dS K
+    }
+    mbar_arrive(&empty[s]);
+    if (++s == p.stages) { s = 0; ph ^= 1; }
+  }
+
+  // epilogue: rows arow, arow + 8 of the tile (keys, or q rows), columns 8i +
+  // 2 (lane % 4) and + 1 of every 8-column block i below D (D % 8 == 0)
+  if (dkv || role == 1) {
+    bf16* out = dkv ? (role == 0 ? dv : dk) : dq;
+    const float mul = dkv && role == 0 ? 1.f : scale;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = f0 + arow + 8 * hh;
+      if (r >= S) continue;
+      bf16* o = out + (static_cast<size_t>(frow) * S + r) * p.D;
+#pragma unroll
+      for (int i = 0; i < NP / 8; ++i) {
+        const int c = 8 * i + 2 * (lane & 3);
+        if (c < p.D)
+          *reinterpret_cast<__nv_bfloat162*>(o + c) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * hh] * mul, acc[4 * i + 2 * hh + 1] * mul);
+      }
     }
   }
 }
 
-}  // namespace mma
+int boxes(int D) { return D <= 64 ? 1 : D <= 128 ? 2 : 4; }
+
+template <int DB>
+int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dq, void* dk, void* dv, const Plan& p, float scale,
+           cudaStream_t stream) {
+  CUtensorMap qmap, omap, kmap, vmap;
+  memset(&qmap, 0, sizeof qmap);
+  memset(&omap, 0, sizeof omap);
+  memset(&kmap, 0, sizeof kmap);
+  memset(&vmap, 0, sizeof vmap);
+  const cuuint64_t row = static_cast<cuuint64_t>(p.D) * 2;
+  const cuuint64_t strides[2] = {row, row * p.S};
+  const cuuint64_t qdims[3] = {static_cast<cuuint64_t>(p.D), static_cast<cuuint64_t>(p.S),
+                               static_cast<cuuint64_t>(p.B) * p.H};
+  const cuuint64_t kvdims[3] = {static_cast<cuuint64_t>(p.D), static_cast<cuuint64_t>(p.S),
+                                static_cast<cuuint64_t>(p.B) * p.KV};
+  const cuuint32_t box[3] = {64, T, 1};
+  int e = hopper_host::bf16_map(&qmap, q, 3, qdims, strides, box);
+  if (!e) e = hopper_host::bf16_map(&omap, dout, 3, qdims, strides, box);
+  if (!e) e = hopper_host::bf16_map(&kmap, k, 3, kvdims, strides, box);
+  if (!e) e = hopper_host::bf16_map(&vmap, v, 3, kvdims, strides, box);
+  if (e) return e;
+  auto kernel = swa_bwd_wgmma<DB>;
+  static bool sized[64] = {};   // once per variant and device: the most any plan asks
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !sized[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) sized[dev] = true;
+  }
+  kernel<<<p.dkv_blocks + p.dq_blocks, THREADS, p.smem, stream>>>(
+      qmap, omap, kmap, vmap, lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), p, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// the operations per in-window pair and dim both paths do: S and dP in
+// each pass, dV and dK in the dK/dV blocks, dQ in the dQ blocks, each 2
+constexpr int OPS = 2 * (4 + 3);
 
 int check(const Plan& p) {
+  if (p.ops != OPS) return 0;
   if (p.path == 0) {
     const fp32::Geometry g(p.D);
     const int qtiles = (p.S + fp32::BQ - 1) / fp32::BQ;
     const int kvtiles = (p.S + fp32::BKV - 1) / fp32::BKV;
-    return p.DP == 0 && static_cast<long long>(g.bytes) == p.smem && p.qtiles == qtiles &&
-           p.kvtiles == kvtiles;
+    return p.DP == 0 && p.stages == 0 && static_cast<long long>(g.bytes) == p.smem &&
+           p.qtiles == qtiles && p.kvtiles == kvtiles;
   }
-  if (p.path != 1 || (p.DP != 64 && p.DP != 128 && p.DP != 256) || p.D > p.DP ||
-      (p.DP > 64 && p.D <= p.DP / 2))
+  if (p.path != 1 || p.D > 256 || p.DP != 64 * wg::boxes(p.D) || p.stages < 2 ||
+      p.stages > wg::STAGES_MAX)
     return 0;
-  const mma::Geometry g(p.DP);
-  return static_cast<long long>(g.bytes) == p.smem && p.qtiles == (p.S + mma::BQ - 1) / mma::BQ &&
-         p.kvtiles == (p.S + mma::BKV - 1) / mma::BKV;
+  const int tiles = (p.S + wg::T - 1) / wg::T;
+  return wg::smem_bytes(p.DP / 64, p.stages) == p.smem && p.qtiles == tiles &&
+         p.kvtiles == tiles;
 }
 
-template <typename T, typename K>
-int launch(K kernel, const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const void* lse, void* dq, void* dk, void* dv, void* delta,
-           const Plan& p, float scale, cudaStream_t stream) {
+template <typename T>
+int launch_delta(const void* out, const void* dout, void* delta, const Plan& p,
+                 cudaStream_t stream) {
   const long long rows = static_cast<long long>(p.B) * p.H * p.S;
   swa_bwd_delta<T><<<static_cast<unsigned>((rows + NWARPS - 1) / NWARPS), NTHREADS, 0,
                      stream>>>(static_cast<const T*>(out), static_cast<const T*>(dout),
                                static_cast<float*>(delta), rows, p.D);
-  cudaError_t err = cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_fma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               void* dq, void* dk, void* dv, void* delta, const Plan& p, float scale,
+               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fp32::swa_bwd_fma,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<p.dkv_blocks + p.dq_blocks, NTHREADS, p.smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), p, scale);
+  fp32::swa_bwd_fma<<<p.dkv_blocks + p.dq_blocks, NTHREADS, p.smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), p, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -682,7 +737,7 @@ extern "C" const char* swa_attention_bwd_plan_fields() {
 // H % KV == 0, D % 8 == 0 and D <= 256, window W >= 1.  Launches the delta
 // pass and the dQ and dK/dV grid on `stream` and returns cudaGetLastError()
 // (0 on success); a plan it does not take returns cudaErrorInvalidValue
-// without launching.
+// without launching, a failed tensor-map encoding its CUresult.
 extern "C" int swa_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                  const void* dout, const void* lse, void* dq, void* dk,
                                  void* dv, void* delta, const int* plan, int nplan, float scale,
@@ -696,15 +751,15 @@ extern "C" int swa_attention_bwd(const void* q, const void* k, const void* v, co
       static_cast<long long>(p.dkv_blocks) != static_cast<long long>(p.kvtiles) * p.B * p.KV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.path == 0)
-    return launch<float>(fp32::swa_bwd_fma, q, k, v, out, dout, lse, dq, dk, dv, delta, p,
-                         scale, s);
-  if (p.DP == 64)
-    return launch<__nv_bfloat16>(mma::swa_bwd_mma<64>, q, k, v, out, dout, lse, dq, dk, dv,
-                                 delta, p, scale, s);
-  if (p.DP == 128)
-    return launch<__nv_bfloat16>(mma::swa_bwd_mma<128>, q, k, v, out, dout, lse, dq, dk, dv,
-                                 delta, p, scale, s);
-  return launch<__nv_bfloat16>(mma::swa_bwd_mma<256>, q, k, v, out, dout, lse, dq, dk, dv,
-                               delta, p, scale, s);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (p.path == 0) {
+    const int e = launch_delta<float>(out, dout, delta, p, s);
+    return e ? e : launch_fma(q, k, v, dout, lse, dq, dk, dv, delta, p, scale, s);
+  }
+  const int e = launch_delta<__nv_bfloat16>(out, dout, delta, p, s);
+  if (e) return e;
+  if (p.DP == 64) return wg::launch<1>(q, k, v, dout, l, dl, dq, dk, dv, p, scale, s);
+  if (p.DP == 128) return wg::launch<2>(q, k, v, dout, l, dl, dq, dk, dv, p, scale, s);
+  return wg::launch<4>(q, k, v, dout, l, dl, dq, dk, dv, p, scale, s);
 }

@@ -15,7 +15,11 @@ tile of ``BM`` (64 or 128) x ``BN`` (64, 128 or 256), a TMA ring of
 SMs idle, the partials summed in a fixed order by a second kernel.  An
 operand whose base or row stride is not a multiple of 16 bytes, which TMA
 refuses, is filled by the producer warps instead (``fill_a``, ``fill_b``).
-float32 keeps the first port's FMA kernel, with no TF32.  The wrapper takes
+float32 runs on the FMA pipes in full fp32 (no TF32): a 128 x 128 tile of
+256 threads with 8 x 8 register micro-tiles, a cp.async ring of ``stages``
+32-deep K steps (A transposed by 4-byte copies, ``fill_a`` always; B by
+16-byte ones, 4-byte where those do not fit: ``fill_b``), and the same split
+of K and fixed-order sum.  The wrapper takes
 CUDA tensors only and launches the kernel or raises; the plain version is
 :func:`repro_torch.kernels.ref.matmul`.
 """
@@ -49,6 +53,21 @@ STAGES_MAX = 5
 RESERVED = 2048
 #: plan paths
 PATH_FMA, PATH_WGMMA = 0, 1
+#: float32 (the FMA kernel): its one tile, K per ring stage, its ring, the
+#: row stride of A's transpose (floats), the fp32 FMAs an SM does a cycle,
+#: the blocks an SM holds (128 registers and ``FMA_SMEM`` each), the share
+#: of the SM's FMA rate one block alone and two together reach, a block's
+#: fill and epilogue and the split's sum, in SM cycles (fitted to
+#: ``tools/gemm_sweep.py``'s times of every split at train_lm's products)
+FMA_BM = FMA_BN = 128
+FMA_BK = 32
+FMA_STAGES = 3
+FMA_LDA = FMA_BM + 4
+FMA_SMEM = FMA_STAGES * (FMA_BK * FMA_LDA + FMA_BK * FMA_BN) * 4
+FMA_PER_CYCLE = 128
+FMA_BLOCKS_PER_SM = 2
+FMA_EFF = {1: 0.65, 2: 0.85}
+FMA_BLOCK_CYCLES, FMA_REDUCE_CYCLES = 4000, 16000
 #: the planner's cost model, in SM cycles of an H100 (1.755 GHz): HBM's
 #: 3.35 TB/s in bytes a cycle; the bytes a cycle one SM is fed from HBM
 #: (about its share of that) and from L2; a block's ring fill and
@@ -60,7 +79,7 @@ BLOCK_CYCLES, REDUCE_CYCLES = 1000, 4000
 #: the kernel's plan, in this order (``KRAKEN_GEMM_PLAN`` in kraken_gemm.cu,
 #: which the library reports and :func:`_library` checks)
 PLAN_FIELDS = ("path", "M", "N", "K",
-               # bfloat16: the wgmma kernel
+               # the tile, ring, split and fill of either kernel
                "BM", "BN", "stages", "nk", "split", "kps", "mtiles", "ntiles",
                "tiles", "fill_a", "fill_b", "smem")
 #: the fields of a bf16 plan that the tile cache may choose; :func:`plan`
@@ -165,12 +184,54 @@ def _plan_wgmma(m: int, k: int, n: int, *, sms: int, a_align: int,
                      f"{tuple(choice)} is not a candidate plan")
 
 
+def vec_takes(align: int, row_elems: int) -> bool:
+    """Whether the float32 kernel copies B, whose data starts
+    ``align``-byte aligned and whose rows hold ``row_elems`` elements, in
+    16-byte pieces (else 4-byte ones; A it always copies 4 bytes at a time,
+    transposing it)."""
+    return align % 16 == 0 and row_elems % 4 == 0
+
+
+def _fma_plans(m: int, k: int, n: int, *, sms: int, b_align: int):
+    """float32: every split of the one 128 x 128 tile with its estimate, as
+    (key, plan) in the planner's order; the least key is the planner's
+    pick.
+
+    The estimate is in SM cycles: a 32-deep K step of a block is 128 x 128
+    x 32 FMAs at the SM's ``FMA_PER_CYCLE``, reached to ``FMA_EFF`` of it by
+    one block alone on an SM and by two together; the SM with the most
+    blocks (``ceil(blocks / sms)``, two at a time) sets the time, each pair
+    adding ``FMA_BLOCK_CYCLES``.  A split adds its partials' bytes, written
+    and read back, twice over at HBM's rate, and the sum's launch.  K is
+    split only when the tiles alone number fewer than ``sms``.  Ties go to
+    less split.
+    """
+    nk = ceil_div(k, FMA_BK)
+    mtiles, ntiles = ceil_div(m, FMA_BM), ceil_div(n, FMA_BN)
+    mn = mtiles * ntiles
+    step = FMA_BM * FMA_BN * FMA_BK / FMA_PER_CYCLE
+    for split in (_splits(nk) if mn < sms and nk > 1 else [1]):
+        kps = ceil_div(nk, split)
+        tiles = mn * split
+        per_sm = ceil_div(tiles, sms)
+        eff = FMA_EFF[min(per_sm, FMA_BLOCKS_PER_SM)]
+        est = (per_sm * kps * step / eff
+               + ceil_div(per_sm, FMA_BLOCKS_PER_SM) * FMA_BLOCK_CYCLES)
+        if split > 1:
+            est += (2 * (4 * split + 4) * m * n / HBM_BYTES
+                    + FMA_REDUCE_CYCLES)
+        yield (est, split), dict(
+            path=PATH_FMA, BM=FMA_BM, BN=FMA_BN, stages=FMA_STAGES, nk=nk,
+            split=split, kps=kps, mtiles=mtiles, ntiles=ntiles, tiles=tiles,
+            fill_a=1, fill_b=int(not vec_takes(b_align, n)), smem=FMA_SMEM)
+
+
 def candidates(m: int, k: int, n: int, *, dtype=torch.bfloat16,
                sms: int = SMS) -> list[dict]:
     """The plans a call may run with, as their :data:`CHOICE` fields and
     the planner's estimate ``est`` (SM cycles), in the planner's order:
     every bf16 tile with every split the planner would consider.  float32
-    has one plan and no choice: []."""
+    is planned by its estimate alone, with no choice: []."""
     if dtype != torch.bfloat16:
         return []
     return [dict(BM=q["BM"], BN=q["BN"], split=q["split"], est=key[0])
@@ -181,12 +242,12 @@ def candidates(m: int, k: int, n: int, *, dtype=torch.bfloat16,
 def plan(m: int, k: int, n: int, *, dtype=torch.bfloat16, sms: int = SMS,
          a_align: int = 16, b_align: int = 16, choice=None) -> dict:
     """How one ``[m, k] @ [k, n]`` call runs on the card: every field of
-    :data:`PLAN_FIELDS` (the wgmma fields are 0 for float32).  ``sms`` is
-    the card's SM count, ``a_align`` and ``b_align`` the byte alignment of
-    the operands' data; ``choice`` (bf16 only) the :data:`CHOICE` fields of
-    one of :func:`candidates`, from which every other field is derived
-    (None: the planner's pick).  Raises ValueError for a call the kernel
-    does not take."""
+    :data:`PLAN_FIELDS`.  ``sms`` is the card's SM count, ``a_align`` and
+    ``b_align`` the byte alignment of the operands' data; ``choice`` (bf16
+    only) the :data:`CHOICE` fields of one of :func:`candidates`, from
+    which every other field is derived (None: the planner's pick; float32
+    takes its estimate's least, :func:`_fma_plans`).  Raises ValueError for
+    a call the kernel does not take."""
     if dtype not in _DTYPE:
         raise ValueError(f"kraken_gemm dtype {dtype}: needs bfloat16 or "
                          "float32")
@@ -195,15 +256,16 @@ def plan(m: int, k: int, n: int, *, dtype=torch.bfloat16, sms: int = SMS,
     q = dict.fromkeys(PLAN_FIELDS, 0)
     q.update(M=int(m), N=int(n), K=int(k))
     if dtype == torch.float32:
-        if ceil_div(m, 64) > 65535:
-            raise ValueError(f"kraken_gemm float32: M={m} needs more than "
-                             "65535 row blocks")
         if choice is not None:
-            raise ValueError("kraken_gemm float32 has one plan: no choice")
-        q["path"] = PATH_FMA
-        return q
-    q.update(_plan_wgmma(int(m), int(k), int(n), sms=sms, a_align=a_align,
-                         b_align=b_align, choice=choice))
+            raise ValueError("kraken_gemm float32 is planned by its "
+                             "estimate: no choice")
+        q.update(min(_fma_plans(int(m), int(k), int(n), sms=sms,
+                                b_align=b_align),
+                     key=lambda kq: kq[0])[1])
+    else:
+        q.update(_plan_wgmma(int(m), int(k), int(n), sms=sms,
+                             a_align=a_align, b_align=b_align,
+                             choice=choice))
     if q["tiles"] > 2 ** 31 - 1:
         raise ValueError(f"kraken_gemm: {q['tiles']} tiles exceed one grid")
     return q
@@ -212,7 +274,11 @@ def plan(m: int, k: int, n: int, *, dtype=torch.bfloat16, sms: int = SMS,
 def describe(q: dict) -> str:
     """One line for a log: the plan's tile, ring, split, fill and blocks."""
     if q["path"] == PATH_FMA:
-        return "fp32 FMA tile 64x64"
+        copies = ("A transposed, B by 4-byte copies" if q["fill_b"] else
+                  "A transposed, B by 16-byte copies")
+        return (f"fp32 FMA {q['BM']}x{q['BN']} {q['stages']} stages split "
+                f"{q['split']} ({q['kps']} of {q['nk']} k-steps) "
+                f"{q['tiles']} blocks {copies} smem {q['smem']}")
     fill = ("A and B filled" if q["fill_a"] and q["fill_b"] else
             "A filled" if q["fill_a"] else "B filled" if q["fill_b"] else
             "TMA")

@@ -24,10 +24,13 @@ log-sum-exp (fp32, natural log units), which training saves.
 one grid of dQ blocks (one per (batch x head, q tile), walking its
 window's kv tiles) and dK/dV blocks (one per (batch x KV head, key tile),
 walking the q tiles that see those keys for each query head of the group
-in order), no atomics.  bfloat16 runs on the tensor cores (``mma.sync``,
-64-row q tiles, 64-key tiles, 32-row steps of a dK/dV block, D padded to
-``DP``), float32 on FMA (32-row tiles).  :func:`plan_bwd` lays a call out
-(:data:`BWD_PLAN_FIELDS`), :func:`bwd_tile_walk` lists both walks.
+in order), no atomics.  bfloat16 runs on ``wgmma`` (64-row tiles of both
+kinds, D padded to ``DP``, the walked tiles through a TMA ring of
+``stages``; one warpgroup computes S and P, the other dP and dS, P handed
+over once, so each is computed once a tile: ``ops`` = 14 operations per
+in-window pair and dim), float32 on FMA (32-row tiles).  :func:`plan_bwd`
+lays a call out (:data:`BWD_PLAN_FIELDS`), :func:`bwd_tile_walk` lists
+both walks.
 
 The wrappers take CUDA tensors only and launch the kernel or raise; the
 plain versions are :func:`repro_torch.kernels.ref.sliding_window_attention`
@@ -68,17 +71,29 @@ PLAN_FIELDS = ("path", "B", "H", "KV", "S", "D", "W",
                # bfloat16: the wgmma kernel
                "DB", "stages", "qtiles", "blocks", "smem")
 
-#: the backward's paths (float32 on FMA, bfloat16 on mma.sync) and their
+#: the backward's paths (float32 on FMA, bfloat16 on wgmma) and their
 #: tiles: (a dQ block's q rows, keys of a kv tile, q rows of a dK/dV
 #: block's step)
 PATH_MMA = 1
-BWD_TILES = {PATH_FMA: (32, 32, 32), PATH_MMA: (64, 64, 32)}
+BWD_TILES = {PATH_FMA: (32, 32, 32), PATH_MMA: (64, 64, 64)}
+#: the products each kind of block computes per tile (each 2 operations per
+#: pair and dim): S and dP once, then dV and dK, or dQ
+BWD_PRODUCTS = {"dkv": ("S^T", "dP^T", "dV", "dK"), "dq": ("S", "dP", "dQ")}
+BWD_OPS = 2 * sum(len(v) for v in BWD_PRODUCTS.values())
+#: bfloat16: a [64, 64] box of a tile, a P hand-off buffer, a ring stage's
+#: lse and delta, ring stages at most
+BWD_BOX = 64 * ROW
+BWD_XBUF = 64 * 64 * 2
+BWD_STATS = 1024
+BWD_STAGES_MAX = 4
 #: the backward kernel's plan, in this order (``SWA_ATTENTION_BWD_PLAN`` in
 #: swa_attention_bwd.cu, checked on load like :data:`PLAN_FIELDS`)
 BWD_PLAN_FIELDS = ("path", "B", "H", "KV", "S", "D", "W",
-                   # bfloat16: D padded to DP columns
-                   "DP", "qtiles", "kvtiles", "dq_blocks", "dkv_blocks",
-                   "smem")
+                   # bfloat16: D padded to DP columns, ring stages
+                   "DP", "stages", "qtiles", "kvtiles", "dq_blocks",
+                   "dkv_blocks",
+                   # operations per in-window pair and dim
+                   "ops", "smem")
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -277,15 +292,18 @@ def _bwd_library():
     return _bwd_lib
 
 
-def _bwd_smem(d: int, dp: int) -> int:
+def _bwd_smem(d: int, dp: int, stages: int = 0) -> int:
     """The backward kernel's shared memory.  float32 (``fp32::Geometry``
     in swa_attention_bwd.cu): the Q, dO, K and V tiles of 32 rows at stride
     D + 1, the P and dS tiles at stride 33, two [32, D] accumulators and the
     rows' lse and delta, each region 128-byte aligned.  bfloat16
-    (``mma::Geometry``, ``dp`` > 0): four bf16 tiles of 64 rows at stride
-    DP + 8 and 64 lse and delta."""
+    (``wg::smem_bytes``, ``dp`` > 0): the block's two fixed [64, DP] tiles,
+    two P hand-off buffers, ``stages`` ring stages of two [64, DP] tiles and
+    the rows' stats, and the alignment and barriers."""
     if dp:
-        return 4 * 2 * 64 * (dp + 8) + 4 * 2 * 64
+        tile = dp // 64 * BWD_BOX
+        return (2 * tile + 2 * BWD_XBUF + stages * (2 * tile + BWD_STATS)
+                + RESERVED)
     tile = round_up(4 * 32 * (d + 1), 128)
     ptile = round_up(4 * 32 * 33, 128)
     acc = round_up(4 * 32 * d, 128)
@@ -297,10 +315,11 @@ def plan_bwd(b: int, h: int, kv: int, s: int, d: int, window: int,
     """How one backward call runs on the card: every field of
     :data:`BWD_PLAN_FIELDS`.  One dK/dV block per (b * KV, key tile) and
     one dQ block per (b * H, q tile), in one grid, the dK/dV blocks first;
-    ``smem`` is what both kinds share.  bfloat16 takes the ``mma.sync``
-    path with D padded to DP = 64, 128 or 256 columns, float32 the FMA
-    path (:data:`BWD_TILES`).  Raises ValueError for a call the kernel does
-    not take."""
+    ``smem`` is what both kinds share.  bfloat16 takes the ``wgmma`` path
+    with D padded to DP = 64, 128 or 256 columns and as many ring stages
+    (2-4) as fit, float32 the FMA path (:data:`BWD_TILES`); both do
+    ``ops`` = :data:`BWD_OPS` operations per in-window pair and dim.
+    Raises ValueError for a call the kernel does not take."""
     if dtype not in _DTYPE:
         raise ValueError(f"swa_attention_bwd dtype {dtype}: needs float32 or "
                          "bfloat16")
@@ -310,12 +329,19 @@ def plan_bwd(b: int, h: int, kv: int, s: int, d: int, window: int,
                          f"D={d} W={window}")
     path = PATH_MMA if dtype == torch.bfloat16 else PATH_FMA
     dp = (64 if d <= 64 else 128 if d <= 128 else 256) if path else 0
+    stages = 0
+    if path:
+        tile = dp // 64 * BWD_BOX
+        stages = min(BWD_STAGES_MAX,
+                     (SMEM_BUDGET - _bwd_smem(d, dp, 0))
+                     // (2 * tile + BWD_STATS))
     bq, bkv, _ = BWD_TILES[path]
     qtiles, kvtiles = ceil_div(s, bq), ceil_div(s, bkv)
     q = dict(path=path, B=b, H=h, KV=kv, S=s, D=d, W=int(window), DP=dp,
-             qtiles=qtiles, kvtiles=kvtiles, dq_blocks=b * h * qtiles,
-             dkv_blocks=b * kv * kvtiles, smem=_bwd_smem(d, dp))
-    if q["smem"] > SMEM_BUDGET:
+             stages=stages, qtiles=qtiles, kvtiles=kvtiles,
+             dq_blocks=b * h * qtiles, dkv_blocks=b * kv * kvtiles,
+             ops=BWD_OPS, smem=_bwd_smem(d, dp, stages))
+    if q["smem"] > SMEM_BUDGET or (path and stages < 2):
         raise ValueError(f"swa_attention_bwd needs {q['smem']} bytes of "
                          f"shared memory at D={d}, over {SMEM_BUDGET}")
     return q
@@ -324,11 +350,11 @@ def plan_bwd(b: int, h: int, kv: int, s: int, d: int, window: int,
 def describe_bwd(q: dict) -> str:
     """One line for a log: the route, tiles, blocks and shared memory."""
     bq, bkv, bqs = BWD_TILES[q["path"]]
-    route = (f"mma.sync bf16, D padded to {q['DP']}" if q["path"]
-             else "fp32 FMA")
+    route = (f"wgmma bf16, D padded to {q['DP']}, {q['stages']} stages"
+             if q["path"] else "fp32 FMA")
     return (f"{route}, dQ {bq} rows x {bkv}-key tiles, dK/dV {bkv} keys x "
             f"{bqs}-row steps, {q['dkv_blocks']} dK/dV + {q['dq_blocks']} "
-            f"dQ blocks, smem {q['smem']}")
+            f"dQ blocks, {q['ops']} ops a pair and dim, smem {q['smem']}")
 
 
 def bwd_tile_walk(q: dict) -> tuple[dict, dict]:

@@ -31,11 +31,14 @@ and their arithmetic, on the CPU (the kernels themselves have no CPU mode).
   ``PAGED_ATTENTION_PLAN``), which the libraries also report when loaded.
 * The backward: :func:`~repro_torch.kernels.swa_attention.plan_bwd` for
   every ``SWA_BWD_CASES`` entry and the gemma3-12b and mixtral-8x22b train
-  shapes fits 227 KB with one block per tile; ``bwd_tile_walk`` takes every
+  shapes fits 227 KB with one block per tile (bf16: the wgmma kernel's
+  fixed tiles, P buffers and 2-4 ring stages); ``bwd_tile_walk`` takes every
   in-window (query, key) pair once in the dQ walk and once per query head
   of the group in the dK/dV walk, and no tile without one, on both paths'
-  tiles; a numpy emulation of the kernel's two walks (P from lse, dS, the
-  fixed head order; on the bf16 path P and dS rounded for the products)
+  tiles; the plan's 14 operations a pair and dim are what the walks do
+  (S and dP once a tile in each pass); a numpy emulation of the kernel's
+  two walks (P from lse, dS, the fixed head order; on the bf16 path P
+  rounded before dS is formed from it, and dS rounded, for the products)
   against ``ref.sliding_window_attention_bwd`` and, in float32, JAX's
   ``jax.vjp``; a skipped window-edge tile in the dK/dV walk must fail it;
   ``BWD_PLAN_FIELDS`` against ``SWA_ATTENTION_BWD_PLAN``.
@@ -541,7 +544,15 @@ def test_swa_bwd_plan_fits(case, dtype):
     else:
         assert q["path"] == sw.PATH_MMA and q["DP"] in (64, 128, 256)
         assert q["DP"] >= d > q["DP"] // 2 or q["DP"] == 64
-        assert q["smem"] == 4 * 2 * 64 * (q["DP"] + 8) + 4 * 2 * 64
+        # two fixed [64, DP] bf16 tiles, two 8 KB P buffers, the ring's
+        # stages of two tiles and 1 KB of stats, 2 KB for alignment and
+        # barriers; as many stages (2-4) as fit
+        stage = 2 * 64 * q["DP"] * 2 + 1024
+        fixed = 2 * 64 * q["DP"] * 2 + 2 * 8192 + 2048
+        assert 2 <= q["stages"] <= 4
+        assert q["smem"] == fixed + q["stages"] * stage
+        assert q["stages"] == 4 or q["smem"] + stage > SMEM_MAX
+    assert q["ops"] == sw.BWD_OPS == 14
     bq, bkv, _ = sw.BWD_TILES[q["path"]]
     assert q["qtiles"] == math.ceil(s / bq) and q["kvtiles"] == math.ceil(
         s / bkv)
@@ -604,14 +615,43 @@ def test_swa_bwd_walks_take_every_window_pair_once(case, dtype):
             assert len(tiles) == hi.max() // bqs - lo.min() // bqs + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", _swa_bwd_shapes()[:10], ids=lambda c: c[0])
+def test_swa_bwd_ops_count_matches_the_walks(case, dtype):
+    """The plan's ``ops`` is what the walks do to each in-window pair: the
+    dQ walk takes it once with the dQ block's products (S, dP, dQ), the
+    dK/dV walk once per query head with the dK/dV block's (S^T, dP^T, dV,
+    dK), each 2 operations a pair and dim: 8 + 6 = 14, S and dP computed
+    once in each pass."""
+    _, b, h, kv, s, d, w = case
+    q = sw.plan_bwd(b, h, kv, s, d, w, dtype)
+    dq, dkv = sw.bwd_tile_walk(q)
+    bq, bk, bqs = sw.BWD_TILES[q["path"]]
+    ww = min(w, s)
+    seen_q = np.zeros((s, s), np.int64)
+    for qt, tiles in dq.items():
+        for kt in tiles:
+            seen_q[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk] += 1
+    seen_kv = np.zeros((h // kv, s, s), np.int64)
+    for kt, walk in dkv.items():
+        for gi, qt in walk:
+            seen_kv[gi, qt * bqs:(qt + 1) * bqs, kt * bk:(kt + 1) * bk] += 1
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    inside = (j <= i) & (j > i - ww)
+    assert (seen_q[inside] == 1).all() and (seen_kv[:, inside] == 1).all()
+    per_pair = 2 * (len(sw.BWD_PRODUCTS["dq"]) * seen_q[inside]
+                    + len(sw.BWD_PRODUCTS["dkv"]) * seen_kv[0][inside])
+    assert (per_pair == q["ops"]).all() and q["ops"] == 14
+
+
 def emulate_swa_bwd(q, k, v, out, dout, lse, window, *, dtype, fault=None):
     """swa_attention_bwd.cu in numpy (fp32 sums): delta = rowsum(dout *
     out); the dQ blocks over :func:`bwd_tile_walk`'s dQ walk, the dK/dV
     blocks over its dK/dV walk (the group's heads in order), in the tiles
     of ``dtype``'s path; each pair inside the window P = exp(s - lse) and
-    dS = P (dP - delta), zero elsewhere; on the bf16 path P and dS rounded
-    to bf16 as the second products' operands and the results rounded to
-    bf16.  ``fault="skip_edge"`` drops each head's last q step of a kv
+    dS = P (dP - delta), zero elsewhere; on the bf16 path P rounded to
+    bf16 (the second products' operand, and what the dP warpgroup receives
+    to form dS), dS rounded to bf16 and the results rounded to bf16.  ``fault="skip_edge"`` drops each head's last q step of a kv
     tile's dK/dV walk (the rows at the window's far edge) when it is not
     also the first."""
     b, h, s, d = q.shape
@@ -632,9 +672,10 @@ def emulate_swa_bwd(q, k, v, out, dout, lse, window, *, dtype, fault=None):
         inside = (keys[None] <= rows[:, None]) & (keys[None] > rows[:, None] - w)
         p = np.where(inside, np.exp(np.where(inside, x, 0)
                                     - lse[bi, hi, rows][:, None]), 0)
+        p = rnd(p.astype(np.float32))
         dp = dout[bi, hi, rows] @ vv.T
         ds = np.where(inside, p * (dp - delta[bi, hi, rows][:, None]), 0)
-        return rnd(p.astype(np.float32)), rnd(ds.astype(np.float32))
+        return p, rnd(ds.astype(np.float32))
 
     for bi in range(b):
         for hi in range(h):

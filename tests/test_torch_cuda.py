@@ -170,6 +170,79 @@ def test_gemm_kernel_edge_cases(case, dtype):
     assert torch.equal(got.float(), again.float())
 
 
+# float32 shapes of the FMA kernel: ragged M, N and K (A, transposed by
+# 4-byte copies, at K 27; B by 4-byte copies at N 123), a split over K,
+# several row and column tiles, train_lm's wk|wv dB (split)
+F32_GEMM_CASES = [("ragged, B by 4-byte copies", 37, 200, 123, "silu", True),
+                  ("K 27, A by 4-byte copies", 150, 27, 72, "relu", True),
+                  ("split over K, one tile", 20, 4800, 64, "gelu", True),
+                  ("ragged tiles, no split", 300, 1000, 260, None, False),
+                  ("train_lm wk|wv dB", 768, 2048, 256, None, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_GEMM_CASES,
+                         ids=[c[0] for c in F32_GEMM_CASES])
+def test_gemm_float32_kernel_ragged_and_split(case):
+    """The float32 FMA kernel at ragged and split shapes: within 1e-4 of
+    the plain version, the same bits on a second call, and the plan's
+    split and B's 4-byte copies as the planner says."""
+    from repro_torch.kernels import kraken_gemm as tkg
+    from repro_torch.kernels import ref
+    _, m, k, n, act, bias = case
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    bv = torch.randn((n,), generator=g, device=dev) if bias else None
+    q = tkg.plan(m, k, n, dtype=torch.float32)
+    assert q["path"] == tkg.PATH_FMA
+    assert (q["fill_a"], q["fill_b"]) == (1, int(n % 4 != 0))
+    before = tkg.launches
+    got = tkg.kraken_gemm(a, b, bias=bv, activation=act)
+    again = tkg.kraken_gemm(a, b, bias=bv, activation=act)
+    want = ref.matmul(a, b, bias=bv, activation=act)
+    torch.cuda.synchronize()
+    assert tkg.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+    if case[0].startswith("split") or "dB" in case[0]:
+        assert q["split"] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 240])
+def test_swa_attention_bwd_wgmma_each_width(d):
+    """The bf16 backward at each padded width DP (64, 128, 256), a window
+    across q tiles and a ragged S: within ``SWA_BWD_TOL`` of the plain
+    backward at unit scale, the same bits on a second call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as tsw
+    dev = _cuda()
+    b, h, kvh, s, window = 1, 4, 2, 700, 150
+    q_plan = tsw.plan_bwd(b, h, kvh, s, d, window)
+    assert q_plan["DP"] == {64: 64, 128: 128, 240: 256}[d]
+    assert q_plan["ops"] == 14
+    atol, rtol = ac.SWA_BWD_TOL["bfloat16"]
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16) for shape in ((b, h, s, d), (b, kvh, s, d),
+                                      (b, kvh, s, d), (b, h, s, d)))
+    out, lse = tsw.swa_attention(q, k, v, window=window, return_lse=True)
+    got = tsw.swa_attention_bwd(q, k, v, out, dout, lse, window=window)
+    again = tsw.swa_attention_bwd(q, k, v, out, dout, lse, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = ref.sliding_window_attention_bwd(q, k, v, out, dout, lse,
+                                            window=window)
+    floor = 0.01 * max(float(y.float().abs().max()) for y in want)
+    for x, y in zip(got, want):
+        scale = max(float(y.float().abs().max()), floor)
+        err = (x.float() - y.float()).abs() / scale
+        assert (err <= atol + rtol * y.float().abs() / scale).all(), \
+            float(err.max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
 def test_paged_attention_kernel_matches_plain(kv):

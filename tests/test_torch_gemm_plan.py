@@ -20,6 +20,14 @@ kernel itself has no CPU mode).
   applied once, after the sum.  Held against ``ref.matmul``; the same
   emulation with bias and silu applied per partial, a swizzle one chunk
   off, or a partial dropped must fail.
+* float32: the FMA kernel's plan for the same shapes and train_lm's
+  products (fits, covers each output once, splits only under 132 tiles,
+  A always by 4-byte copies, B by 4-byte ones exactly where 16-byte ones
+  do not fit), and a numpy
+  emulation of its ring, its zero-filled copies (Inf past the operands
+  must not come in) and its split's fixed-order sum against
+  ``ref.matmul``; a ring stage never copied, a dropped partial and 16-byte
+  copies over a ragged row must fail.
 * The plan's field order: ``PLAN_FIELDS`` against the kernel source's
   ``KRAKEN_GEMM_PLAN`` list (the library also reports it when loaded).
 """
@@ -194,10 +202,197 @@ def test_plan_refuses_what_the_kernel_cannot_take():
 
 
 def test_float32_plan_is_the_fma_kernel():
+    """float32 runs the FMA kernel: its one 128 x 128 tile, the ring of
+    32-deep K steps, A transposed by 4-byte copies, 4-byte copies of B whose
+    rows (N 123) a 16-byte copy cannot take, and no choice."""
     q = kg.plan(37, 200, 123, dtype=torch.float32)
     assert q["path"] == kg.PATH_FMA
-    assert all(q[f] == 0 for f in kg.PLAN_FIELDS
-               if f not in ("path", "M", "N", "K"))
+    assert (q["BM"], q["BN"], q["stages"]) == (kg.FMA_BM, kg.FMA_BN,
+                                               kg.FMA_STAGES) == (128, 128, 3)
+    assert q["nk"] == 7 and (q["fill_a"], q["fill_b"]) == (1, 1)
+    assert q["smem"] == kg.FMA_SMEM == 3 * (32 * 132 + 32 * 128) * 4
+    assert kg.describe(q).startswith("fp32 FMA 128x128 3 stages")
+    assert kg.candidates(37, 200, 123, dtype=torch.float32) == []
+    with pytest.raises(ValueError):
+        kg.plan(37, 200, 123, dtype=torch.float32, choice=(128, 128, 1))
+
+
+def _train_lm_cases():
+    """train_lm's products (yi-100m, float32, M 2048): each cell's forward,
+    dA and dB, as ``chip_smoke.py``'s ``examples`` phase times them."""
+    out = []
+    for name, k, n, *_ in gemm_cases.TRAIN_LM_GEMMS:
+        m = gemm_cases.TRAIN_LM_M
+        out += [(f"train_lm {name} forward", m, k, n, 16, 16),
+                (f"train_lm {name} dA", m, n, k, 16, 16),
+                (f"train_lm {name} dB", k, m, n, 16, 16)]
+    return out
+
+
+F32_CASES = ([c for c in PLAN_CASES if c[4] % 4 == 0 and c[5] % 4 == 0]
+             + _train_lm_cases())
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=[c[0] for c in F32_CASES])
+def test_float32_plan_fits_covers_and_splits_only_when_under_filled(case):
+    """The float32 plan of every shape: fits 227 KB (two blocks an SM),
+    its tiles and splits cover every output element once (each split a
+    disjoint, non-empty run of 32-deep K steps, together all of K), K split
+    only when the tiles alone number fewer than the H100's 132 SMs, A
+    always by 4-byte copies (it is transposed on the way in) and B by
+    4-byte ones exactly where a 16-byte one cannot take it."""
+    _, m, k, n, a_align, b_align = case
+    q = kg.plan(m, k, n, dtype=torch.float32, sms=H100_SMS, a_align=a_align,
+                b_align=b_align)
+    assert q["path"] == kg.PATH_FMA and (q["M"], q["N"], q["K"]) == (m, n, k)
+    assert kg.FMA_BLOCKS_PER_SM * q["smem"] <= SMEM_MAX
+    assert q["nk"] == -(-k // kg.FMA_BK)
+    assert q["mtiles"] == -(-m // 128) and q["ntiles"] == -(-n // 128)
+    assert q["tiles"] == q["mtiles"] * q["ntiles"] * q["split"]
+    m0, n0, k0, ks = tiles_of(q)
+    key = (m0 // q["BM"]) * q["ntiles"] + n0 // q["BN"]
+    assert np.array_equal(np.bincount(key, minlength=q["mtiles"] * q["ntiles"]),
+                          np.full(q["mtiles"] * q["ntiles"], q["split"]))
+    if q["nk"]:
+        assert ks.min() >= 1
+    order = np.lexsort((k0, key))
+    k0s = k0[order].reshape(-1, q["split"])
+    kss = ks[order].reshape(-1, q["split"])
+    assert (k0s[:, 0] == 0).all()
+    assert (k0s[:, 1:] == k0s[:, :-1] + kss[:, :-1]).all()
+    assert (k0s[:, -1] + kss[:, -1] == q["nk"]).all()
+    if q["split"] > 1:
+        assert q["mtiles"] * q["ntiles"] < H100_SMS
+    assert q["fill_a"] == 1
+    assert q["fill_b"] == (b_align % 16 != 0 or n % 4 != 0)
+
+
+def emulate_fma(a, b, bias, act, q, *, fault=None):
+    """The float32 kernel over a plan ``q``, in numpy: each block walks its
+    run of 32-deep K steps through a ring of ``stages`` slots (steps 0 ..
+    stages - 2 copied first, step i + stages - 1 into its slot once step i
+    is awaited); a copy reads only inside [M, K] and [K, N] -- 16-byte
+    pieces checked at their first element, 4-byte ones (A's always, B's
+    where ``fill_b``) at each -- and writes zeros elsewhere.  ``a`` and ``b``
+    are views into larger arrays holding Inf past the operands, as memory
+    beyond a tensor may.  The sums are float64 in K order; a split's
+    partials summed z = 0, 1, ..., then bias and the activation.
+    ``fault``: "skip_stage" (the prologue copies one step fewer),
+    "drop_partial" (the last partial left out), "wide_copies" (16-byte
+    pieces checked at their first element where the kernel copies 4 bytes:
+    past K, A's Inf meets B's zeros)."""
+    m, n, k = q["M"], q["N"], q["K"]
+    bk, stages = kg.FMA_BK, q["stages"]
+    full_a, full_b = a.base if a.base is not None else a, \
+        b.base if b.base is not None else b
+
+    def copy(mat, full, r0, c0, rows, cols, lim_r, lim_c, vec):
+        out = np.zeros((rows, cols))
+        for r in range(rows):
+            for c in range(cols):
+                head = c - c % 4 if vec else c
+                if r0 + r < lim_r and c0 + head < lim_c:
+                    out[r, c] = full[r0 + r, c0 + c]
+        return out
+
+    def stage(m0, n0, step):
+        k0 = step * bk
+        vec_a = fault == "wide_copies"
+        vec_b = not q["fill_b"] or fault == "wide_copies"
+        return (copy(a, full_a, m0, k0, 128, bk, m, k, vec_a),
+                copy(b, full_b, k0, n0, bk, 128, k, n, vec_b))
+
+    parts = np.zeros((q["split"], m, n))
+    for m0, n0, k0, ks in zip(*tiles_of(q)):
+        z = k0 // q["kps"] if q["kps"] else 0
+        acc = np.zeros((128, 128))
+        ring = [None] * stages
+        first = stages - 2 if fault == "skip_stage" else stages - 1
+        for sl in range(first):
+            if sl < ks:
+                ring[sl] = stage(m0, n0, k0 + sl)
+        for i in range(ks):
+            nxt = i + stages - 1
+            cur = ring[i % stages]
+            if cur is None:   # a slot never copied holds nothing: zeros
+                cur = (np.zeros((128, bk)), np.zeros((bk, 128)))
+            if nxt < ks:
+                ring[nxt % stages] = stage(m0, n0, k0 + nxt)
+            acc += cur[0] @ cur[1]
+        rows, cols = min(128, m - m0), min(128, n - n0)
+        parts[z, m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+    if fault == "drop_partial":
+        parts[-1] = 0
+    out = parts[0].copy()
+    for z in range(1, q["split"]):
+        out += parts[z]
+    return _epilogue(out, bias, act).astype(np.float32)
+
+
+# (name, M, K, N, act, bias, sms): float32 plans that split, ragged M/N/K,
+# 4-byte copies of A (K 27) and of B (N 123), several row and column tiles
+FMA_EMULATED = [
+    ("M 37, N 123: B by 4-byte copies, split", 37, 200, 123, "silu", True, 8),
+    ("K 27: A by 4-byte copies, relu", 150, 27, 72, "relu", True, 1),
+    ("ragged M, N and K, two tiles each, split", 130, 104, 260, None, False,
+     8),
+    ("one tile, K 480 split over 2 SMs", 20, 480, 64, "gelu", True, 2),
+    ("six tiles, no split, 4 k-steps", 130, 104, 260, None, True, 4),
+]
+
+
+def _fma_inputs(case, seed=0):
+    name, m, k, n, act, bias, sms = case
+    rng = np.random.default_rng(seed)
+    # the operands inside larger arrays of Inf (what lies past them)
+    big_a = np.full((m + 9, k + 9), np.inf)
+    big_b = np.full((k + 9, n + 9), np.inf)
+    big_a[:m, :k] = rng.normal(size=(m, k)).astype(np.float32)
+    big_b[:k, :n] = (rng.normal(size=(k, n)) / np.sqrt(max(k, 1))).astype(
+        np.float32)
+    a, b = big_a[:m, :k], big_b[:k, :n]
+    bv = rng.normal(size=(n,)).astype(np.float32) if bias else None
+    q = kg.plan(m, k, n, dtype=torch.float32, sms=sms)
+    want = ref.matmul(torch.from_numpy(a.astype(np.float32)),
+                      torch.from_numpy(b.astype(np.float32)),
+                      bias=None if bv is None else torch.from_numpy(bv),
+                      activation=act).numpy()
+    return a, b, bv, act, q, want
+
+
+@pytest.mark.parametrize("case", FMA_EMULATED,
+                         ids=[c[0] for c in FMA_EMULATED])
+def test_emulated_fma_kernel_matches_plain(case):
+    a, b, bv, act, q, want = _fma_inputs(case)
+    got = emulate_fma(a, b, bv, act, q)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_emulated_fma_cases_reach_every_path():
+    plans = [_fma_inputs(c)[4] for c in FMA_EMULATED]
+    assert any(q["split"] > 1 for q in plans)
+    assert any(q["fill_a"] for q in plans) and any(q["fill_b"] for q in plans)
+    assert any(q["mtiles"] > 1 and q["ntiles"] > 1 for q in plans)
+    assert any(q["kps"] >= q["stages"] for q in plans)
+
+
+@pytest.mark.parametrize("fault", ["skip_stage", "drop_partial",
+                                   "wide_copies"])
+def test_emulated_fma_faults_fail(fault):
+    """A ring stage never copied, a split's partial left out of the sum, or
+    16-byte copies where rows end inside one (Inf past N comes in) show."""
+    case = FMA_EMULATED[{"skip_stage": 4, "drop_partial": 3,
+                         "wide_copies": 1}[fault]]
+    a, b, bv, act, q, want = _fma_inputs(case)
+    assert {"skip_stage": q["kps"] >= q["stages"],
+            "drop_partial": q["split"] > 1,
+            "wide_copies": q["fill_a"] and q["K"] % 4}[fault]
+    with np.errstate(invalid="ignore"):   # Inf x 0 where it leaks
+        got = emulate_fma(a, b, bv, act, q, fault=fault)
+    np.testing.assert_allclose(emulate_fma(a, b, bv, act, q), want,
+                               rtol=1e-4, atol=1e-4)
+    assert not np.isfinite(got).all() or np.abs(got - want).max() > 1e-2
 
 
 def test_gemm_tables_match_the_configs():

@@ -81,10 +81,20 @@ FAULTS = {
         "desc_mn128(st + KV_BYTES + 16, KVBOX)"),
     "swa bwd: the dK/dV walk skips each head's window-edge q tile": (
         "swa_attention_bwd", SWA_BWD,
-        "      for (int qt = qt_lo; qt <= qt_hi; ++qt) {\n"
-        "        const int q0 = qt * BQS, nq = min(BQS, S - q0);",
-        "      for (int qt = qt_lo; qt < qt_hi; ++qt) {\n"
-        "        const int q0 = qt * BQS, nq = min(BQS, S - q0);"),
+        "    nq = min(S - 1, f0 + T - 1 + W - 1) / T - lo + 1;",
+        "    nq = max(1, min(S - 1, f0 + T - 1 + W - 1) / T - lo);"),
+    "swa bwd: the P hand-off read before its barrier": (
+        "swa_attention_bwd", SWA_BWD,
+        "      bar_sync(X_FULL + (t & 1));\n"
+        "#pragma unroll\n"
+        "      for (int j = 0; j < 4; ++j)\n"
+        "#pragma unroll\n"
+        "        for (int u = 0; u < 4; ++u) af[j][u] = xb[(4 * j + u) * 128 + tid];\n",
+        "#pragma unroll\n"
+        "      for (int j = 0; j < 4; ++j)\n"
+        "#pragma unroll\n"
+        "        for (int u = 0; u < 4; ++u) af[j][u] = xb[(4 * j + u) * 128 + tid];\n"
+        "      bar_sync(X_FULL + (t & 1));\n"),
     "one split dropped from the combine": (
         "decode_attention", COMBINE, _DROP_OLD, _DROP_NEW),
     "combine without the rescale by e^(m_z - M)": (

@@ -6,7 +6,7 @@ that the checks catch it, on a machine with one NVIDIA GPU.
 
 For each fault of :data:`FAULTS`: copy ``src/``, ``chip_smoke.py``,
 ``pytest.ini`` and the card tests into ``<out>/<fault>/``, replace one piece
-of the bf16 kernel's source there, then run ``chip_smoke.py --phases
+of the bf16 or the float32 kernel's source there, then run ``chip_smoke.py --phases
 build,kernels`` and ``pytest -m cuda tests/test_torch_cuda.py -k gemm`` in
 that copy.  Records per fault whether each failed, how many ``kernels``
 cases missed ``GEMM_TOL`` and the largest atol a missing case needs (from
@@ -44,6 +44,12 @@ FAULTS = {
     "one split partial dropped from the sum": (
         "for (int z = 1; z < split; ++z) s += part[z * count + i];",
         "for (int z = 1; z < split - 1; ++z) s += part[z * count + i];"),
+    "float32 ring: a skipped stage (the prologue copies one step fewer)": (
+        "  for (int s = 0; s < STAGES - 1; ++s) {\n    if (s < n) load_stage(",
+        "  for (int s = 0; s < STAGES - 2; ++s) {\n    if (s < n) load_stage("),
+    "float32 split out of order: split z sums split z + 1's run of K": (
+        "  const int n = tl.ksteps, kb = tl.k0;",
+        "  const int n = tl.ksteps, kb = (tl.z + 1) % p.split * p.kps;"),
     "silu (the activation) applied per partial": (
         "      float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];\n",
         "      float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];\n"
